@@ -1,0 +1,24 @@
+"""Backend registry: ``build(name, **params)`` resolves the config's
+``model.backend.name``. Only ``dla`` is ported so far (ROADMAP A9 holds
+the other backbones)."""
+
+from typing import Callable, Dict
+
+from centernet_uda_torch.models.common import Backend
+
+
+def _dla_build(**params) -> Backend:
+    from centernet_uda_torch.models import dla
+
+    return dla.build(**params)
+
+
+_REGISTRY: Dict[str, Callable[..., Backend]] = {"dla": _dla_build}
+
+
+def build(name: str, **params) -> Backend:
+    """Build a backend by config name; ``device`` defaults to ``"cuda"``."""
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown backend '{name}'; available: "
+                       f"{sorted(_REGISTRY)}")
+    return _REGISTRY[name](**params)

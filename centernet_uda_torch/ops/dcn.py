@@ -1,0 +1,224 @@
+"""DCNv2 modulated deformable convolution in PyTorch (NCHW).
+
+Three functions of the same operands:
+
+- ``dcn_v2``: the exact, unbounded sampler (the semantics of the reference
+  CUDA extension's ``modulated_deformable_im2col``): bilinear samples with
+  zero reads outside the map, times the mask, contracted with the weight.
+  Any kernel size, stride, padding and dilation. Gradients by autograd.
+- ``dcn_v2_twin``: the plain version of the Hopper kernels
+  (``ops/dcn_cuda.py``), with their semantics: 3x3 / stride 1 / pad 1 /
+  dilation 1, the vertical offset clamped to +-``PALLAS_MAX_SHIFT`` with a
+  zero gradient where ``|dy| >= PALLAS_MAX_SHIFT``, horizontal sampling
+  exact, x and the weight staged in bf16, the samples rounded to bf16, f32
+  accumulation.
+- ``DCN``: the module (reference ``libs/DCNv2/dcn_v2.py`` class ``DCN``):
+  a zero-initialised ``conv_offset_mask`` conv gives ``(o1, o2, mask
+  logits)``; ``offset = cat(o1, o2)`` and the mask is their sigmoid.
+
+Operands: x (B, Cin, H, W); offset (B, 2K, Ho, Wo) with channel 2t = dy and
+2t+1 = dx of tap t in row-major tap order; mask (B, K, Ho, Wo) post-sigmoid;
+weight (Cout, Cin, kh, kw).
+
+``dcn_impl`` selects the implementation of each ``DCN`` module:
+``auto`` runs the Hopper kernels on CUDA tensors and the exact op on CPU
+tensors; ``cuda`` runs the kernel path (for a CPU tensor that is the plain
+twin); ``xla`` runs the exact op; ``pallas`` is read as ``cuda`` so the
+shared configs run unchanged. Outside 3x3 / s1 / p1 / d1 the exact op runs
+whatever the setting.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
+
+PALLAS_MAX_SHIFT = 14
+
+DCN_IMPLS = ("auto", "cuda", "xla", "pallas")
+
+
+def _pair(v) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else (int(v[0]), int(v[1]))
+
+
+def deform_sample(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                  kernel, stride, padding, dilation) -> torch.Tensor:
+    """Gather + bilinear sample + mask -> (B, Cin, K, Ho, Wo) columns."""
+    kh, kw = kernel
+    sh, sw = stride
+    ph, pw = padding
+    dh, dw = dilation
+    k = kh * kw
+    b, cin, h, w = x.shape
+    ho, wo = mask.shape[-2:]
+    dev = x.device
+    # sampling positions are float32 whatever x's dtype
+    oy = (torch.arange(ho, device=dev) * sh - ph).float()
+    ox = (torch.arange(wo, device=dev) * sw - pw).float()
+    ty = (torch.arange(kh, device=dev) * dh).repeat_interleave(kw).float()
+    tx = (torch.arange(kw, device=dev) * dw).repeat(kh).float()
+    off = offset.float().reshape(b, k, 2, ho, wo)
+    py = oy.view(1, 1, ho, 1) + ty.view(1, k, 1, 1) + off[:, :, 0]
+    px = ox.view(1, 1, 1, wo) + tx.view(1, k, 1, 1) + off[:, :, 1]
+
+    y0 = torch.floor(py)
+    x0 = torch.floor(px)
+    wy1 = py - y0  # weight of the y0+1 row
+    wx1 = px - x0
+    x_flat = x.reshape(b, cin, h * w)
+
+    def corner(yi, xi, wgt):
+        valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).long()
+        got = torch.gather(x_flat, 2, idx.reshape(b, 1, -1).expand(b, cin, -1))
+        wgt = torch.where(valid, wgt, torch.zeros_like(wgt))
+        return got.reshape(b, cin, k, ho, wo) * wgt.unsqueeze(1).to(x.dtype)
+
+    val = (corner(y0, x0, (1 - wy1) * (1 - wx1))
+           + corner(y0, x0 + 1, (1 - wy1) * wx1)
+           + corner(y0 + 1, x0, wy1 * (1 - wx1))
+           + corner(y0 + 1, x0 + 1, wy1 * wx1))
+    return val * mask.reshape(b, 1, k, ho, wo).to(val.dtype)
+
+
+def _contract(cols: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor]) -> torch.Tensor:
+    b, cin, k, ho, wo = cols.shape
+    cout = weight.shape[0]
+    out = torch.einsum("bckp,ock->bop", cols.reshape(b, cin, k, ho * wo),
+                       weight.reshape(cout, cin, k))
+    if bias is not None:
+        out = out + bias.view(1, -1, 1)
+    return out.reshape(b, cout, ho, wo)
+
+
+def dcn_v2(x, offset, mask, weight, bias=None, stride=1, padding=1,
+           dilation=1) -> torch.Tensor:
+    """The exact modulated deformable convolution (deformable_groups=1)."""
+    cout, cin, kh, kw = weight.shape
+    sh, sw = _pair(stride)
+    ph, pw = _pair(padding)
+    dh, dw = _pair(dilation)
+    b, _, h, w = x.shape
+    ho = (h + 2 * ph - (dh * (kh - 1) + 1)) // sh + 1
+    wo = (w + 2 * pw - (dw * (kw - 1) + 1)) // sw + 1
+    if offset.shape != (b, 2 * kh * kw, ho, wo):
+        raise ValueError(f"offset {tuple(offset.shape)} != "
+                         f"{(b, 2 * kh * kw, ho, wo)}")
+    if mask.shape != (b, kh * kw, ho, wo):
+        raise ValueError(f"mask {tuple(mask.shape)} != {(b, kh * kw, ho, wo)}")
+    cols = deform_sample(x, offset, mask, (kh, kw), (sh, sw), (ph, pw),
+                         (dh, dw))
+    return _contract(cols, weight, bias)
+
+
+def _bf16_value(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 in value, with an identity gradient."""
+    return t + (t.to(torch.bfloat16).to(t.dtype) - t).detach()
+
+
+def dcn_v2_twin(x, offset, mask, weight, bias=None,
+                max_shift: float = PALLAS_MAX_SHIFT) -> torch.Tensor:
+    """Plain PyTorch version of the Hopper DCN kernels (3x3/s1/p1/d1).
+
+    Autograd through it gives the kernels' backward: the dy gradient is
+    zero where ``|dy| >= max_shift`` (the clamp saturates), both y-corners
+    enter the offset gradient at integer positions (the derivative of
+    ``floor`` is zero), and the rounding of the samples to bf16 rounds the
+    column gradient ``g . W^T`` to bf16 as the kernels do.
+    """
+    b, _, h, w = x.shape
+    if tuple(weight.shape[2:]) != (3, 3):
+        raise ValueError("the DCN kernels are 3x3 only")
+    off = offset.reshape(b, 9, 2, h, w)
+    dy_raw = off[:, :, 0]
+    dy = torch.where(dy_raw.abs() < max_shift, dy_raw,
+                     dy_raw.clamp(-max_shift, max_shift).detach())
+    offset_c = torch.stack((dy, off[:, :, 1]), 2).reshape(offset.shape)
+    cols = deform_sample(_bf16_value(x), offset_c, mask, (3, 3), (1, 1),
+                         (1, 1), (1, 1))
+    cols = cols.to(torch.bfloat16).to(x.dtype)
+    return _contract(cols, _bf16_value(weight), bias).to(x.dtype)
+
+
+def kernel_supported(weight: torch.Tensor, stride, padding, dilation) -> bool:
+    """The geometry the Hopper kernels cover (every DCN of the reference)."""
+    return (tuple(weight.shape[2:]) == (3, 3) and _pair(stride) == (1, 1)
+            and _pair(padding) == (1, 1) and _pair(dilation) == (1, 1))
+
+
+def uses_kernel_path(impl: str, x: torch.Tensor, weight: torch.Tensor,
+                     stride=1, padding=1, dilation=1) -> bool:
+    """Whether ``dcn_impl`` routes this call to the kernel path."""
+    impl = impl.lower()
+    if impl not in DCN_IMPLS:
+        raise ValueError(f"dcn_impl must be one of {DCN_IMPLS}, got {impl!r}")
+    if impl == "xla" or not kernel_supported(weight, stride, padding,
+                                             dilation):
+        return False
+    if impl == "auto":
+        return x.is_cuda
+    return True
+
+
+class DCN(nn.Module):
+    """Deformable conv with a learned offset + mask head (NCHW).
+
+    Parameter names reproduce the reference state dict: ``weight``,
+    ``bias``, ``conv_offset_mask.weight``, ``conv_offset_mask.bias``.
+    ``max_abs_dy`` holds, after a forward on the kernel path, max |dy| over
+    the even offset channels (a 0-dim tensor, no gradient), else None; the
+    trainer reads it to catch saturation of the clamp.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size=3,
+                 stride=1, padding=1, dilation=1, impl: str = "auto"):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.impl = impl
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
+                                               kh, kw))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.conv_offset_mask = nn.Conv2d(
+            in_channels, 3 * kh * kw, (kh, kw), stride=stride,
+            padding=padding, dilation=dilation, bias=True)
+        self.max_abs_dy: Optional[torch.Tensor] = None
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        cin, kh, kw = self.weight.shape[1:]
+        stdv = 1.0 / math.sqrt(cin * kh * kw)
+        # drawn on the CPU, so a seed gives the same weights on every device
+        values = torch.empty(self.weight.shape).uniform_(-stdv, stdv,
+                                                         generator=generator)
+        with torch.no_grad():
+            self.weight.copy_(values)
+            self.bias.zero_()
+            self.conv_offset_mask.weight.zero_()
+            self.conv_offset_mask.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        om = self.conv_offset_mask(x)
+        o1, o2, m = torch.chunk(om, 3, dim=1)
+        offset = torch.cat((o1, o2), dim=1)
+        mask = torch.sigmoid(m)
+        if uses_kernel_path(self.impl, x, self.weight, self.stride,
+                            self.padding, self.dilation):
+            from centernet_uda_torch.ops.dcn_cuda import dcn_v2_kernel
+
+            self.max_abs_dy = offset[:, 0::2].detach().abs().amax()
+            return dcn_v2_kernel(x, offset, mask, self.weight, self.bias)
+        self.max_abs_dy = None
+        args = (x, offset, mask, self.weight, self.bias, self.stride,
+                self.padding, self.dilation)
+        if torch.is_grad_enabled():
+            # recompute the column tensor in the backward instead of keeping
+            # it (the reference extension likewise recomputes im2col)
+            return checkpoint(dcn_v2, *args, use_reentrant=False)
+        return dcn_v2(*args)

@@ -1,0 +1,271 @@
+"""Hand-written Hopper (sm_90a) kernels of the DCNv2 layer, and their build.
+
+Two kernels, CUDA C++ in ``centernet_uda_torch/csrc/``:
+
+- ``dcn_fwd`` (``csrc/dcn_fwd.cu``) replaces the TPU kernel ``_dcn_kernel``
+  (``centernet_uda_tpu/ops/dcn_pallas.py``, via ``dcn_v2_pallas_lanes``).
+- ``dcn_bwd`` (``csrc/dcn_bwd.cu``, two launches: sampling gradients + dx,
+  then dW) replaces ``_dcn_bwd_params_kernel`` (same file, via
+  ``_bwd_params_call`` / ``dcn_v2_pallas_bwd_lanes``).
+
+Each source notes what bounds it on the H100 and what its design does about
+that. Their plain version is ``ops.dcn.dcn_v2_twin`` (forward) and autograd
+through it (backward): a wrapper takes it only for a tensor that lies on the
+CPU. For a CUDA tensor it launches the kernel or raises.
+
+The sources are compiled at first use with ``nvcc`` (one process per source,
+all started together) into ``build/kernels/`` at the root of the checkout,
+under a name that carries a hash of the sources, and loaded with ``ctypes``.
+Nothing is compiled or loaded at import.
+
+``LAUNCHES`` counts, per kernel, the launches made by the wrappers; a run
+resets it with ``reset_launches()`` and reads it to show which path ran.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Tuple
+
+import torch
+
+from centernet_uda_torch.ops.dcn import PALLAS_MAX_SHIFT, dcn_v2_twin
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+SOURCES = {"dcn_fwd": "dcn_fwd.cu", "dcn_bwd": "dcn_bwd.cu"}
+_HEADERS = ("dcn_common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+# the weight kernel splits the B*H*W reduction so that about this many
+# blocks are in flight across the 132 SMs
+_DW_TARGET_BLOCKS = 2048
+_DW_PIX_STEP = 32  # pixels per reduction step of the weight kernel
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                       "to build the DCN kernels")
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in (SOURCES[name],) + _HEADERS:
+        digest.update((CSRC / src).read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_kernels() -> Dict[str, str]:
+    """Compile every kernel source that has no library yet.
+
+    One ``nvcc`` per source, all started together. Returns the compiler's
+    output (the ``-Xptxas -v`` register and shared-memory report) per
+    kernel that was built; raises with that output if a build fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, src in SOURCES.items():
+        lib = _lib_path(name)
+        if lib.exists():
+            continue
+        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        procs[name] = (lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    reports, failures = {}, []
+    for name, (lib, tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {SOURCES[name]}:\n{out}")
+            continue
+        os.replace(tmp, lib)
+        reports[name] = out
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return reports
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    if name in _LIBS:
+        return _LIBS[name]
+    path = _lib_path(name)
+    if not path.exists():
+        build_kernels()
+    lib = ctypes.CDLL(str(path))
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name == "dcn_fwd":
+        lib.dcn_fwd.argtypes = [vp] * 6 + [i32] * 5 + [f32, vp]
+        lib.dcn_fwd.restype = i32
+    else:
+        lib.dcn_bwd.argtypes = [vp] * 9 + [i32] * 5 + [f32, i32, vp]
+        lib.dcn_bwd.restype = i32
+    err_fn = getattr(lib, f"{name}_error_string")
+    err_fn.argtypes = [i32]
+    err_fn.restype = ctypes.c_char_p
+    _LIBS[name] = lib
+    return lib
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        msg = getattr(_lib(name), f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
+def _check(x, offset, mask, weight, bias=None, g=None) -> Tuple[int, ...]:
+    tensors = [x, offset, mask, weight] + [t for t in (bias, g)
+                                           if t is not None]
+    for t in tensors:
+        if t.device != x.device:
+            raise ValueError("DCN operands must lie on one device")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the DCN kernels take float32 operands, got "
+                            f"{t.dtype}")
+    b, cin, h, w = x.shape
+    cout = weight.shape[0]
+    if tuple(weight.shape) != (cout, cin, 3, 3):
+        raise ValueError(f"weight {tuple(weight.shape)} is not "
+                         f"({cout}, {cin}, 3, 3)")
+    if tuple(offset.shape) != (b, 18, h, w):
+        raise ValueError(f"offset {tuple(offset.shape)} != {(b, 18, h, w)}")
+    if tuple(mask.shape) != (b, 9, h, w):
+        raise ValueError(f"mask {tuple(mask.shape)} != {(b, 9, h, w)}")
+    if bias is not None and tuple(bias.shape) != (cout,):
+        raise ValueError(f"bias {tuple(bias.shape)} != {(cout,)}")
+    if g is not None and tuple(g.shape) != (b, cout, h, w):
+        raise ValueError(f"gradient {tuple(g.shape)} != {(b, cout, h, w)}")
+    if b * h * w * max(cin, cout, 18) >= 2 ** 31:
+        raise ValueError("DCN operand too large for 32-bit pixel indices")
+    return b, cin, h, w, cout
+
+
+def _stage_x(x: torch.Tensor) -> torch.Tensor:
+    """(B, Cin, H, W) f32 -> channels-last bf16 copy, in one pass."""
+    b, cin, h, w = x.shape
+    xs = torch.empty((b, h, w, cin), dtype=torch.bfloat16, device=x.device)
+    xs.copy_(x.permute(0, 2, 3, 1))
+    return xs
+
+
+def dcn_forward(x, offset, mask, weight, bias,
+                max_shift: float = PALLAS_MAX_SHIFT) -> torch.Tensor:
+    """DCNv2 forward, 3x3/s1/p1/d1. NCHW in and out; float32."""
+    if not x.is_cuda:
+        with torch.no_grad():
+            return dcn_v2_twin(x, offset, mask, weight, bias, max_shift)
+    b, cin, h, w, cout = _check(x, offset, mask, weight, bias)
+    with torch.cuda.device(x.device):
+        xs = _stage_x(x)
+        wt = (weight.permute(2, 3, 1, 0).reshape(9, cin, cout)
+              .to(torch.bfloat16).contiguous())
+        offset, mask, bias = (offset.contiguous(), mask.contiguous(),
+                              bias.contiguous())
+        out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
+        err = _lib("dcn_fwd").dcn_fwd(
+            xs.data_ptr(), offset.data_ptr(), mask.data_ptr(), wt.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
+            float(max_shift), torch.cuda.current_stream().cuda_stream)
+        _raise_on(err, "dcn_fwd")
+        LAUNCHES["dcn_fwd"] += 1
+    return out
+
+
+def dcn_backward_plain(x, offset, mask, weight, g,
+                       max_shift: float = PALLAS_MAX_SHIFT):
+    """Plain version of ``dcn_backward``: autograd through the twin."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (x, offset, mask, weight)]
+        out = dcn_v2_twin(*leaves, None, max_shift)
+        return torch.autograd.grad(out, leaves, g)
+
+
+def _dw_pixels_per_block(n_pix: int, cin: int, cout: int) -> int:
+    tiles = 9 * (-(-cin // 64)) * (-(-cout // 64))
+    splits = max(1, -(-_DW_TARGET_BLOCKS // tiles))
+    per = -(-n_pix // splits)
+    return max(_DW_PIX_STEP, -(-per // _DW_PIX_STEP) * _DW_PIX_STEP)
+
+
+def dcn_backward(x, offset, mask, weight, g,
+                 max_shift: float = PALLAS_MAX_SHIFT):
+    """Gradients (dx, doffset, dmask, dweight) of ``dcn_forward``; the bias
+    gradient, sum(g), is the caller's."""
+    if not x.is_cuda:
+        return dcn_backward_plain(x, offset, mask, weight, g, max_shift)
+    g = g.float().contiguous()
+    b, cin, h, w, cout = _check(x, offset, mask, weight, None, g)
+    with torch.cuda.device(x.device):
+        xs = _stage_x(x)
+        wt_t = (weight.permute(2, 3, 0, 1).reshape(9, cout, cin)
+                .to(torch.bfloat16).contiguous())
+        offset, mask = offset.contiguous(), mask.contiguous()
+        dx = torch.zeros((b, h, w, cin), dtype=torch.float32, device=x.device)
+        doff = torch.empty_like(offset)
+        dmask = torch.empty_like(mask)
+        dw = torch.zeros((9, cin, cout), dtype=torch.float32, device=x.device)
+        err = _lib("dcn_bwd").dcn_bwd(
+            xs.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+            wt_t.data_ptr(), g.data_ptr(), dx.data_ptr(), doff.data_ptr(),
+            dmask.data_ptr(), dw.data_ptr(), b, h, w, cin, cout,
+            float(max_shift), _dw_pixels_per_block(b * h * w, cin, cout),
+            torch.cuda.current_stream().cuda_stream)
+        _raise_on(err, "dcn_bwd")
+        LAUNCHES["dcn_bwd"] += 1
+    dx = dx.permute(0, 3, 1, 2).contiguous().to(x.dtype)
+    dw = dw.reshape(3, 3, cin, cout).permute(3, 2, 0, 1).contiguous()
+    return dx, doff, dmask, dw
+
+
+class _DCNKernelFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, offset, mask, weight, bias):
+        ctx.save_for_backward(x, offset, mask, weight)
+        return dcn_forward(x, offset, mask, weight, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, offset, mask, weight = ctx.saved_tensors
+        dx, doff, dmask, dw = dcn_backward(x, offset, mask, weight, g)
+        return dx, doff, dmask, dw, g.sum((0, 2, 3))
+
+
+def dcn_v2_kernel(x, offset, mask, weight, bias) -> torch.Tensor:
+    """The kernel path of ``DCN``: the Hopper kernels on CUDA tensors, the
+    plain twin on CPU tensors, differentiable either way."""
+    return _DCNKernelFn.apply(x, offset, mask, weight, bias)
+
+
+def compiler_report(reports: Dict[str, str]) -> str:
+    """The ``ptxas`` register / shared-memory lines of ``build_kernels()``'s
+    report."""
+    lines = []
+    for name, out in reports.items():
+        lines += [f"{name}: {ln.strip()}" for ln in out.splitlines()
+                  if "ptxas" in ln and ("registers" in ln or "smem" in ln
+                                        or "Compiling" in ln or "spill" in ln)]
+    return "\n".join(lines)

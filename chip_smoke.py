@@ -1,0 +1,474 @@
+"""Smoke run of the PyTorch/CUDA port (``centernet_uda_torch``) on one card.
+
+    python3 chip_smoke.py [--json PATH] [--profile]
+
+Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
+
+1. probe: the card, its power limit, torch, CUDA, nvcc; the card must be
+   compute capability 9.0;
+2. build: compiles the DCN kernels from ``centernet_uda_torch/csrc/`` and
+   prints the compiler's register / shared-memory report;
+3. kernels: at every distinct DCN shape of the 512 px train path (batch 16)
+   and of the 800 px eval path (batch 4), holds the forward and all five
+   gradients of the kernels against their plain PyTorch twin (atol
+   5e-2 * max(1, max|twin|), rtol 5e-2: the bound of the Pallas kernels'
+   own tests) and times kernel, twin and the F.conv2d yardstick;
+4. train: ``experiment=baseline`` (DLA-34 at full width, float32,
+   ``dcn_impl: auto``) takes 4 steps at 512 px, batch 16, on one seeded
+   synthetic batch; the losses must be finite, every step must launch each
+   DCN kernel 16 times, and no layer may reach the offset clamp;
+5. eval: one eval step at 800 px plus decode; the detections must be finite
+   with shape (B, 150, 4) and the forward kernel must run 16 times.
+
+Before training, the model's heads on the kernel path are held against the
+exact DCN op on the same weights and a small input. The last lines are a
+``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and power
+limit, and ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
+``--json PATH`` also writes every measurement to PATH; ``--profile`` adds a
+torch.profiler breakdown of two more train steps by kernel.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+TRAIN_SIZE, TRAIN_BATCH, TRAIN_STEPS = 512, 16, 4
+EVAL_SIZE, EVAL_BATCH_KERNELS = 800, 4
+# H100 SXM published peaks (dense): bf16 tensor cores and HBM3
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+TOL = 5e-2
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def phase(name: str) -> None:
+    print(f"== {name}", flush=True)
+
+
+def time_ms(fn, budget_ms: float = 300.0) -> float:
+    """Mean wall time on the card of ``fn`` (CUDA events), warmed up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    iters = int(min(50, max(3, budget_ms / max(start.elapsed_time(end),
+                                                1e-3))))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(bytes_moved: float, flops: float):
+    t_bytes = bytes_moved / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def make_operands(seed, b, cin, cout, h, w, device):
+    """Seeded DCN operands: offsets of std 2, with |dy| > 14 on a few rows
+    so the clamp is exercised."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, cin, h, w).astype(np.float32)
+    off = (rng.randn(b, 18, h, w) * 2.0).astype(np.float32)
+    off[:, 0, 0, :] = 20.0
+    off[:, 8, h - 1, :] = -16.0
+    m = rng.rand(b, 9, h, w).astype(np.float32)
+    wt = (rng.randn(cout, cin, 3, 3) / math.sqrt(9 * cin)).astype(np.float32)
+    bias = rng.randn(cout).astype(np.float32)
+    g = rng.randn(b, cout, h, w).astype(np.float32)
+    return [torch.from_numpy(v).to(device) for v in (x, off, m, wt, bias, g)]
+
+
+def compare(name, got, want):
+    """(max abs error, error relative to max|want|); raises past TOL."""
+    import torch
+
+    got, want = got.double(), want.double()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    scale = max(1.0, float(want.abs().max()))
+    err = (got - want).abs()
+    if bool((err > TOL * scale + TOL * want.abs()).any()):
+        raise AssertionError(f"{name}: max |err| {float(err.max())} exceeds "
+                             f"atol {TOL * scale} + rtol {TOL}")
+    return float(err.max()), float(err.max()) / scale
+
+
+def dcn_shapes(model, size, device):
+    """{(cin, cout, h, w): layers} of the DCN layers at ``size`` px."""
+    import torch
+
+    from centernet_uda_torch.ops.dcn import DCN
+
+    shapes = {}
+
+    def hook(mod, args):
+        x = args[0]
+        key = (x.shape[1], mod.weight.shape[0], x.shape[2], x.shape[3])
+        shapes[key] = shapes.get(key, 0) + 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, DCN)]
+    model.eval()
+    with torch.no_grad():
+        model(torch.zeros(1, 3, size, size, device=device))
+    for h in handles:
+        h.remove()
+    return shapes
+
+
+def check_kernels(shapes, batch, device, label):
+    """Phase 3 at one input size; returns per-shape records."""
+    import torch
+    import torch.nn.functional as F
+
+    from centernet_uda_torch.ops import dcn_cuda
+
+    records = []
+    for i, ((cin, cout, h, w), layers) in enumerate(sorted(shapes.items())):
+        x, off, m, wt, bias, g = make_operands(i, batch, cin, cout, h, w,
+                                               device)
+        out = dcn_cuda.dcn_forward(x, off, m, wt, bias)
+        ref = dcn_cuda.dcn_v2_twin(x, off, m, wt, bias)
+        errs = {"out": compare("out", out, ref)}
+        del out, ref
+        got = dcn_cuda.dcn_backward(x, off, m, wt, g) + (g.sum((0, 2, 3)),)
+        leaves = [t.clone().requires_grad_(True) for t in (x, off, m, wt,
+                                                           bias)]
+        with torch.enable_grad():
+            ref_out = dcn_cuda.dcn_v2_twin(*leaves)
+            want = torch.autograd.grad(ref_out, leaves, g)
+        for name, a, b in zip(("dx", "doff", "dmask", "dw", "dbias"), got,
+                              want):
+            errs[name] = compare(name, a, b)
+        del got, want, ref_out, leaves
+        torch.cuda.synchronize()
+
+        n = batch * h * w
+        fwd_flops = 2.0 * n * cin * cout * 9
+        fwd_bytes = 4.0 * (n * (cin + 18 + 9 + cout) + 9 * cin * cout + cout)
+        bwd_bytes = 4.0 * (n * (cin + 18 + 9 + cout) + 9 * cin * cout
+                           + n * (cin + 18 + 9) + 9 * cin * cout + cout)
+        t = {
+            "fwd_ms": time_ms(lambda: dcn_cuda.dcn_forward(x, off, m, wt,
+                                                           bias)),
+            "twin_fwd_ms": time_ms(lambda: dcn_cuda.dcn_v2_twin(
+                x, off, m, wt, bias)),
+            "conv_fwd_ms": time_ms(lambda: F.conv2d(x, wt, bias, padding=1)),
+            "bwd_ms": time_ms(lambda: dcn_cuda.dcn_backward(x, off, m, wt,
+                                                            g)),
+            "twin_bwd_ms": time_ms(lambda: dcn_cuda.dcn_backward_plain(
+                x, off, m, wt, g)),
+            "conv_bwd_ms": time_ms(
+                lambda: torch.ops.aten.convolution_backward(
+                    g, x, wt, [cout], [1, 1], [1, 1], [1, 1], False, [0, 0],
+                    1, [True, True, True])),
+        }
+        fb, fk = bound_ms(fwd_bytes, fwd_flops)
+        bb, bk = bound_ms(bwd_bytes, 2 * fwd_flops)
+        rec = {"path": label, "batch": batch, "cin": cin, "cout": cout,
+               "h": h, "w": w, "layers": layers,
+               "max_abs_err": {k: v[0] for k, v in errs.items()},
+               "max_rel_err": {k: v[1] for k, v in errs.items()},
+               "fwd_bound_ms": fb, "fwd_bound_by": fk,
+               "bwd_bound_ms": bb, "bwd_bound_by": bk, **t}
+        records.append(rec)
+        print(f"{label} B={batch} {cin}->{cout} @{h}x{w} (x{layers}): "
+              f"errs " + " ".join(f"{k}={v[0]:.3g}/{v[1]:.2g}"
+                                  for k, v in errs.items())
+              + f" | fwd {t['fwd_ms']:.3f} ms (twin {t['twin_fwd_ms']:.3f},"
+              f" conv {t['conv_fwd_ms']:.3f}, bound {fb:.4f} {fk})"
+              f" | bwd {t['bwd_ms']:.3f} ms (twin {t['twin_bwd_ms']:.3f},"
+              f" conv {t['conv_bwd_ms']:.3f}, bound {bb:.4f} {bk})",
+              flush=True)
+        del x, off, m, wt, bias, g
+        torch.cuda.empty_cache()
+    return records
+
+
+def synthetic_batch(rng, batch, size, num_classes, max_det, down_ratio=4):
+    """A seeded detection batch, targets encoded as the data pipeline
+    does."""
+    import numpy as np
+
+    from centernet_uda_torch.ops.gaussian import encode_targets
+
+    out = size // down_ratio
+    per_image = []
+    for _ in range(batch):
+        n = rng.randint(5, 30)
+        xy = rng.rand(n, 2) * out * 0.85
+        wh = rng.rand(n, 2) * out * 0.25 + 2.0
+        boxes = np.concatenate([xy, np.minimum(xy + wh, out - 1)], 1)
+        per_image.append(encode_targets(boxes, rng.randint(0, num_classes, n),
+                                        out, out, num_classes, max_det))
+    data = {k: np.stack([t[k] for t in per_image]) for k in per_image[0]}
+    data["input"] = rng.randn(batch, 3, size, size).astype(np.float32)
+    data["id"] = np.arange(batch)
+    return data
+
+
+def check_heads_against_exact(trainer, device):
+    """The model on the kernel path against the exact DCN op: same weights,
+    a 2 x 3 x 256 x 256 input, on a copy of the model with train-mode
+    BatchNorm (at init, eval-mode features are too small to compare)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from centernet_uda_torch.ops.dcn import DCN
+
+    net = copy.deepcopy(trainer.backend.module).train()
+    x = torch.from_numpy(np.random.RandomState(7).randn(
+        2, 3, 256, 256).astype(np.float32)).to(device)
+
+    def heads(impl):
+        for m in net.modules():
+            if isinstance(m, DCN):
+                m.impl = impl
+        with torch.no_grad():
+            return net(x)
+
+    got, want = heads("auto"), heads("xla")
+    del net
+    errs = {k: compare(f"head {k}", got[k], want[k]) for k in want}
+    print("heads on the kernel path vs the exact DCN op: "
+          + " ".join(f"{k}={v[0]:.3g}/{v[1]:.2g}" for k, v in errs.items()),
+          flush=True)
+    return {k: v[0] for k, v in errs.items()}
+
+
+def profile_train_steps(trainer, data, steps=2, top=12):
+    """Device time of ``steps`` train steps by kernel (torch.profiler), the
+    DCN kernels' share and the device's busy share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.step(data, is_training=True)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.name] = kernels.get(ev.name, 0.0) + (
+                ev.device_time_total / 1e3)
+    device_ms = sum(kernels.values())
+    dcn_ms = sum(v for k, v in kernels.items() if "dcn" in k)
+    rows = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
+    print(f"profile of {steps} train steps: wall {wall_ms:.1f} ms, device "
+          f"busy {device_ms:.1f} ms ({device_ms / wall_ms:.1%}), DCN kernels "
+          f"{dcn_ms:.1f} ms ({dcn_ms / max(device_ms, 1e-9):.1%} of device)")
+    for name, ms in rows:
+        print(f"  {ms / steps:9.3f} ms/step  {name[:110]}")
+    return {"steps": steps, "wall_ms": wall_ms, "device_ms": device_ms,
+            "dcn_kernels_ms": dcn_ms,
+            "top_kernels_ms_per_step": {k: v / steps for k, v in rows}}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--json", help="also write every measurement here")
+    parser.add_argument("--profile", action="store_true",
+                        help="after the checks, profile two train steps "
+                             "with torch.profiler")
+    args = parser.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (ROOT / "centernet_uda_torch" / "csrc").is_dir():
+        print("chip_smoke: run it from a checkout of the repository "
+              "(centernet_uda_torch/ not found)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+
+    from centernet_uda_torch.config import compose
+    from centernet_uda_torch.ops import dcn_cuda
+    from centernet_uda_torch.train import build_trainer
+
+    report = {}
+    device = torch.device("cuda")
+
+    phase("probe")
+    smi = nvidia_smi()
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    nvcc = subprocess.run([dcn_cuda.nvcc_path(), "--version"],
+                          capture_output=True, text=True, check=True)
+    print(nvcc.stdout.strip().splitlines()[-1])
+    cap = torch.cuda.get_device_capability(0)
+    print(f"device {torch.cuda.get_device_name(0)} capability {cap}")
+    if cap != (9, 0):
+        raise RuntimeError(f"the kernels are built for sm_90a; this card is "
+                           f"capability {cap}")
+    report["card"] = smi
+
+    phase("build")
+    t0 = time.time()
+    print(dcn_cuda.compiler_report(dcn_cuda.build_kernels()))
+    report["build_s"] = time.time() - t0
+    print(f"built in {report['build_s']:.1f} s", flush=True)
+
+    cfg = compose(["experiment=baseline"], config_dir=str(ROOT / "configs"))
+    trainer = build_trainer(cfg, device="cuda")
+    trainer.init_done()
+    net = trainer.backend.module
+    if (cfg.precision, cfg.dcn_impl) != ("float32", "auto"):
+        raise RuntimeError("expected the baseline's float32 / auto")
+    train_shapes = dcn_shapes(net, TRAIN_SIZE, device)
+    eval_shapes = dcn_shapes(net, EVAL_SIZE, device)
+    n_dcn = sum(train_shapes.values())
+    print(f"DCN layers: {n_dcn}; train shapes {train_shapes}; eval shapes "
+          f"{eval_shapes}", flush=True)
+
+    phase("kernels against their plain twin")
+    records = check_kernels(train_shapes, TRAIN_BATCH, device,
+                            f"train{TRAIN_SIZE}")
+    records += check_kernels(eval_shapes, EVAL_BATCH_KERNELS, device,
+                             f"eval{EVAL_SIZE}")
+    report["shapes"] = records
+    report["heads_vs_exact_max_abs_err"] = check_heads_against_exact(
+        trainer, device)
+
+    phase("train")
+    rng = np.random.RandomState(int(cfg.seed))
+    num_classes = int(cfg.model.backend.params.num_classes)
+    max_det = int(cfg.max_detections)
+    data = synthetic_batch(rng, int(cfg.batch_size), TRAIN_SIZE, num_classes,
+                           max_det)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    dcn_cuda.reset_launches()
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        stats = trainer.step(data, is_training=True)["stats"]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        vals = {k: float(v) for k, v in stats.items()}
+        if trainer.maybe_degrade_dcn(vals["dcn_max_abs_dy"]):
+            raise AssertionError("the DCN offsets reached the clamp")
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"non-finite train stats {vals}")
+        losses.append(vals)
+        print(f"step {i}: {step_ms[-1]:.1f} ms " + " ".join(
+            f"{k}={v:.5f}" for k, v in vals.items()), flush=True)
+    train_launches = dict(dcn_cuda.LAUNCHES)
+    want = {"dcn_fwd": n_dcn * TRAIN_STEPS, "dcn_bwd": n_dcn * TRAIN_STEPS}
+    if train_launches != want:
+        raise AssertionError(f"launches {train_launches} != {want}")
+    print(f"launches {train_launches}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    report["train"] = {
+        "step_ms": step_ms, "stats": losses, "launches": train_launches,
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+    phase("eval")
+    eval_data = synthetic_batch(rng, int(cfg.batch_size), EVAL_SIZE,
+                                num_classes, max_det)
+    dcn_cuda.reset_launches()
+    t0 = time.perf_counter()
+    outputs = trainer.step(eval_data, is_training=False)
+    dets = trainer.get_detections(outputs, eval_data)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    eval_launches = dict(dcn_cuda.LAUNCHES)
+    if eval_launches != {"dcn_fwd": n_dcn, "dcn_bwd": 0}:
+        raise AssertionError(f"eval launches {eval_launches}")
+    vals = {k: float(v) for k, v in outputs["stats"].items()}
+    boxes = dets["pred_boxes"]
+    if boxes.shape != (int(cfg.batch_size), max_det, 4):
+        raise AssertionError(f"pred_boxes shape {boxes.shape}")
+    if not (np.isfinite(boxes).all() and np.isfinite(dets["pred_scores"]).all()
+            and all(math.isfinite(v) for v in vals.values())):
+        raise AssertionError("non-finite eval outputs")
+    if trainer.maybe_degrade_dcn(vals["dcn_max_abs_dy"]):
+        raise AssertionError("the DCN offsets reached the clamp in eval")
+    print(f"eval {EVAL_SIZE}px B={cfg.batch_size}: {eval_ms:.1f} ms, "
+          f"pred_boxes {boxes.shape}, launches {eval_launches}, " + " ".join(
+              f"{k}={v:.5f}" for k, v in vals.items()), flush=True)
+    report["eval"] = {"ms": eval_ms, "stats": vals, "launches": eval_launches}
+
+    # the JSON line: per kernel, sums over one train step's 16 layers at
+    # the 512 px path (times, bound and yardstick weighted by the layer
+    # count of each shape)
+    train_recs = [r for r in records if r["path"] == f"train{TRAIN_SIZE}"]
+
+    def per_step(key):
+        return sum(r[key] * r["layers"] for r in train_recs)
+
+    kernels = []
+    for name, pre, src, replaces, outs in (
+            ("dcn_fwd", "fwd", "centernet_uda_torch/csrc/dcn_fwd.cu",
+             "centernet_uda_tpu/ops/dcn_pallas.py:210", ("out",)),
+            ("dcn_bwd", "bwd", "centernet_uda_torch/csrc/dcn_bwd.cu",
+             "centernet_uda_tpu/ops/dcn_pallas.py:571",
+             ("dx", "doff", "dmask", "dw", "dbias"))):
+        by_kind = {}
+        for r in train_recs:
+            kind = r[f"{pre}_bound_by"]
+            by_kind[kind] = by_kind.get(kind, 0.0) + (
+                r[f"{pre}_bound_ms"] * r["layers"])
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces,
+            "launches": train_launches[name] + eval_launches[name],
+            "max_abs_err": max(r["max_abs_err"][o] for r in records
+                               for o in outs),
+            "ms": per_step(f"{pre}_ms"),
+            "plain_ms": per_step(f"twin_{pre}_ms"),
+            "bound_ms": per_step(f"{pre}_bound_ms"),
+            "bound_by": max(by_kind, key=by_kind.get),
+            "library_ms": per_step(f"conv_{pre}_ms"),
+        })
+    report["kernels"] = kernels
+    if args.profile:
+        phase("profile")
+        report["profile"] = profile_train_steps(trainer, data)
+    if args.json:
+        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.json).write_text(json.dumps(report, indent=1))
+    print(json.dumps({"kernels": kernels}))
+    print(nvidia_smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
