@@ -20,7 +20,12 @@ run on the CPU, as the tests do.
 
 Precision. ``precision: float32`` means float32: building a trainer sets
 ``torch.backends.cuda.matmul.allow_tf32 = False`` and
-``torch.backends.cudnn.allow_tf32 = False``. ``bfloat16`` is not ported yet.
+``torch.backends.cudnn.allow_tf32 = False``. ``precision: bfloat16`` follows
+the JAX package's ``dtype=bfloat16``: every layer computes in bf16 (an
+explicit compute dtype per module, not ``torch.autocast``, so the CPU and
+the card run the same arithmetic), parameters, BatchNorm statistics, the
+heads' outputs, the loss and the optimizer stay float32, and each DCN layer
+runs the fused bf16 kernels (the offset conv inside). TF32 stays off.
 
 DCN implementation (config key ``dcn_impl``): ``auto`` runs the hand-written
 Hopper kernels (``ops/dcn_cuda.py``) on CUDA tensors and the exact op on CPU

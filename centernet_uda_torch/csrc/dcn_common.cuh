@@ -1,11 +1,15 @@
 // Shared device code of the DCNv2 kernels (3x3 / stride 1 / pad 1 /
 // dilation 1, deformable_groups 1).
 //
-// Operand contract, identical for the forward and the backward:
-//   x       (B, H, W, Cin)  bf16, channels-last staging of the f32 input, so
-//                           each bilinear corner is one contiguous Cin vector
-//   offset  (B, 18, H, W)   f32, channel 2t = dy of tap t, 2t+1 = dx
-//   mask    (B, 9, H, W)    f32, post-sigmoid modulation
+// Operand contract, identical for every kernel:
+//   x       (B, H, W, Cin)  bf16, channels-last, so each bilinear corner is
+//                           one contiguous Cin vector
+// and the sampling geometry of tap t at each output pixel, read from one of
+// two layouts (the `Geom` parameter of the kernels in dcn_kernels.cuh):
+//   OffsetMask  offset (B, 18, H, W) f32, channel 2t = dy of tap t, 2t+1 =
+//               dx, and mask (B, 9, H, W) f32, post-sigmoid;
+//   OffsetConv  om (B, 27, H, W) f32, the fused layer's offset-conv output:
+//               channel 2t = dy, 2t+1 = dx, 18+t = the mask logit.
 // Tap t = 3*ti + tj samples at (y + ti - 1 + clamp(dy, +-max_shift),
 // x + tj - 1 + dx): only the vertical offset is clamped, horizontal sampling
 // is exact, and corners outside [0, H-1] x [0, W-1] read zero.
@@ -17,8 +21,9 @@
 
 namespace dcn {
 
-constexpr int kThreads = 256;  // every kernel: 16 x 16 threads
+constexpr int kThreads = 256;  // every kernel: 256 threads
 constexpr int kTaps = 9;
+constexpr int kOm = 27;  // offset-conv channels: 18 offsets + 9 mask logits
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
@@ -27,6 +32,77 @@ __device__ __forceinline__ float bf16_round(float v) {
 __device__ __forceinline__ float bf16_load(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
+
+// An operand that the kernels contract in bf16: an f32 one is rounded on
+// load, a bf16 one is exact.
+__device__ __forceinline__ float load_as_bf16(const float* p) {
+  return bf16_round(*p);
+}
+__device__ __forceinline__ float load_as_bf16(const __nv_bfloat16* p) {
+  return bf16_load(p);
+}
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// Offsets and mask as two tensors (the float32 layer). The backward writes
+// doffset and dmask.
+struct OffsetMask {
+  const float* offset;
+  const float* mask;
+  float* doff;
+  float* dmask;
+
+  __device__ __forceinline__ void read(int b, int t, size_t plane, size_t pix,
+                                       float& dy, float& dx,
+                                       float& m) const {
+    const float* o = offset + (size_t)b * 2 * kTaps * plane + pix;
+    dy = o[(size_t)(2 * t) * plane];
+    dx = o[(size_t)(2 * t + 1) * plane];
+    m = mask[((size_t)b * kTaps + t) * plane + pix];
+  }
+
+  // gy, gx: d(out)/d(sample position) times g, summed over the corners and
+  // channels; dm: d(out)/d(mask) times g.
+  __device__ __forceinline__ void write_grads(int b, int t, size_t plane,
+                                              size_t pix, bool dy_live,
+                                              float m, float gy, float gx,
+                                              float dm) const {
+    float* o = doff + (size_t)b * 2 * kTaps * plane + pix;
+    o[(size_t)(2 * t) * plane] = dy_live ? m * gy : 0.f;
+    o[(size_t)(2 * t + 1) * plane] = m * gx;
+    dmask[((size_t)b * kTaps + t) * plane + pix] = dm;
+  }
+};
+
+// The offset-conv output om (the bfloat16 layer, offsets fused into the
+// layer). The backward writes dz = d(loss)/d(om): the dy gradient gated by
+// the clamp, the dx gradient, and the mask gradient times sigmoid'.
+struct OffsetConv {
+  const float* om;
+  float* dz;
+
+  __device__ __forceinline__ void read(int b, int t, size_t plane, size_t pix,
+                                       float& dy, float& dx,
+                                       float& m) const {
+    const float* o = om + (size_t)b * kOm * plane + pix;
+    dy = o[(size_t)(2 * t) * plane];
+    dx = o[(size_t)(2 * t + 1) * plane];
+    m = 1.f / (1.f + expf(-o[(size_t)(2 * kTaps + t) * plane]));
+  }
+
+  __device__ __forceinline__ void write_grads(int b, int t, size_t plane,
+                                              size_t pix, bool dy_live,
+                                              float m, float gy, float gx,
+                                              float dm) const {
+    float* o = dz + (size_t)b * kOm * plane + pix;
+    o[(size_t)(2 * t) * plane] = dy_live ? m * gy : 0.f;
+    o[(size_t)(2 * t + 1) * plane] = m * gx;
+    o[(size_t)(2 * kTaps + t) * plane] = dm * m * (1.f - m);
+  }
+};
 
 // Bilinear geometry of one output pixel and tap.
 struct Sample {
@@ -37,16 +113,15 @@ struct Sample {
   bool dy_live; // |dy_raw| < max_shift: the clamp passes the dy gradient
 };
 
-__device__ __forceinline__ Sample sample_at(const float* __restrict__ offset,
-                                            const float* __restrict__ mask,
-                                            int b, int t, int y, int x, int H,
-                                            int W, float max_shift) {
+template <typename Geom>
+__device__ __forceinline__ Sample sample_at(const Geom& geom, int b, int t,
+                                            int y, int x, int H, int W,
+                                            float max_shift) {
   const size_t plane = (size_t)H * W;
   const size_t pix = (size_t)y * W + x;
-  const float dy_raw = offset[((size_t)b * 2 * kTaps + 2 * t) * plane + pix];
-  const float dx = offset[((size_t)b * 2 * kTaps + 2 * t + 1) * plane + pix];
+  float dy_raw, dx;
   Sample s;
-  s.m = mask[((size_t)b * kTaps + t) * plane + pix];
+  geom.read(b, t, plane, pix, dy_raw, dx, s.m);
   s.dy_live = fabsf(dy_raw) < max_shift;
   const float dy = fminf(fmaxf(dy_raw, -max_shift), max_shift);
   const float py = (float)(y + t / 3 - 1) + dy;

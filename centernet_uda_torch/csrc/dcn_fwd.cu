@@ -1,17 +1,13 @@
-// DCNv2 forward for Hopper (sm_90a).
+// DCNv2 forward for Hopper (sm_90a), the float32 layer.
 //
 // Replaces the TPU kernel `_dcn_kernel` (centernet_uda_tpu/ops/dcn_pallas.py,
 // driven by `dcn_v2_pallas_lanes`). Same function: per output pixel and tap,
 // bilinearly sample x at the (dy-clamped) offset position, times the mask,
 // staged in bf16; contract with W[t] (Cin x Cout) with f32 accumulation; add
 // the bias. The TPU restructurings (hat matrix, row-shift loop, lane packing,
-// row blocks) are not carried over: a gather is cheap here.
-//
-// Design: one block per (image, tile of 64 output pixels, tile of 64 output
-// channels), looping over the 9 taps and over Cin in chunks of 32. Each
-// chunk is sampled into shared memory (x is read channels-last, so a corner
-// is a contiguous run of channels), rounded to bf16, and contracted with
-// the bf16-rounded W chunk by FMAs into a 4x4 f32 register tile per thread.
+// row blocks) are not carried over: a gather is cheap here. The kernel body
+// is `dcn_fwd_kernel` in dcn_kernels.cuh, here over the `OffsetMask`
+// geometry with an f32 output.
 //
 // Bound on the H100: at the DLA-34 widths the contraction (2*N*Cin*Cout*9
 // FLOP) over the bf16 tensor-core rate and the HBM traffic (x, offset,
@@ -19,117 +15,7 @@
 // on the f32 CUDA cores, so it is compute-bound well above that bound. The
 // sampling is recomputed per Cout tile (Cout/64 times); wgmma on the staged
 // bf16 tile is the next step.
-#include "dcn_common.cuh"
-
-namespace dcn {
-
-constexpr int kPix = 64;  // output pixels per block
-constexpr int kCo = 64;   // output channels per block
-constexpr int kCk = 32;   // input channels per staged chunk
-
-__global__ void __launch_bounds__(kThreads)
-    dcn_fwd_kernel(const __nv_bfloat16* __restrict__ x,
-                   const float* __restrict__ offset,
-                   const float* __restrict__ mask,
-                   const __nv_bfloat16* __restrict__ wt,  // (9, Cin, Cout)
-                   const float* __restrict__ bias,        // (Cout)
-                   float* __restrict__ out,               // (B, Cout, H, W)
-                   int H, int W, int Cin, int Cout, float max_shift) {
-  __shared__ float s_col[kCk][kPix + 1];  // sampled chunk, [channel][pixel]
-  __shared__ float s_w[kCk][kCo];         // W[t] chunk, [channel][cout]
-  __shared__ int s_idx[4][kPix];
-  __shared__ float s_cw[4][kPix];  // corner weight with the mask folded in
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int b = blockIdx.z;
-  const int p0 = blockIdx.x * kPix;
-  const int co0 = blockIdx.y * kCo;
-  const int HW = H * W;
-  const __nv_bfloat16* xb = x + (size_t)b * HW * Cin;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int t = 0; t < kTaps; ++t) {
-    __syncthreads();  // the previous tap's sampling has read s_idx/s_cw
-    if (tid < kPix) {
-      const int p = p0 + tid;
-      if (p < HW) {
-        const Sample s =
-            sample_at(offset, mask, b, t, p / W, p % W, H, W, max_shift);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          s_idx[k][tid] = s.idx[k];
-          s_cw[k][tid] = s.m * s.c[k];
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          s_idx[k][tid] = -1;
-          s_cw[k][tid] = 0.f;
-        }
-      }
-    }
-    for (int c0 = 0; c0 < Cin; c0 += kCk) {
-      __syncthreads();  // s_idx is written; the last chunk's FMAs are done
-      {
-        const int cc = tid & (kCk - 1);
-        const int c = c0 + cc;
-        for (int pp = tid / kCk; pp < kPix; pp += kThreads / kCk) {
-          float v = 0.f;
-          if (c < Cin) {
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const int i = s_idx[k][pp];
-              if (i >= 0) v += s_cw[k][pp] * bf16_load(xb + (size_t)i * Cin + c);
-            }
-          }
-          s_col[cc][pp] = bf16_round(v);
-        }
-      }
-      for (int e = tid; e < kCk * kCo; e += kThreads) {
-        const int cc = e / kCo;
-        const int oo = e % kCo;
-        float v = 0.f;
-        if (c0 + cc < Cin && co0 + oo < Cout)
-          v = bf16_load(wt + ((size_t)t * Cin + c0 + cc) * Cout + co0 + oo);
-        s_w[cc][oo] = v;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int cc = 0; cc < kCk; ++cc) {
-        float a[4], w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = s_col[cc][tx + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) w[j] = s_w[cc][ty + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int co = co0 + ty + 16 * j;
-    if (co >= Cout) continue;
-    const float bv = bias[co];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = p0 + tx + 16 * i;
-      if (p < HW) out[((size_t)b * Cout + co) * HW + p] = acc[i][j] + bv;
-    }
-  }
-}
-
-}  // namespace dcn
+#include "dcn_kernels.cuh"
 
 extern "C" {
 
@@ -139,15 +25,17 @@ int dcn_fwd(const void* x, const void* offset, const void* mask,
             int Cin, int Cout, float max_shift, void* stream) {
   using namespace dcn;
   if (B == 0 || H == 0 || W == 0 || Cout == 0) return (int)cudaSuccess;
-  cudaError_t err = check_launch(dcn_fwd_kernel);
+  auto kernel = dcn_fwd_kernel<OffsetMask, float>;
+  cudaError_t err = check_launch(kernel);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((H * W + kPix - 1) / kPix, (Cout + kCo - 1) / kCo, B);
   if (grid.y > 65535 || grid.z > 65535)
     return (int)cudaErrorInvalidConfiguration;
-  dcn_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const float*)offset, (const float*)mask,
-      (const __nv_bfloat16*)wt, (const float*)bias, (float*)out, H, W, Cin,
-      Cout, max_shift);
+  const OffsetMask geom{(const float*)offset, (const float*)mask, nullptr,
+                        nullptr};
+  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, geom, (const __nv_bfloat16*)wt,
+      (const float*)bias, (float*)out, H, W, Cin, Cout, max_shift);
   return (int)cudaGetLastError();
 }
 

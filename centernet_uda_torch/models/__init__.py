@@ -1,6 +1,8 @@
 """Backend registry: ``build(name, **params)`` resolves the config's
-``model.backend.name``. Only ``dla`` is ported so far (ROADMAP A9 holds
-the other backbones)."""
+``model.backend.name`` and passes ``params`` (the config's backend params
+plus ``dcn_impl``, ``dtype``, ``seed`` and ``device``) to the backend's
+``build``. Only ``dla`` is ported so far (ROADMAP A9 holds the other
+backbones)."""
 
 from typing import Callable, Dict
 

@@ -15,6 +15,12 @@ runs the plain stem; the JAX package's space-to-depth stem is an exact TPU
 rewrite of it. Parameters are initialised as flax initialises the JAX
 model: convs lecun-normal, DCN weights uniform +-1/sqrt(9 Cin), offset
 convs zero, BN scale 1 / bias 0.
+
+``dtype`` (float32 or bfloat16, the config's ``precision``) is the compute
+dtype of every layer, as the JAX package's ``dtype``: parameters stay
+float32, activations, residual adds and ReLUs run in ``dtype``, and the
+heads are cast to float32 at the end, so the loss, decode and the optimizer
+stay float32.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from centernet_uda_torch import resolve_device
 from centernet_uda_torch.models.common import (
     Backend,
     BatchNorm2d,
+    Conv2d,
     head,
     lecun_normal_,
     make_heads_dict,
@@ -43,23 +50,24 @@ HM_BIAS = -2.19
 
 
 def _conv_bn_relu(cin: int, cout: int, kernel: int, stride: int = 1,
-                  padding: int = 0) -> List[nn.Module]:
-    return [nn.Conv2d(cin, cout, kernel, stride, padding, bias=False),
-            BatchNorm2d(cout), nn.ReLU(inplace=True)]
+                  padding: int = 0, dtype=torch.float32) -> List[nn.Module]:
+    return [Conv2d(cin, cout, kernel, stride, padding, bias=False,
+                   dtype=dtype),
+            BatchNorm2d(cout, dtype), nn.ReLU(inplace=True)]
 
 
 class DLABasicBlock(nn.Module):
     """conv3x3-BN-ReLU-conv3x3-BN + residual."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 dilation: int = 1):
+                 dilation: int = 1, dtype=torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, dilation,
-                               dilation=dilation, bias=False)
-        self.bn1 = BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, dilation,
-                               dilation=dilation, bias=False)
-        self.bn2 = BatchNorm2d(planes)
+        self.conv1 = Conv2d(inplanes, planes, 3, stride, dilation,
+                            dilation=dilation, bias=False, dtype=dtype)
+        self.bn1 = BatchNorm2d(planes, dtype)
+        self.conv2 = Conv2d(planes, planes, 3, 1, dilation,
+                            dilation=dilation, bias=False, dtype=dtype)
+        self.bn2 = BatchNorm2d(planes, dtype)
 
     def forward(self, x, residual=None):
         if residual is None:
@@ -73,11 +81,12 @@ class Root(nn.Module):
     """Conv over the concatenated children, BN, optional residual, ReLU."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 1, residual: bool = False):
+                 kernel_size: int = 1, residual: bool = False,
+                 dtype=torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, 1,
-                              (kernel_size - 1) // 2, bias=False)
-        self.bn = BatchNorm2d(out_channels)
+        self.conv = Conv2d(in_channels, out_channels, kernel_size, 1,
+                           (kernel_size - 1) // 2, bias=False, dtype=dtype)
+        self.bn = BatchNorm2d(out_channels, dtype)
         self.residual = residual
 
     def forward(self, *children):
@@ -93,7 +102,7 @@ class Tree(nn.Module):
     def __init__(self, levels: int, in_channels: int, out_channels: int,
                  stride: int = 1, level_root: bool = False, root_dim: int = 0,
                  root_kernel_size: int = 1, dilation: int = 1,
-                 root_residual: bool = False):
+                 root_residual: bool = False, dtype=torch.float32):
         super().__init__()
         if root_dim == 0:
             root_dim = 2 * out_channels
@@ -101,27 +110,29 @@ class Tree(nn.Module):
             root_dim += in_channels
         if levels == 1:
             self.tree1 = DLABasicBlock(in_channels, out_channels, stride,
-                                       dilation)
+                                       dilation, dtype)
             self.tree2 = DLABasicBlock(out_channels, out_channels, 1,
-                                       dilation)
+                                       dilation, dtype)
             self.root = Root(root_dim, out_channels, root_kernel_size,
-                             root_residual)
+                             root_residual, dtype)
         else:
             self.tree1 = Tree(levels - 1, in_channels, out_channels, stride,
                               root_dim=0, root_kernel_size=root_kernel_size,
-                              dilation=dilation, root_residual=root_residual)
+                              dilation=dilation, root_residual=root_residual,
+                              dtype=dtype)
             self.tree2 = Tree(levels - 1, out_channels, out_channels,
                               root_dim=root_dim + out_channels,
                               root_kernel_size=root_kernel_size,
-                              dilation=dilation, root_residual=root_residual)
+                              dilation=dilation, root_residual=root_residual,
+                              dtype=dtype)
         self.levels = levels
         self.level_root = level_root
         self.stride = stride
         self.project = None
         if in_channels != out_channels:
             self.project = nn.Sequential(
-                nn.Conv2d(in_channels, out_channels, 1, bias=False),
-                BatchNorm2d(out_channels))
+                Conv2d(in_channels, out_channels, 1, bias=False, dtype=dtype),
+                BatchNorm2d(out_channels, dtype))
 
     def forward(self, x, residual=None, children=None):
         children = [] if children is None else children
@@ -141,23 +152,29 @@ class DLATrunk(nn.Module):
     """DLA classifier trunk returning the 6 level outputs."""
 
     def __init__(self, levels: Sequence[int] = DLA34_LEVELS,
-                 channels: Sequence[int] = DLA34_CHANNELS):
+                 channels: Sequence[int] = DLA34_CHANNELS,
+                 dtype=torch.float32):
         super().__init__()
         ch = list(channels)
-        self.base_layer = nn.Sequential(*_conv_bn_relu(3, ch[0], 7, 1, 3))
-        self.level0 = self._conv_level(ch[0], ch[0], levels[0], 1)
-        self.level1 = self._conv_level(ch[0], ch[1], levels[1], 2)
-        self.level2 = Tree(levels[2], ch[1], ch[2], 2, level_root=False)
-        self.level3 = Tree(levels[3], ch[2], ch[3], 2, level_root=True)
-        self.level4 = Tree(levels[4], ch[3], ch[4], 2, level_root=True)
-        self.level5 = Tree(levels[5], ch[4], ch[5], 2, level_root=True)
+        self.base_layer = nn.Sequential(*_conv_bn_relu(3, ch[0], 7, 1, 3,
+                                                       dtype))
+        self.level0 = self._conv_level(ch[0], ch[0], levels[0], 1, dtype)
+        self.level1 = self._conv_level(ch[0], ch[1], levels[1], 2, dtype)
+        self.level2 = Tree(levels[2], ch[1], ch[2], 2, level_root=False,
+                           dtype=dtype)
+        self.level3 = Tree(levels[3], ch[2], ch[3], 2, level_root=True,
+                           dtype=dtype)
+        self.level4 = Tree(levels[4], ch[3], ch[4], 2, level_root=True,
+                           dtype=dtype)
+        self.level5 = Tree(levels[5], ch[4], ch[5], 2, level_root=True,
+                           dtype=dtype)
 
     @staticmethod
-    def _conv_level(inplanes, planes, convs, stride):
+    def _conv_level(inplanes, planes, convs, stride, dtype):
         mods = []
         for i in range(convs):
             mods += _conv_bn_relu(inplanes, planes, 3, stride if i == 0 else 1,
-                                  1)
+                                  1, dtype)
             inplanes = planes
         return nn.Sequential(*mods)
 
@@ -185,13 +202,21 @@ def bilinear_up_weight(channels: int, factor: int) -> torch.Tensor:
 class DepthwiseUp(nn.ConvTranspose2d):
     """Grouped (depthwise) transposed-conv 2x/4x upsample with the bilinear
     init (the reference's ``ConvTranspose2d(o, o, 2f, stride=f,
-    padding=f // 2, groups=o)``)."""
+    padding=f // 2, groups=o)``), computing in ``dtype``."""
 
-    def __init__(self, channels: int, factor: int):
+    def __init__(self, channels: int, factor: int, dtype=torch.float32):
         super().__init__(channels, channels, 2 * factor, stride=factor,
                          padding=factor // 2, output_padding=0,
                          groups=channels, bias=False)
+        self.compute_dtype = dtype
         self.reset_bilinear()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), None,
+                                  self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
 
     def reset_bilinear(self) -> None:
         with torch.no_grad():
@@ -202,11 +227,13 @@ class DepthwiseUp(nn.ConvTranspose2d):
 class DeformConv(nn.Module):
     """DCNv2 + BN + ReLU."""
 
-    def __init__(self, cin: int, cout: int, dcn_impl: str = "auto"):
+    def __init__(self, cin: int, cout: int, dcn_impl: str = "auto",
+                 dtype=torch.float32):
         super().__init__()
-        self.actf = nn.Sequential(BatchNorm2d(cout), nn.ReLU(inplace=True))
+        self.actf = nn.Sequential(BatchNorm2d(cout, dtype),
+                                  nn.ReLU(inplace=True))
         self.conv = DCN(cin, cout, 3, stride=1, padding=1, dilation=1,
-                        impl=dcn_impl)
+                        impl=dcn_impl, dtype=dtype)
 
     def forward(self, x):
         return self.actf(self.conv(x))
@@ -217,12 +244,14 @@ class IDAUp(nn.Module):
     as the reference does."""
 
     def __init__(self, o: int, channels: Sequence[int],
-                 up_f: Sequence[int], dcn_impl: str = "auto"):
+                 up_f: Sequence[int], dcn_impl: str = "auto",
+                 dtype=torch.float32):
         super().__init__()
         for i in range(1, len(channels)):
-            setattr(self, f"proj_{i}", DeformConv(channels[i], o, dcn_impl))
-            setattr(self, f"up_{i}", DepthwiseUp(o, int(up_f[i])))
-            setattr(self, f"node_{i}", DeformConv(o, o, dcn_impl))
+            setattr(self, f"proj_{i}", DeformConv(channels[i], o, dcn_impl,
+                                                  dtype))
+            setattr(self, f"up_{i}", DepthwiseUp(o, int(up_f[i]), dtype))
+            setattr(self, f"node_{i}", DeformConv(o, o, dcn_impl, dtype))
 
     def forward(self, layers: List[torch.Tensor], startp: int,
                 endp: int) -> None:
@@ -236,7 +265,8 @@ class DLAUp(nn.Module):
     """Pyramid of IDAUp stages."""
 
     def __init__(self, startp: int, channels: Sequence[int],
-                 scales: Sequence[int], dcn_impl: str = "auto"):
+                 scales: Sequence[int], dcn_impl: str = "auto",
+                 dtype=torch.float32):
         super().__init__()
         self.startp = startp
         channels = list(channels)
@@ -246,7 +276,7 @@ class DLAUp(nn.Module):
             j = -i - 2
             setattr(self, f"ida_{i}", IDAUp(
                 channels[j], in_channels[j:],
-                [s // scales[j] for s in scales[j:]], dcn_impl))
+                [s // scales[j] for s in scales[j:]], dcn_impl, dtype))
             scales[j + 1:] = [scales[j]] * len(scales[j + 1:])
             in_channels[j + 1:] = [channels[j]] * len(in_channels[j + 1:])
 
@@ -267,7 +297,8 @@ class DLASeg(nn.Module):
                  head_conv: int = 256, levels: Sequence[int] = DLA34_LEVELS,
                  channels: Sequence[int] = DLA34_CHANNELS,
                  dcn_impl: str = "auto",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype=torch.float32):
         super().__init__()
         if down_ratio not in (2, 4, 8, 16):
             raise ValueError(f"down_ratio must be 2, 4, 8 or 16, got "
@@ -277,15 +308,15 @@ class DLASeg(nn.Module):
         self.heads = dict(heads)
         channels = list(channels)
         fl = self.first_level
-        self.base = DLATrunk(levels, channels)
+        self.base = DLATrunk(levels, channels, dtype)
         scales = [2 ** i for i in range(len(channels[fl:]))]
-        self.dla_up = DLAUp(fl, channels[fl:], scales, dcn_impl)
+        self.dla_up = DLAUp(fl, channels[fl:], scales, dcn_impl, dtype)
         self.ida_up = IDAUp(channels[fl], channels[fl:last_level],
                             [2 ** i for i in range(last_level - fl)],
-                            dcn_impl)
+                            dcn_impl, dtype)
         for name in sorted(self.heads):
             self.add_module(name, head(channels[fl], head_conv,
-                                       self.heads[name], final_kernel))
+                                       self.heads[name], final_kernel, dtype))
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None
@@ -313,7 +344,8 @@ class DLASeg(nn.Module):
         feats = self.dla_up(self.base(x))
         y = list(feats[: self.last_level - self.first_level])
         self.ida_up(y, 0, len(y))
-        return {name: getattr(self, name)(y[-1]) for name in self.heads}
+        return {name: getattr(self, name)(y[-1]).float()
+                for name in self.heads}
 
 
 def build(num_classes: int, num_keypoints: int = 0, head_conv: int = 256,
@@ -321,11 +353,12 @@ def build(num_classes: int, num_keypoints: int = 0, head_conv: int = 256,
           rotated_boxes: bool = False, pretrained=None,
           dcn_impl: str = "auto", levels: Sequence[int] = DLA34_LEVELS,
           channels: Sequence[int] = DLA34_CHANNELS, seed: int = 0,
-          device="cuda") -> Backend:
+          device="cuda", dtype=torch.float32) -> Backend:
     """Factory matching the reference signature (backends/dla.py:513-531).
 
     Parameters are drawn on the CPU from ``torch.Generator().manual_seed(
-    seed)`` and the module is then moved to ``device``.
+    seed)`` and the module is then moved to ``device``; ``dtype`` is the
+    compute dtype (the parameters stay float32).
     """
     if pretrained:
         raise NotImplementedError(
@@ -337,7 +370,8 @@ def build(num_classes: int, num_keypoints: int = 0, head_conv: int = 256,
     module = DLASeg(heads, down_ratio=down_ratio, final_kernel=1,
                     last_level=5, head_conv=head_conv, levels=levels,
                     channels=channels, dcn_impl=dcn_impl,
-                    generator=torch.Generator().manual_seed(seed))
+                    generator=torch.Generator().manual_seed(seed),
+                    dtype=dtype)
     return Backend(module=module.to(device), down_ratio=down_ratio,
                    rotated_boxes=rotated_boxes, num_classes=num_classes,
                    num_keypoints=num_keypoints, heads=heads, name="dla34")

@@ -1,6 +1,6 @@
 """DCNv2 modulated deformable convolution in PyTorch (NCHW).
 
-Three functions of the same operands:
+Four functions:
 
 - ``dcn_v2``: the exact, unbounded sampler (the semantics of the reference
   CUDA extension's ``modulated_deformable_im2col``): bilinear samples with
@@ -12,13 +12,20 @@ Three functions of the same operands:
   zero gradient where ``|dy| >= PALLAS_MAX_SHIFT``, horizontal sampling
   exact, x and the weight staged in bf16, the samples rounded to bf16, f32
   accumulation.
+- ``dcn_v2_fused_twin``: the plain version of the fused bfloat16 Hopper
+  kernels, the whole layer from x: the 3x3 offset conv (bf16 x and
+  bf16-rounded weights, f32 accumulation plus the f32 bias; om stays f32),
+  ``dcn_v2_twin`` on its offsets and sigmoid mask, the output rounded to
+  bf16 once; also max |dy|, the clamp monitor.
 - ``DCN``: the module (reference ``libs/DCNv2/dcn_v2.py`` class ``DCN``):
   a zero-initialised ``conv_offset_mask`` conv gives ``(o1, o2, mask
   logits)``; ``offset = cat(o1, o2)`` and the mask is their sigmoid.
 
 Operands: x (B, Cin, H, W); offset (B, 2K, Ho, Wo) with channel 2t = dy and
 2t+1 = dx of tap t in row-major tap order; mask (B, K, Ho, Wo) post-sigmoid;
-weight (Cout, Cin, kh, kw).
+weight (Cout, Cin, kh, kw). The offset conv's 27 output channels are read
+the same way: tap t takes dy from channel 2t, dx from 2t+1 and its mask
+logit from 18+t.
 
 ``dcn_impl`` selects the implementation of each ``DCN`` module:
 ``auto`` runs the Hopper kernels on CUDA tensors and the exact op on CPU
@@ -26,6 +33,18 @@ tensors; ``cuda`` runs the kernel path (for a CPU tensor that is the plain
 twin); ``xla`` runs the exact op; ``pallas`` is read as ``cuda`` so the
 shared configs run unchanged. Outside 3x3 / s1 / p1 / d1 the exact op runs
 whatever the setting.
+
+Compute dtype (``DCN(dtype=...)``, the JAX package's ``precision``). In
+float32 the kernel path runs the offset conv as an ``nn.Conv2d`` and the
+float32 kernels. In bfloat16 the kernel path runs the fused kernels (the
+offset conv inside, ``ops/dcn_cuda.py``) on every 3x3 / s1 / p1 / d1 shape,
+and returns bf16; the exact path runs the JAX package's explicit
+composition: the offset conv in bf16, offsets and mask cast to f32, the
+exact sampler on bf16 x with an f32 contraction, f32 out. (The JAX package
+sends maps narrower than 8 columns to its "select" kernels with that
+explicit bf16 offset conv, which rounds om to bf16; the card has no lane
+width to respect, so the port fuses those too. No DLA-34 layer at 512 or
+800 px is that narrow.)
 """
 
 from __future__ import annotations
@@ -35,6 +54,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 PALLAS_MAX_SHIFT = 14
@@ -90,8 +110,10 @@ def _contract(cols: torch.Tensor, weight: torch.Tensor,
               bias: Optional[torch.Tensor]) -> torch.Tensor:
     b, cin, k, ho, wo = cols.shape
     cout = weight.shape[0]
-    out = torch.einsum("bckp,ock->bop", cols.reshape(b, cin, k, ho * wo),
-                       weight.reshape(cout, cin, k))
+    # f32 accumulation and an f32 result whatever the operands' dtype
+    out = torch.einsum("bckp,ock->bop",
+                       cols.reshape(b, cin, k, ho * wo).float(),
+                       weight.reshape(cout, cin, k).float())
     if bias is not None:
         out = out + bias.view(1, -1, 1)
     return out.reshape(b, cout, ho, wo)
@@ -146,6 +168,48 @@ def dcn_v2_twin(x, offset, mask, weight, bias=None,
     return _contract(cols, _bf16_value(weight), bias).to(x.dtype)
 
 
+class _RoundGrad(torch.autograd.Function):
+    """Identity forward; the gradient rounded to bf16 in value."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype)
+
+
+def dcn_v2_fused_twin(x, om_weight, om_bias, weight, bias=None,
+                      max_shift: float = PALLAS_MAX_SHIFT):
+    """Plain PyTorch version of the fused bf16 Hopper kernels (3x3 / s1 /
+    p1 / d1): ``(out in bf16, max |dy| as an f32 0-dim tensor)``.
+
+    x (B, Cin, H, W) bf16; om_weight (27, Cin, 3, 3), om_bias (27,),
+    weight (Cout, Cin, 3, 3) and bias (Cout,) f32. Autograd through it
+    gives the fused backward, with the rounding points of the TPU kernels
+    it mirrors: x, the offset-conv weights, W and the samples in bf16 (so
+    the column gradient g . W^T is rounded to bf16, as in ``dcn_v2_twin``);
+    the gradient dz of om rounded to bf16 before the offset conv's weight
+    and input gradients, unrounded in its bias gradient; dx rounded to bf16
+    once, after both of its parts are summed in f32. The TPU kernels also
+    round their horizontal tent weights to bf16; this twin keeps them f32,
+    and the comparison tolerances cover the difference.
+    """
+    if tuple(om_weight.shape[2:]) != (3, 3) or tuple(weight.shape[2:]) != (
+            3, 3):
+        raise ValueError("the fused DCN kernels are 3x3 only")
+    xf = x.float()
+    om = _RoundGrad.apply(F.conv2d(xf, _bf16_value(om_weight.float()),
+                                   None, padding=1))
+    om = om + om_bias.float().view(1, -1, 1, 1)
+    offset, mask = om[:, :18], torch.sigmoid(om[:, 18:])
+    stat = offset[:, 0::2].detach().abs().amax()
+    out = dcn_v2_twin(xf, offset, mask, weight.float(),
+                      None if bias is None else bias.float(), max_shift)
+    return out.to(torch.bfloat16), stat
+
+
 def kernel_supported(weight: torch.Tensor, stride, padding, dilation) -> bool:
     """The geometry the Hopper kernels cover (every DCN of the reference)."""
     return (tuple(weight.shape[2:]) == (3, 3) and _pair(stride) == (1, 1)
@@ -173,15 +237,18 @@ class DCN(nn.Module):
     ``bias``, ``conv_offset_mask.weight``, ``conv_offset_mask.bias``.
     ``max_abs_dy`` holds, after a forward on the kernel path, max |dy| over
     the even offset channels (a 0-dim tensor, no gradient), else None; the
-    trainer reads it to catch saturation of the clamp.
+    trainer reads it to catch saturation of the clamp. ``dtype`` is the
+    compute dtype (float32 or bfloat16); the parameters stay float32.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size=3,
-                 stride=1, padding=1, dilation=1, impl: str = "auto"):
+                 stride=1, padding=1, dilation=1, impl: str = "auto",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         kh, kw = _pair(kernel_size)
         self.stride, self.padding, self.dilation = stride, padding, dilation
         self.impl = impl
+        self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
                                                kh, kw))
         self.bias = nn.Parameter(torch.zeros(out_channels))
@@ -204,18 +271,43 @@ class DCN(nn.Module):
             self.conv_offset_mask.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.compute_dtype)
+        kernel = uses_kernel_path(self.impl, x, self.weight, self.stride,
+                                  self.padding, self.dilation)
+        if x.dtype == torch.bfloat16:
+            return self._forward_bf16(x, kernel)
         om = self.conv_offset_mask(x)
         o1, o2, m = torch.chunk(om, 3, dim=1)
         offset = torch.cat((o1, o2), dim=1)
         mask = torch.sigmoid(m)
-        if uses_kernel_path(self.impl, x, self.weight, self.stride,
-                            self.padding, self.dilation):
+        if kernel:
             from centernet_uda_torch.ops.dcn_cuda import dcn_v2_kernel
 
             self.max_abs_dy = offset[:, 0::2].detach().abs().amax()
             return dcn_v2_kernel(x, offset, mask, self.weight, self.bias)
+        return self._exact(x, offset, mask, self.weight)
+
+    def _forward_bf16(self, x: torch.Tensor, kernel: bool) -> torch.Tensor:
+        om_conv = self.conv_offset_mask
+        if kernel:
+            from centernet_uda_torch.ops.dcn_cuda import dcn_v2_fused_kernel
+
+            out, self.max_abs_dy = dcn_v2_fused_kernel(
+                x, om_conv.weight, om_conv.bias, self.weight, self.bias)
+            return out
+        # the JAX package's explicit composition: the offset conv in bf16
+        # (bias added after the conv's rounding), offsets and mask in f32
+        om = F.conv2d(x, om_conv.weight.to(x.dtype), None, self.stride,
+                      self.padding, self.dilation)
+        om = om + om_conv.bias.to(x.dtype).view(1, -1, 1, 1)
+        o1, o2, m = torch.chunk(om, 3, dim=1)
+        offset = torch.cat((o1, o2), dim=1).float()
+        mask = torch.sigmoid(m).float()
+        return self._exact(x, offset, mask, self.weight.to(x.dtype))
+
+    def _exact(self, x, offset, mask, weight) -> torch.Tensor:
         self.max_abs_dy = None
-        args = (x, offset, mask, self.weight, self.bias, self.stride,
+        args = (x, offset, mask, weight, self.bias, self.stride,
                 self.padding, self.dilation)
         if torch.is_grad_enabled():
             # recompute the column tensor in the backward instead of keeping

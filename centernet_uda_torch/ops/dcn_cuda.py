@@ -1,25 +1,34 @@
 """Hand-written Hopper (sm_90a) kernels of the DCNv2 layer, and their build.
 
-Two kernels, CUDA C++ in ``centernet_uda_torch/csrc/``:
+Four kernel sources, CUDA C++ in ``centernet_uda_torch/csrc/`` (bodies shared
+through ``dcn_kernels.cuh``):
 
-- ``dcn_fwd`` (``csrc/dcn_fwd.cu``) replaces the TPU kernel ``_dcn_kernel``
-  (``centernet_uda_tpu/ops/dcn_pallas.py``, via ``dcn_v2_pallas_lanes``).
+- ``dcn_fwd`` (``csrc/dcn_fwd.cu``), the float32 layer's forward, replaces
+  the TPU kernel ``_dcn_kernel`` (``centernet_uda_tpu/ops/dcn_pallas.py``,
+  via ``dcn_v2_pallas_lanes``).
 - ``dcn_bwd`` (``csrc/dcn_bwd.cu``, two launches: sampling gradients + dx,
   then dW) replaces ``_dcn_bwd_params_kernel`` (same file, via
   ``_bwd_params_call`` / ``dcn_v2_pallas_bwd_lanes``).
+- ``dcn_fused_fwd`` (``csrc/dcn_fused_fwd.cu``, two launches: the offset
+  conv, then sampling and contraction), the bfloat16 layer's forward with
+  its offset conv inside, replaces ``_dcn_fused_kernel`` (via
+  ``dcn_v2_pallas_lanes_fused``).
+- ``dcn_fused_bwd`` (``csrc/dcn_fused_bwd.cu``, five launches) replaces
+  ``_dcn_fused_bwd_kernel`` (via ``dcn_v2_pallas_bwd_lanes_fused``).
 
 Each source notes what bounds it on the H100 and what its design does about
-that. Their plain version is ``ops.dcn.dcn_v2_twin`` (forward) and autograd
-through it (backward): a wrapper takes it only for a tensor that lies on the
-CPU. For a CUDA tensor it launches the kernel or raises.
+that. Their plain versions are ``ops.dcn.dcn_v2_twin`` and
+``ops.dcn.dcn_v2_fused_twin`` (forward) and autograd through them
+(backward): a wrapper takes them only for a tensor that lies on the CPU.
+For a CUDA tensor it launches the kernel or raises.
 
 The sources are compiled at first use with ``nvcc`` (one process per source,
 all started together) into ``build/kernels/`` at the root of the checkout,
 under a name that carries a hash of the sources, and loaded with ``ctypes``.
 Nothing is compiled or loaded at import.
 
-``LAUNCHES`` counts, per kernel, the launches made by the wrappers; a run
-resets it with ``reset_launches()`` and reads it to show which path ran.
+``LAUNCHES`` counts, per kernel source, the launches made by the wrappers; a
+run resets it with ``reset_launches()`` and reads it to show which path ran.
 """
 
 from __future__ import annotations
@@ -34,12 +43,18 @@ from typing import Dict, Tuple
 
 import torch
 
-from centernet_uda_torch.ops.dcn import PALLAS_MAX_SHIFT, dcn_v2_twin
+from centernet_uda_torch.ops.dcn import (
+    PALLAS_MAX_SHIFT,
+    dcn_v2_fused_twin,
+    dcn_v2_twin,
+)
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = {"dcn_fwd": "dcn_fwd.cu", "dcn_bwd": "dcn_bwd.cu"}
-_HEADERS = ("dcn_common.cuh",)
+SOURCES = {"dcn_fwd": "dcn_fwd.cu", "dcn_bwd": "dcn_bwd.cu",
+           "dcn_fused_fwd": "dcn_fused_fwd.cu",
+           "dcn_fused_bwd": "dcn_fused_bwd.cu"}
+_HEADERS = ("dcn_common.cuh", "dcn_kernels.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -117,12 +132,14 @@ def _lib(name: str) -> ctypes.CDLL:
         build_kernels()
     lib = ctypes.CDLL(str(path))
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if name == "dcn_fwd":
-        lib.dcn_fwd.argtypes = [vp] * 6 + [i32] * 5 + [f32, vp]
-        lib.dcn_fwd.restype = i32
-    else:
-        lib.dcn_bwd.argtypes = [vp] * 9 + [i32] * 5 + [f32, i32, vp]
-        lib.dcn_bwd.restype = i32
+    fn = getattr(lib, name)
+    fn.argtypes = {
+        "dcn_fwd": [vp] * 6 + [i32] * 5 + [f32, vp],
+        "dcn_bwd": [vp] * 9 + [i32] * 5 + [f32, i32, vp],
+        "dcn_fused_fwd": [vp] * 8 + [i32] * 5 + [f32, vp],
+        "dcn_fused_bwd": [vp] * 11 + [i32] * 5 + [f32, i32, i32, vp],
+    }[name]
+    fn.restype = i32
     err_fn = getattr(lib, f"{name}_error_string")
     err_fn.argtypes = [i32]
     err_fn.restype = ctypes.c_char_p
@@ -164,7 +181,7 @@ def _check(x, offset, mask, weight, bias=None, g=None) -> Tuple[int, ...]:
 
 
 def _stage_x(x: torch.Tensor) -> torch.Tensor:
-    """(B, Cin, H, W) f32 -> channels-last bf16 copy, in one pass."""
+    """(B, Cin, H, W) -> channels-last bf16 copy, in one pass."""
     b, cin, h, w = x.shape
     xs = torch.empty((b, h, w, cin), dtype=torch.bfloat16, device=x.device)
     xs.copy_(x.permute(0, 2, 3, 1))
@@ -177,20 +194,31 @@ def dcn_forward(x, offset, mask, weight, bias,
     if not x.is_cuda:
         with torch.no_grad():
             return dcn_v2_twin(x, offset, mask, weight, bias, max_shift)
-    b, cin, h, w, cout = _check(x, offset, mask, weight, bias)
+    _check(x, offset, mask, weight, bias)
     with torch.cuda.device(x.device):
-        xs = _stage_x(x)
-        wt = (weight.permute(2, 3, 1, 0).reshape(9, cin, cout)
-              .to(torch.bfloat16).contiguous())
-        offset, mask, bias = (offset.contiguous(), mask.contiguous(),
-                              bias.contiguous())
-        out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
-        err = _lib("dcn_fwd").dcn_fwd(
-            xs.data_ptr(), offset.data_ptr(), mask.data_ptr(), wt.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
-            float(max_shift), torch.cuda.current_stream().cuda_stream)
-        _raise_on(err, "dcn_fwd")
-        LAUNCHES["dcn_fwd"] += 1
+        return _forward_launch(x, offset, mask, weight, bias, max_shift,
+                               torch.cuda.current_stream().cuda_stream)
+
+
+def _forward_launch(x, offset, mask, weight, bias, max_shift, stream):
+    """The kernel path proper, on ``stream``, for checked operands. Each
+    wrapper has one (``_backward_launch``, ``_fused_forward_launch``,
+    ``_fused_backward_launch``); ``tests/test_torch_emulated_kernels.py``
+    calls them on CPU tensors with the sources built for the CPU."""
+    b, cin, h, w = x.shape
+    cout = weight.shape[0]
+    xs = _stage_x(x)
+    wt = (weight.permute(2, 3, 1, 0).reshape(9, cin, cout)
+          .to(torch.bfloat16).contiguous())
+    offset, mask, bias = (offset.contiguous(), mask.contiguous(),
+                          bias.contiguous())
+    out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
+    err = _lib("dcn_fwd").dcn_fwd(
+        xs.data_ptr(), offset.data_ptr(), mask.data_ptr(), wt.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
+        float(max_shift), stream)
+    _raise_on(err, "dcn_fwd")
+    LAUNCHES["dcn_fwd"] += 1
     return out
 
 
@@ -202,6 +230,11 @@ def dcn_backward_plain(x, offset, mask, weight, g,
                   for t in (x, offset, mask, weight)]
         out = dcn_v2_twin(*leaves, None, max_shift)
         return torch.autograd.grad(out, leaves, g)
+
+
+def _dw_to_oihw(dw: torch.Tensor, cout: int) -> torch.Tensor:
+    """(9, Cin, Cout) tap-major gradient -> (Cout, Cin, 3, 3)."""
+    return dw.reshape(3, 3, -1, cout).permute(3, 2, 0, 1).contiguous()
 
 
 def _dw_pixels_per_block(n_pix: int, cin: int, cout: int) -> int:
@@ -218,27 +251,32 @@ def dcn_backward(x, offset, mask, weight, g,
     if not x.is_cuda:
         return dcn_backward_plain(x, offset, mask, weight, g, max_shift)
     g = g.float().contiguous()
-    b, cin, h, w, cout = _check(x, offset, mask, weight, None, g)
+    _check(x, offset, mask, weight, None, g)
     with torch.cuda.device(x.device):
-        xs = _stage_x(x)
-        wt_t = (weight.permute(2, 3, 0, 1).reshape(9, cout, cin)
-                .to(torch.bfloat16).contiguous())
-        offset, mask = offset.contiguous(), mask.contiguous()
-        dx = torch.zeros((b, h, w, cin), dtype=torch.float32, device=x.device)
-        doff = torch.empty_like(offset)
-        dmask = torch.empty_like(mask)
-        dw = torch.zeros((9, cin, cout), dtype=torch.float32, device=x.device)
-        err = _lib("dcn_bwd").dcn_bwd(
-            xs.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-            wt_t.data_ptr(), g.data_ptr(), dx.data_ptr(), doff.data_ptr(),
-            dmask.data_ptr(), dw.data_ptr(), b, h, w, cin, cout,
-            float(max_shift), _dw_pixels_per_block(b * h * w, cin, cout),
-            torch.cuda.current_stream().cuda_stream)
-        _raise_on(err, "dcn_bwd")
-        LAUNCHES["dcn_bwd"] += 1
+        return _backward_launch(x, offset, mask, weight, g, max_shift,
+                                torch.cuda.current_stream().cuda_stream)
+
+
+def _backward_launch(x, offset, mask, weight, g, max_shift, stream):
+    b, cin, h, w = x.shape
+    cout = weight.shape[0]
+    xs = _stage_x(x)
+    wt_t = (weight.permute(2, 3, 0, 1).reshape(9, cout, cin)
+            .to(torch.bfloat16).contiguous())
+    offset, mask = offset.contiguous(), mask.contiguous()
+    dx = torch.zeros((b, h, w, cin), dtype=torch.float32, device=x.device)
+    doff = torch.empty_like(offset)
+    dmask = torch.empty_like(mask)
+    dw = torch.zeros((9, cin, cout), dtype=torch.float32, device=x.device)
+    err = _lib("dcn_bwd").dcn_bwd(
+        xs.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+        wt_t.data_ptr(), g.data_ptr(), dx.data_ptr(), doff.data_ptr(),
+        dmask.data_ptr(), dw.data_ptr(), b, h, w, cin, cout,
+        float(max_shift), _dw_pixels_per_block(b * h * w, cin, cout), stream)
+    _raise_on(err, "dcn_bwd")
+    LAUNCHES["dcn_bwd"] += 1
     dx = dx.permute(0, 3, 1, 2).contiguous().to(x.dtype)
-    dw = dw.reshape(3, 3, cin, cout).permute(3, 2, 0, 1).contiguous()
-    return dx, doff, dmask, dw
+    return dx, doff, dmask, _dw_to_oihw(dw, cout)
 
 
 class _DCNKernelFn(torch.autograd.Function):
@@ -258,6 +296,166 @@ def dcn_v2_kernel(x, offset, mask, weight, bias) -> torch.Tensor:
     """The kernel path of ``DCN``: the Hopper kernels on CUDA tensors, the
     plain twin on CPU tensors, differentiable either way."""
     return _DCNKernelFn.apply(x, offset, mask, weight, bias)
+
+
+def _check_fused(x, om_weight, om_bias, weight, bias=None, g=None
+                 ) -> Tuple[int, ...]:
+    params = [t for t in (om_weight, om_bias, weight, bias) if t is not None]
+    for t in params + ([g] if g is not None else []):
+        if t.device != x.device:
+            raise ValueError("DCN operands must lie on one device")
+    if x.dtype != torch.bfloat16 or (g is not None
+                                     and g.dtype != torch.bfloat16):
+        raise TypeError(f"the fused DCN kernels take bfloat16 x and g, got "
+                        f"{x.dtype}")
+    for t in params:
+        if t.dtype != torch.float32:
+            raise TypeError(f"the fused DCN kernels take float32 parameters, "
+                            f"got {t.dtype}")
+    b, cin, h, w = x.shape
+    cout = weight.shape[0]
+    if tuple(weight.shape) != (cout, cin, 3, 3):
+        raise ValueError(f"weight {tuple(weight.shape)} is not "
+                         f"({cout}, {cin}, 3, 3)")
+    if tuple(om_weight.shape) != (27, cin, 3, 3):
+        raise ValueError(f"offset-conv weight {tuple(om_weight.shape)} is "
+                         f"not (27, {cin}, 3, 3)")
+    if tuple(om_bias.shape) != (27,):
+        raise ValueError(f"offset-conv bias {tuple(om_bias.shape)} != (27,)")
+    if bias is not None and tuple(bias.shape) != (cout,):
+        raise ValueError(f"bias {tuple(bias.shape)} != {(cout,)}")
+    if g is not None and tuple(g.shape) != (b, cout, h, w):
+        raise ValueError(f"gradient {tuple(g.shape)} != {(b, cout, h, w)}")
+    if b * h * w * max(cin, cout, 27) >= 2 ** 31:
+        raise ValueError("DCN operand too large for 32-bit pixel indices")
+    return b, cin, h, w, cout
+
+
+def _stage_om_weight(om_weight: torch.Tensor) -> torch.Tensor:
+    """(27, Cin, 3, 3) f32 -> (9, Cin, 27) bf16, tap-major."""
+    return (om_weight.permute(2, 3, 1, 0).reshape(9, -1, 27)
+            .to(torch.bfloat16).contiguous())
+
+
+def dcn_fused_forward(x, om_weight, om_bias, weight, bias,
+                      max_shift: float = PALLAS_MAX_SHIFT):
+    """The bf16 DCNv2 layer with its offset conv, 3x3/s1/p1/d1: ``(out,
+    max_abs_dy)``. x (B, Cin, H, W) bf16; the offset conv's (27, Cin, 3, 3)
+    weight and (27,) bias, the layer's (Cout, Cin, 3, 3) weight and (Cout,)
+    bias f32. out (B, Cout, H, W) bf16; max_abs_dy an f32 0-dim tensor."""
+    if not x.is_cuda:
+        with torch.no_grad():
+            return dcn_v2_fused_twin(x, om_weight, om_bias, weight, bias,
+                                     max_shift)
+    _check_fused(x, om_weight, om_bias, weight, bias)
+    with torch.cuda.device(x.device):
+        return _fused_forward_launch(x, om_weight, om_bias, weight, bias,
+                                     max_shift,
+                                     torch.cuda.current_stream().cuda_stream)
+
+
+def _fused_forward_launch(x, om_weight, om_bias, weight, bias, max_shift,
+                          stream):
+    b, cin, h, w = x.shape
+    cout = weight.shape[0]
+    dev = x.device
+    xs = _stage_x(x)
+    wom = _stage_om_weight(om_weight)
+    wt = (weight.permute(2, 3, 1, 0).reshape(9, cin, cout)
+          .to(torch.bfloat16).contiguous())
+    om_bias, bias = om_bias.contiguous(), bias.contiguous()
+    om = torch.empty((b, 27, h, w), dtype=torch.float32, device=dev)
+    out = torch.empty((b, cout, h, w), dtype=torch.bfloat16, device=dev)
+    stat = torch.zeros(1, dtype=torch.int32, device=dev)
+    err = _lib("dcn_fused_fwd").dcn_fused_fwd(
+        xs.data_ptr(), wom.data_ptr(), om_bias.data_ptr(), wt.data_ptr(),
+        bias.data_ptr(), om.data_ptr(), out.data_ptr(), stat.data_ptr(), b,
+        h, w, cin, cout, float(max_shift), stream)
+    _raise_on(err, "dcn_fused_fwd")
+    LAUNCHES["dcn_fused_fwd"] += 1
+    return out, stat.view(torch.float32).reshape(())
+
+
+def dcn_fused_backward_plain(x, om_weight, om_bias, weight, g,
+                             max_shift: float = PALLAS_MAX_SHIFT):
+    """Plain version of ``dcn_fused_backward``: autograd through the
+    fused twin."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (x, om_weight, om_bias, weight)]
+        out, _ = dcn_v2_fused_twin(*leaves, None, max_shift)
+        return torch.autograd.grad(out, leaves, g)
+
+
+def dcn_fused_backward(x, om_weight, om_bias, weight, g,
+                       max_shift: float = PALLAS_MAX_SHIFT):
+    """Gradients ``(dx, d om_weight, d om_bias, dweight)`` of
+    ``dcn_fused_forward`` for the bf16 output gradient g; dx is bf16, the
+    rest f32. The bias gradient, sum(g), is the caller's."""
+    if not x.is_cuda:
+        return dcn_fused_backward_plain(x, om_weight, om_bias, weight, g,
+                                        max_shift)
+    g = g.contiguous()
+    _check_fused(x, om_weight, om_bias, weight, None, g)
+    with torch.cuda.device(x.device):
+        return _fused_backward_launch(
+            x, om_weight, om_bias, weight, g, max_shift,
+            torch.cuda.current_stream().cuda_stream)
+
+
+def _fused_backward_launch(x, om_weight, om_bias, weight, g, max_shift,
+                           stream):
+    b, cin, h, w = x.shape
+    cout = weight.shape[0]
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    xs = _stage_x(x)
+    wom = _stage_om_weight(om_weight)
+    wt_t = (weight.permute(2, 3, 0, 1).reshape(9, cout, cin)
+            .to(torch.bfloat16).contiguous())
+    om_bias = om_bias.contiguous()
+    om = torch.empty((b, 27, h, w), **f32)
+    dz = torch.empty((b, 27, h, w), **f32)
+    dx = torch.zeros((b, h, w, cin), **f32)
+    dw = torch.zeros((9, cin, cout), **f32)
+    dwom = torch.zeros((9, cin, 27), **f32)
+    dbom = torch.zeros(27, **f32)
+    n_pix = b * h * w
+    err = _lib("dcn_fused_bwd").dcn_fused_bwd(
+        xs.data_ptr(), wom.data_ptr(), om_bias.data_ptr(), wt_t.data_ptr(),
+        g.data_ptr(), om.data_ptr(), dz.data_ptr(), dx.data_ptr(),
+        dw.data_ptr(), dwom.data_ptr(), dbom.data_ptr(), b, h, w, cin, cout,
+        float(max_shift), _dw_pixels_per_block(n_pix, cin, cout),
+        _dw_pixels_per_block(n_pix, cin, 27), stream)
+    _raise_on(err, "dcn_fused_bwd")
+    LAUNCHES["dcn_fused_bwd"] += 1
+    # dx rounded to bf16 once, after both of its parts are in
+    dx_out = torch.empty((b, cin, h, w), dtype=torch.bfloat16, device=dev)
+    dx_out.copy_(dx.permute(0, 3, 1, 2))
+    return dx_out, _dw_to_oihw(dwom, 27), dbom, _dw_to_oihw(dw, cout)
+
+
+class _DCNFusedFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, om_weight, om_bias, weight, bias):
+        ctx.save_for_backward(x, om_weight, om_bias, weight)
+        out, stat = dcn_fused_forward(x, om_weight, om_bias, weight, bias)
+        ctx.mark_non_differentiable(stat)
+        return out, stat
+
+    @staticmethod
+    def backward(ctx, g, _g_stat):
+        x, om_weight, om_bias, weight = ctx.saved_tensors
+        grads = dcn_fused_backward(x, om_weight, om_bias, weight,
+                                   g.to(torch.bfloat16))
+        return (*grads, g.float().sum((0, 2, 3)))
+
+
+def dcn_v2_fused_kernel(x, om_weight, om_bias, weight, bias):
+    """The bf16 kernel path of ``DCN``: ``(out, max_abs_dy)`` from the fused
+    Hopper kernels on CUDA tensors, from the fused twin on CPU tensors,
+    differentiable either way (max_abs_dy has no gradient)."""
+    return _DCNFusedFn.apply(x, om_weight, om_bias, weight, bias)
 
 
 def compiler_report(reports: Dict[str, str]) -> str:

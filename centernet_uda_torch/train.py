@@ -2,8 +2,8 @@
 
 Counterpart of ``build_trainer`` in ``centernet_uda_tpu/train.py`` for the
 no-UDA, single-device case: backend, loss, optimizer and schedule through
-the registries, on ``device``. The CLI ``main()`` and the data loaders wait
-for ROADMAP A6/A7.
+the registries, on ``device``, at ``precision`` float32 or bfloat16. The
+CLI ``main()`` and the data loaders wait for ROADMAP A6/A7.
 """
 
 from __future__ import annotations
@@ -16,16 +16,22 @@ from centernet_uda_torch import resolve_device
 from centernet_uda_torch.uda.base import Model
 from centernet_uda_torch.utils import optim as optim_util
 
+# the config's ``precision``: the compute dtype of the backend's layers
+# (centernet_uda_tpu/train.py passes ``dtype`` to the model the same way)
+PRECISIONS = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
 
 def build_trainer(cfg, device="cuda") -> Model:
     """Assemble backend + loss + optimizer + trainer; call ``init_done()``
     on the result before the first step."""
     device = resolve_device(device)
     precision = str(cfg.get("precision", "float32"))
-    if precision != "float32":
+    if precision not in PRECISIONS:
         raise NotImplementedError(
-            f"precision {precision!r} is not ported yet (ROADMAP A4)")
-    # float32 means float32: no TF32 in matmuls or cuDNN convolutions
+            f"precision {precision!r} is not ported (only "
+            f"{sorted(PRECISIONS)})")
+    # float32 means float32, in both modes (bfloat16 keeps its BatchNorm,
+    # loss and optimizer in float32): no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if cfg.model.get("uda"):
@@ -37,6 +43,7 @@ def build_trainer(cfg, device="cuda") -> Model:
 
     backend_params = cfg.model.backend.params.to_dict()
     backend_params.setdefault("dcn_impl", str(cfg.get("dcn_impl", "auto")))
+    backend_params.setdefault("dtype", PRECISIONS[precision])
     backend = model_registry.build(cfg.model.backend.name, **backend_params,
                                    seed=int(cfg.get("seed", 42)),
                                    device=device)

@@ -6,26 +6,32 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
 
 1. probe: the card, its power limit, torch, CUDA, nvcc; the card must be
    compute capability 9.0;
-2. build: compiles the DCN kernels from ``centernet_uda_torch/csrc/`` and
-   prints the compiler's register / shared-memory report;
+2. build: compiles the four DCN kernel sources from
+   ``centernet_uda_torch/csrc/`` and prints the compiler's register /
+   shared-memory report;
 3. kernels: at every distinct DCN shape of the 512 px train path (batch 16)
-   and of the 800 px eval path (batch 4), holds the forward and all five
-   gradients of the kernels against their plain PyTorch twin (atol
-   5e-2 * max(1, max|twin|), rtol 5e-2: the bound of the Pallas kernels'
-   own tests) and times kernel, twin and the F.conv2d yardstick;
-4. train: ``experiment=baseline`` (DLA-34 at full width, float32,
-   ``dcn_impl: auto``) takes 4 steps at 512 px, batch 16, on one seeded
-   synthetic batch; the losses must be finite, every step must launch each
-   DCN kernel 16 times, and no layer may reach the offset clamp;
-5. eval: one eval step at 800 px plus decode; the detections must be finite
-   with shape (B, 150, 4) and the forward kernel must run 16 times.
+   and of the 800 px eval path (batch 4), holds the float32 kernels'
+   forward and all five gradients against their plain PyTorch twin, and the
+   fused bfloat16 kernels' output, max |dy| and all five gradients against
+   theirs (atol 5e-2 * max(1, max|twin|), rtol 5e-2: the bound of the Pallas
+   kernels' own tests; max |dy| to 1e-5 relative), and times kernel, twin
+   and the cuDNN yardstick;
+4. train: ``experiment=baseline`` (DLA-34 at full width, ``dcn_impl:
+   auto``) takes 4 steps at 512 px, batch 16, on one seeded synthetic batch,
+   first at float32 and then at ``precision=bfloat16``; the losses must be
+   finite, each step must launch each DCN kernel of its precision 16 times
+   and the other precision's none, and no layer may reach the offset clamp;
+5. eval: at each precision, one eval step at 800 px plus decode; the
+   detections must be finite with shape (B, 150, 4) and the forward kernel
+   of that precision must run 16 times.
 
-Before training, the model's heads on the kernel path are held against the
-exact DCN op on the same weights and a small input. The last lines are a
-``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and power
-limit, and ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
-``--json PATH`` also writes every measurement to PATH; ``--profile`` adds a
-torch.profiler breakdown of two more train steps by kernel.
+Before each precision trains, its model's heads on the kernel path are held
+against the exact DCN op on the same weights and a small input. The last
+lines are a ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name
+and power limit, and ``{"ok": true, "device": {...}}``. Any failure exits
+non-zero. ``--json PATH`` also writes every measurement to PATH;
+``--profile`` adds a torch.profiler breakdown by kernel of two more train
+steps at each precision.
 """
 
 from __future__ import annotations
@@ -46,6 +52,15 @@ EVAL_SIZE, EVAL_BATCH_KERNELS = 800, 4
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 TOL = 5e-2
+STAT_RTOL = 1e-5
+# the bf16 model on the kernel path against the same bf16 model on the
+# exact op: both round every layer to bf16, but the fused layer keeps its
+# offsets in f32 and returns bf16 where the exact path rounds the offsets to
+# bf16 and returns f32, so the heads differ by bf16 noise grown through the
+# layers (tests/test_torch_bf16.py measures the same spread between two
+# executions of the JAX package's bf16 model): the median difference is
+# held at TOL and the largest at BF16_HEADS_MAX of each head's scale
+BF16_HEADS_MAX = 3e-1
 
 
 def nvidia_smi() -> str:
@@ -105,6 +120,41 @@ def make_operands(seed, b, cin, cout, h, w, device):
     return [torch.from_numpy(v).to(device) for v in (x, off, m, wt, bias, g)]
 
 
+def make_fused_operands(seed, b, cin, cout, h, w, device):
+    """Seeded operands of the fused layer: bf16 x and g; offset-conv
+    weights scaled so the offsets have std about 2; input channel 0 is zero
+    except on the first and last rows, where the offset conv lifts dy of
+    taps 0 and 4 to +-20, past the clamp.
+
+    Kernel and twin compute the offset conv in different summation orders,
+    and the sampler's offset gradient jumps where an offset crosses an
+    integer. So x is drawn in steps of 1/8 and the offset-conv weights and
+    bias in steps of 1/64: every partial sum is a multiple of 1/512, exact
+    in f32 in any order, and the bias is shifted by 1/1024, so every offset
+    lies at least 1/1024 from an integer and from the clamp on both
+    sides."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    x = (np.round(rng.randn(b, cin, h, w) * 8) / 8).astype(np.float32)
+    om_w = (np.round(rng.randn(27, cin, 3, 3) * 128 / math.sqrt(9 * cin))
+            / 64).astype(np.float32)
+    om_b = (np.round(rng.randn(27) * 32) / 64 + 1 / 1024).astype(np.float32)
+    x[:, 0] = 0.0
+    x[:, 0, 0, :] = 4.0
+    x[:, 0, h - 1, :] = -4.0
+    om_w[:, 0] = 0.0
+    om_w[0, 0, 1, 1] = om_w[8, 0, 1, 1] = 5.0
+    wt = (rng.randn(cout, cin, 3, 3) / math.sqrt(9 * cin)).astype(np.float32)
+    bias = rng.randn(cout).astype(np.float32)
+    g = rng.randn(b, cout, h, w).astype(np.float32)
+    t = [torch.from_numpy(v).to(device) for v in (x, om_w, om_b, wt, bias,
+                                                   g)]
+    t[0], t[5] = t[0].bfloat16(), t[5].bfloat16()
+    return t
+
+
 def compare(name, got, want):
     """(max abs error, error relative to max|want|); raises past TOL."""
     import torch
@@ -143,8 +193,20 @@ def dcn_shapes(model, size, device):
     return shapes
 
 
+def print_record(label, batch, cin, cout, h, w, layers, errs, t, fb, fk, bb,
+                 bk):
+    print(f"{label} B={batch} {cin}->{cout} @{h}x{w} (x{layers}): "
+          f"errs " + " ".join(f"{k}={v[0]:.3g}/{v[1]:.2g}"
+                              for k, v in errs.items())
+          + f" | fwd {t['fwd_ms']:.3f} ms (twin {t['twin_fwd_ms']:.3f},"
+          f" conv {t['conv_fwd_ms']:.3f}, bound {fb:.4f} {fk})"
+          f" | bwd {t['bwd_ms']:.3f} ms (twin {t['twin_bwd_ms']:.3f},"
+          f" conv {t['conv_bwd_ms']:.3f}, bound {bb:.4f} {bk})", flush=True)
+
+
 def check_kernels(shapes, batch, device, label):
-    """Phase 3 at one input size; returns per-shape records."""
+    """Phase 3 for the float32 kernels at one input size; returns
+    per-shape records."""
     import torch
     import torch.nn.functional as F
 
@@ -192,22 +254,93 @@ def check_kernels(shapes, batch, device, label):
         }
         fb, fk = bound_ms(fwd_bytes, fwd_flops)
         bb, bk = bound_ms(bwd_bytes, 2 * fwd_flops)
-        rec = {"path": label, "batch": batch, "cin": cin, "cout": cout,
-               "h": h, "w": w, "layers": layers,
-               "max_abs_err": {k: v[0] for k, v in errs.items()},
-               "max_rel_err": {k: v[1] for k, v in errs.items()},
-               "fwd_bound_ms": fb, "fwd_bound_by": fk,
-               "bwd_bound_ms": bb, "bwd_bound_by": bk, **t}
-        records.append(rec)
-        print(f"{label} B={batch} {cin}->{cout} @{h}x{w} (x{layers}): "
-              f"errs " + " ".join(f"{k}={v[0]:.3g}/{v[1]:.2g}"
-                                  for k, v in errs.items())
-              + f" | fwd {t['fwd_ms']:.3f} ms (twin {t['twin_fwd_ms']:.3f},"
-              f" conv {t['conv_fwd_ms']:.3f}, bound {fb:.4f} {fk})"
-              f" | bwd {t['bwd_ms']:.3f} ms (twin {t['twin_bwd_ms']:.3f},"
-              f" conv {t['conv_bwd_ms']:.3f}, bound {bb:.4f} {bk})",
-              flush=True)
+        records.append({
+            "path": label, "batch": batch, "cin": cin, "cout": cout, "h": h,
+            "w": w, "layers": layers,
+            "max_abs_err": {k: v[0] for k, v in errs.items()},
+            "max_rel_err": {k: v[1] for k, v in errs.items()},
+            "fwd_bound_ms": fb, "fwd_bound_by": fk,
+            "bwd_bound_ms": bb, "bwd_bound_by": bk, **t})
+        print_record(label, batch, cin, cout, h, w, layers, errs, t, fb, fk,
+                     bb, bk)
         del x, off, m, wt, bias, g
+        torch.cuda.empty_cache()
+    return records
+
+
+def check_fused_kernels(shapes, batch, device, label):
+    """Phase 3 for the fused bf16 kernels at one input size; returns
+    per-shape records. The yardstick is one cuDNN bf16 convolution of
+    Cin -> Cout + 27 (the layer with zero offsets and mask 1, plus the
+    offset conv, on the same input) and its convolution_backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from centernet_uda_torch.ops import dcn_cuda
+
+    records = []
+    for i, ((cin, cout, h, w), layers) in enumerate(sorted(shapes.items())):
+        x, om_w, om_b, wt, bias, g = make_fused_operands(
+            100 + i, batch, cin, cout, h, w, device)
+        out, stat = dcn_cuda.dcn_fused_forward(x, om_w, om_b, wt, bias)
+        ref, ref_stat = dcn_cuda.dcn_v2_fused_twin(x, om_w, om_b, wt, bias)
+        errs = {"out": compare("out", out, ref)}
+        stat_err = abs(float(stat) - float(ref_stat))
+        if not (float(ref_stat) > 14.0
+                and stat_err <= STAT_RTOL * float(ref_stat)):
+            raise AssertionError(f"max |dy| {float(stat)} vs twin "
+                                 f"{float(ref_stat)}")
+        errs["stat"] = (stat_err, stat_err / float(ref_stat))
+        del out, ref
+        got = dcn_cuda.dcn_fused_backward(x, om_w, om_b, wt, g) + (
+            g.float().sum((0, 2, 3)),)
+        leaves = [t.clone().requires_grad_(True) for t in (x, om_w, om_b,
+                                                           wt, bias)]
+        with torch.enable_grad():
+            ref_out, _ = dcn_cuda.dcn_v2_fused_twin(*leaves)
+            want = torch.autograd.grad(ref_out, leaves, g)
+        for name, a, b in zip(("dx", "dom_w", "dom_b", "dw", "dbias"), got,
+                              want):
+            errs[name] = compare(name, a, b)
+        del got, want, ref_out, leaves
+        torch.cuda.synchronize()
+
+        n = batch * h * w
+        fwd_flops = 2.0 * n * 9 * cin * (cout + 27)
+        params = 4.0 * (9 * cin * (cout + 27) + cout + 27)
+        fwd_bytes = 2.0 * n * (cin + cout) + params
+        bwd_bytes = 2.0 * n * (cin + cout + cin) + 2 * params
+        w_cat = torch.cat([wt, om_w]).bfloat16()
+        g_cat = g.repeat(1, 1 - (-27 // cout), 1, 1)[:, :cout + 27]
+        g_cat = g_cat.contiguous()
+        t = {
+            "fwd_ms": time_ms(lambda: dcn_cuda.dcn_fused_forward(
+                x, om_w, om_b, wt, bias)),
+            "twin_fwd_ms": time_ms(lambda: dcn_cuda.dcn_v2_fused_twin(
+                x, om_w, om_b, wt, bias)),
+            "conv_fwd_ms": time_ms(lambda: F.conv2d(x, w_cat, None,
+                                                    padding=1)),
+            "bwd_ms": time_ms(lambda: dcn_cuda.dcn_fused_backward(
+                x, om_w, om_b, wt, g)),
+            "twin_bwd_ms": time_ms(lambda: dcn_cuda.dcn_fused_backward_plain(
+                x, om_w, om_b, wt, g)),
+            "conv_bwd_ms": time_ms(
+                lambda: torch.ops.aten.convolution_backward(
+                    g_cat, x, w_cat, None, [1, 1], [1, 1], [1, 1], False,
+                    [0, 0], 1, [True, True, False])),
+        }
+        fb, fk = bound_ms(fwd_bytes, fwd_flops)
+        bb, bk = bound_ms(bwd_bytes, 2 * fwd_flops)
+        records.append({
+            "path": label, "batch": batch, "cin": cin, "cout": cout, "h": h,
+            "w": w, "layers": layers,
+            "max_abs_err": {k: v[0] for k, v in errs.items()},
+            "max_rel_err": {k: v[1] for k, v in errs.items()},
+            "fwd_bound_ms": fb, "fwd_bound_by": fk,
+            "bwd_bound_ms": bb, "bwd_bound_by": bk, **t})
+        print_record(label, batch, cin, cout, h, w, layers, errs, t, fb, fk,
+                     bb, bk)
+        del x, om_w, om_b, wt, bias, g, w_cat, g_cat
         torch.cuda.empty_cache()
     return records
 
@@ -234,7 +367,7 @@ def synthetic_batch(rng, batch, size, num_classes, max_det, down_ratio=4):
     return data
 
 
-def check_heads_against_exact(trainer, device):
+def check_heads_against_exact(trainer, device, bf16=False):
     """The model on the kernel path against the exact DCN op: same weights,
     a 2 x 3 x 256 x 256 input, on a copy of the model with train-mode
     BatchNorm (at init, eval-mode features are too small to compare)."""
@@ -258,11 +391,87 @@ def check_heads_against_exact(trainer, device):
 
     got, want = heads("auto"), heads("xla")
     del net
-    errs = {k: compare(f"head {k}", got[k], want[k]) for k in want}
-    print("heads on the kernel path vs the exact DCN op: "
-          + " ".join(f"{k}={v[0]:.3g}/{v[1]:.2g}" for k, v in errs.items()),
-          flush=True)
+    if bf16:
+        errs = {}
+        for k in want:
+            err = (got[k].double() - want[k].double()).abs()
+            scale = float(want[k].abs().max())
+            med, top = float(err.median()), float(err.max())
+            if not (bool(torch.isfinite(got[k]).all())
+                    and med <= TOL * scale and top <= BF16_HEADS_MAX * scale):
+                raise AssertionError(f"bf16 head {k}: median |err| {med}, "
+                                     f"max {top}, scale {scale}")
+            errs[k] = (top, top / scale)
+    else:
+        errs = {k: compare(f"head {k}", got[k], want[k]) for k in want}
+    print(f"{'bf16' if bf16 else 'f32'} heads on the kernel path vs the "
+          f"exact DCN op: " + " ".join(f"{k}={v[0]:.3g}/{v[1]:.2g}"
+                                       for k, v in errs.items()), flush=True)
     return {k: v[0] for k, v in errs.items()}
+
+
+def train_and_eval(trainer, cfg, data, eval_data, n_dcn, fwd, bwd):
+    """Phases 4 and 5 for one trainer: TRAIN_STEPS train steps, then one
+    eval step with decode. ``fwd``/``bwd`` name the kernels this precision
+    must launch (16 a step); every other kernel must not launch."""
+    import numpy as np
+    import torch
+
+    from centernet_uda_torch.ops import dcn_cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    dcn_cuda.reset_launches()
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        stats = trainer.step(data, is_training=True)["stats"]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        vals = {k: float(v) for k, v in stats.items()}
+        if trainer.maybe_degrade_dcn(vals["dcn_max_abs_dy"]):
+            raise AssertionError("the DCN offsets reached the clamp")
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"non-finite train stats {vals}")
+        losses.append(vals)
+        print(f"step {i}: {step_ms[-1]:.1f} ms " + " ".join(
+            f"{k}={v:.5f}" for k, v in vals.items()), flush=True)
+    train_launches = dict(dcn_cuda.LAUNCHES)
+    want = {k: 0 for k in dcn_cuda.LAUNCHES}
+    want[fwd] = want[bwd] = n_dcn * TRAIN_STEPS
+    if train_launches != want:
+        raise AssertionError(f"launches {train_launches} != {want}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"launches {train_launches}; peak memory {peak / 2**30:.2f} GiB",
+          flush=True)
+    train = {"step_ms": step_ms, "stats": losses, "launches": train_launches,
+             "max_memory_allocated": peak}
+
+    dcn_cuda.reset_launches()
+    t0 = time.perf_counter()
+    outputs = trainer.step(eval_data, is_training=False)
+    dets = trainer.get_detections(outputs, eval_data)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    eval_launches = dict(dcn_cuda.LAUNCHES)
+    want = {k: 0 for k in dcn_cuda.LAUNCHES}
+    want[fwd] = n_dcn
+    if eval_launches != want:
+        raise AssertionError(f"eval launches {eval_launches} != {want}")
+    vals = {k: float(v) for k, v in outputs["stats"].items()}
+    boxes = dets["pred_boxes"]
+    max_det = int(cfg.max_detections)
+    if boxes.shape != (int(cfg.batch_size), max_det, 4):
+        raise AssertionError(f"pred_boxes shape {boxes.shape}")
+    if not (np.isfinite(boxes).all() and np.isfinite(dets["pred_scores"]).all()
+            and all(math.isfinite(v) for v in vals.values())):
+        raise AssertionError("non-finite eval outputs")
+    if trainer.maybe_degrade_dcn(vals["dcn_max_abs_dy"]):
+        raise AssertionError("the DCN offsets reached the clamp in eval")
+    print(f"eval {EVAL_SIZE}px B={cfg.batch_size}: {eval_ms:.1f} ms, "
+          f"pred_boxes {boxes.shape}, launches {eval_launches}, " + " ".join(
+              f"{k}={v:.5f}" for k, v in vals.items()), flush=True)
+    return train, {"ms": eval_ms, "stats": vals, "launches": eval_launches}
 
 
 def profile_train_steps(trainer, data, steps=2, top=12):
@@ -297,12 +506,41 @@ def profile_train_steps(trainer, data, steps=2, top=12):
             "top_kernels_ms_per_step": {k: v / steps for k, v in rows}}
 
 
+def kernel_line(name, src, replaces, outs, records, label, launches):
+    """One entry of the ``kernels`` JSON line: sums over one train step's
+    16 layers at the 512 px path (times, bound and yardstick weighted by
+    the layer count of each shape); the error is the largest over every
+    shape of both paths."""
+    pre = "bwd" if name.endswith("bwd") else "fwd"
+    train_recs = [r for r in records if r["path"] == label]
+
+    def per_step(key):
+        return sum(r[key] * r["layers"] for r in train_recs)
+
+    by_kind = {}
+    for r in train_recs:
+        kind = r[f"{pre}_bound_by"]
+        by_kind[kind] = by_kind.get(kind, 0.0) + (
+            r[f"{pre}_bound_ms"] * r["layers"])
+    return {
+        "name": name, "route": "cuda", "source": src, "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"][o] for r in records
+                           for o in outs),
+        "ms": per_step(f"{pre}_ms"),
+        "plain_ms": per_step(f"twin_{pre}_ms"),
+        "bound_ms": per_step(f"{pre}_bound_ms"),
+        "bound_by": max(by_kind, key=by_kind.get),
+        "library_ms": per_step(f"conv_{pre}_ms"),
+    }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every measurement here")
     parser.add_argument("--profile", action="store_true",
-                        help="after the checks, profile two train steps "
-                             "with torch.profiler")
+                        help="after the checks, profile two train steps at "
+                             "each precision with torch.profiler")
     args = parser.parse_args(argv)
 
     import torch
@@ -323,6 +561,9 @@ def main(argv=None) -> int:
 
     report = {}
     device = torch.device("cuda")
+    # the twins' f32 convolutions and products in full f32, not TF32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     phase("probe")
     smi = nvidia_smi()
@@ -355,110 +596,73 @@ def main(argv=None) -> int:
     n_dcn = sum(train_shapes.values())
     print(f"DCN layers: {n_dcn}; train shapes {train_shapes}; eval shapes "
           f"{eval_shapes}", flush=True)
+    train_label = f"train{TRAIN_SIZE}"
 
     phase("kernels against their plain twin")
-    records = check_kernels(train_shapes, TRAIN_BATCH, device,
-                            f"train{TRAIN_SIZE}")
+    records = check_kernels(train_shapes, TRAIN_BATCH, device, train_label)
     records += check_kernels(eval_shapes, EVAL_BATCH_KERNELS, device,
                              f"eval{EVAL_SIZE}")
     report["shapes"] = records
-    report["heads_vs_exact_max_abs_err"] = check_heads_against_exact(
-        trainer, device)
+    phase("fused bf16 kernels against their plain twin")
+    fused = check_fused_kernels(train_shapes, TRAIN_BATCH, device,
+                                train_label)
+    fused += check_fused_kernels(eval_shapes, EVAL_BATCH_KERNELS, device,
+                                 f"eval{EVAL_SIZE}")
+    report["fused_shapes"] = fused
 
-    phase("train")
     rng = np.random.RandomState(int(cfg.seed))
     num_classes = int(cfg.model.backend.params.num_classes)
     max_det = int(cfg.max_detections)
     data = synthetic_batch(rng, int(cfg.batch_size), TRAIN_SIZE, num_classes,
                            max_det)
-    torch.cuda.reset_peak_memory_stats()
-    step_ms, losses = [], []
-    dcn_cuda.reset_launches()
-    for i in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        stats = trainer.step(data, is_training=True)["stats"]
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        vals = {k: float(v) for k, v in stats.items()}
-        if trainer.maybe_degrade_dcn(vals["dcn_max_abs_dy"]):
-            raise AssertionError("the DCN offsets reached the clamp")
-        if not all(math.isfinite(v) for v in vals.values()):
-            raise AssertionError(f"non-finite train stats {vals}")
-        losses.append(vals)
-        print(f"step {i}: {step_ms[-1]:.1f} ms " + " ".join(
-            f"{k}={v:.5f}" for k, v in vals.items()), flush=True)
-    train_launches = dict(dcn_cuda.LAUNCHES)
-    want = {"dcn_fwd": n_dcn * TRAIN_STEPS, "dcn_bwd": n_dcn * TRAIN_STEPS}
-    if train_launches != want:
-        raise AssertionError(f"launches {train_launches} != {want}")
-    print(f"launches {train_launches}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    report["train"] = {
-        "step_ms": step_ms, "stats": losses, "launches": train_launches,
-        "max_memory_allocated": torch.cuda.max_memory_allocated()}
-
-    phase("eval")
     eval_data = synthetic_batch(rng, int(cfg.batch_size), EVAL_SIZE,
                                 num_classes, max_det)
-    dcn_cuda.reset_launches()
-    t0 = time.perf_counter()
-    outputs = trainer.step(eval_data, is_training=False)
-    dets = trainer.get_detections(outputs, eval_data)
-    torch.cuda.synchronize()
-    eval_ms = (time.perf_counter() - t0) * 1e3
-    eval_launches = dict(dcn_cuda.LAUNCHES)
-    if eval_launches != {"dcn_fwd": n_dcn, "dcn_bwd": 0}:
-        raise AssertionError(f"eval launches {eval_launches}")
-    vals = {k: float(v) for k, v in outputs["stats"].items()}
-    boxes = dets["pred_boxes"]
-    if boxes.shape != (int(cfg.batch_size), max_det, 4):
-        raise AssertionError(f"pred_boxes shape {boxes.shape}")
-    if not (np.isfinite(boxes).all() and np.isfinite(dets["pred_scores"]).all()
-            and all(math.isfinite(v) for v in vals.values())):
-        raise AssertionError("non-finite eval outputs")
-    if trainer.maybe_degrade_dcn(vals["dcn_max_abs_dy"]):
-        raise AssertionError("the DCN offsets reached the clamp in eval")
-    print(f"eval {EVAL_SIZE}px B={cfg.batch_size}: {eval_ms:.1f} ms, "
-          f"pred_boxes {boxes.shape}, launches {eval_launches}, " + " ".join(
-              f"{k}={v:.5f}" for k, v in vals.items()), flush=True)
-    report["eval"] = {"ms": eval_ms, "stats": vals, "launches": eval_launches}
 
-    # the JSON line: per kernel, sums over one train step's 16 layers at
-    # the 512 px path (times, bound and yardstick weighted by the layer
-    # count of each shape)
-    train_recs = [r for r in records if r["path"] == f"train{TRAIN_SIZE}"]
-
-    def per_step(key):
-        return sum(r[key] * r["layers"] for r in train_recs)
-
-    kernels = []
-    for name, pre, src, replaces, outs in (
-            ("dcn_fwd", "fwd", "centernet_uda_torch/csrc/dcn_fwd.cu",
-             "centernet_uda_tpu/ops/dcn_pallas.py:210", ("out",)),
-            ("dcn_bwd", "bwd", "centernet_uda_torch/csrc/dcn_bwd.cu",
-             "centernet_uda_tpu/ops/dcn_pallas.py:571",
-             ("dx", "doff", "dmask", "dw", "dbias"))):
-        by_kind = {}
-        for r in train_recs:
-            kind = r[f"{pre}_bound_by"]
-            by_kind[kind] = by_kind.get(kind, 0.0) + (
-                r[f"{pre}_bound_ms"] * r["layers"])
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces,
-            "launches": train_launches[name] + eval_launches[name],
-            "max_abs_err": max(r["max_abs_err"][o] for r in records
-                               for o in outs),
-            "ms": per_step(f"{pre}_ms"),
-            "plain_ms": per_step(f"twin_{pre}_ms"),
-            "bound_ms": per_step(f"{pre}_bound_ms"),
-            "bound_by": max(by_kind, key=by_kind.get),
-            "library_ms": per_step(f"conv_{pre}_ms"),
-        })
-    report["kernels"] = kernels
+    phase("float32 train and eval")
+    report["heads_vs_exact_max_abs_err"] = check_heads_against_exact(
+        trainer, device)
+    report["train"], report["eval"] = train_and_eval(
+        trainer, cfg, data, eval_data, n_dcn, "dcn_fwd", "dcn_bwd")
     if args.profile:
-        phase("profile")
         report["profile"] = profile_train_steps(trainer, data)
+    del trainer, net
+    torch.cuda.empty_cache()
+
+    phase("bfloat16 train and eval")
+    cfg16 = compose(["experiment=baseline", "precision=bfloat16"],
+                    config_dir=str(ROOT / "configs"))
+    trainer16 = build_trainer(cfg16, device="cuda")
+    trainer16.init_done()
+    report["bf16_heads_vs_exact_max_abs_err"] = check_heads_against_exact(
+        trainer16, device, bf16=True)
+    report["bf16_train"], report["bf16_eval"] = train_and_eval(
+        trainer16, cfg16, data, eval_data, n_dcn, "dcn_fused_fwd",
+        "dcn_fused_bwd")
+    if args.profile:
+        report["bf16_profile"] = profile_train_steps(trainer16, data)
+
+    def launches(name):
+        pre = "bf16_" if "fused" in name else ""
+        return (report[f"{pre}train"]["launches"][name]
+                + report[f"{pre}eval"]["launches"][name])
+
+    csrc = "centernet_uda_torch/csrc"
+    pallas = "centernet_uda_tpu/ops/dcn_pallas.py"
+    f32_outs = ("dx", "doff", "dmask", "dw", "dbias")
+    f16_outs = ("dx", "dom_w", "dom_b", "dw", "dbias")
+    kernels = [
+        kernel_line("dcn_fwd", f"{csrc}/dcn_fwd.cu", f"{pallas}:210",
+                    ("out",), records, train_label, launches("dcn_fwd")),
+        kernel_line("dcn_bwd", f"{csrc}/dcn_bwd.cu", f"{pallas}:571",
+                    f32_outs, records, train_label, launches("dcn_bwd")),
+        kernel_line("dcn_fused_fwd", f"{csrc}/dcn_fused_fwd.cu",
+                    f"{pallas}:982", ("out",), fused, train_label,
+                    launches("dcn_fused_fwd")),
+        kernel_line("dcn_fused_bwd", f"{csrc}/dcn_fused_bwd.cu",
+                    f"{pallas}:1153", f16_outs, fused, train_label,
+                    launches("dcn_fused_bwd")),
+    ]
+    report["kernels"] = kernels
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(report, indent=1))

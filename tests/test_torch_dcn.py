@@ -204,7 +204,7 @@ def test_kernel_path_on_cpu_is_the_twin():
     dcn_cuda.reset_launches()
     out = dcn_cuda.dcn_v2_kernel(*leaves)
     got = torch.autograd.grad(out, leaves, nchw(g))
-    assert dcn_cuda.LAUNCHES == {"dcn_fwd": 0, "dcn_bwd": 0}
+    assert all(v == 0 for v in dcn_cuda.LAUNCHES.values())
     ref = dcn_v2_twin(*leaves)
     want = torch.autograd.grad(ref, leaves, nchw(g))
     torch.testing.assert_close(out, ref, rtol=0, atol=0)

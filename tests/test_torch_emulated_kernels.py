@@ -1,0 +1,293 @@
+"""The CUDA kernel sources, compiled for the CPU, against their plain twins.
+
+The kernels in ``centernet_uda_torch/csrc/`` run only on an H100, and the
+card-only tests (``tests/test_torch_gpu.py``) skip without one. This file
+compiles the same four sources with the host C++ compiler against
+``EMULATION_HEADER`` below (a CPU emulation of the CUDA subset they use: a
+block's threads as a pool of OS threads, ``__syncthreads`` as a barrier),
+loads them in place of the ``nvcc`` builds, and runs them through the
+wrappers' launch helpers on CPU tensors at tiny shapes. That holds the
+kernels' indexing, tiling, masking and arithmetic against the twins on every
+CPU run; the card runs show that ``nvcc`` builds them and what they cost.
+
+Tolerance: that of the card tests, atol 5e-2 * max(1, max|twin|) and rtol
+5e-2, and max |dy| to 1e-5 relative; the operands are the card tests' own
+(the fused ones quantised so that the offset conv is exact in any summation
+order). It skips without a C++20 compiler.
+"""
+
+import re
+import shutil
+import subprocess
+
+import pytest
+import torch
+
+from centernet_uda_torch.ops import dcn_cuda
+from centernet_uda_torch.ops.dcn import PALLAS_MAX_SHIFT
+from test_torch_gpu import make_fused_inputs, make_inputs
+
+torch.set_num_threads(2)
+
+LAUNCH = re.compile(r"([A-Za-z_]\w*)<<<(.*?)>>>\(", re.S)
+
+# written into the build directory as cuda_emulation.h
+EMULATION_HEADER = r"""// CPU emulation of the CUDA subset that centernet_uda_torch/csrc uses.
+//
+// A launch runs one block at a time on a pool of blockDim threads;
+// __syncthreads is a barrier of that pool, __shared__ variables are statics
+// (one instance per kernel, reused block after block, which is safe because
+// every kernel writes its shared memory before it reads it), a warp shuffle
+// goes through a buffer between two barriers of the warp's 32 threads
+// (every lane must reach it, as the kernels' shuffles do), and atomics are
+// std::atomic_ref.
+// bf16 conversions round to nearest even, as __float2bfloat16 does. Device
+// limits and errors are stubs: every launch "succeeds".
+#pragma once
+
+#include <atomic>
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+#include <deque>
+#include <math.h>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __restrict__ __restrict
+#define __launch_bounds__(...)
+#define __shared__ static
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
+      : x(x_), y(y_), z(z_) {}
+};
+struct emu_uint3 {
+  unsigned x, y, z;
+};
+inline thread_local emu_uint3 threadIdx, blockIdx;
+inline thread_local dim3 blockDim, gridDim;
+
+typedef int cudaError_t;
+enum : int {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorInvalidConfiguration = 9
+};
+typedef void* cudaStream_t;
+struct cudaFuncAttributes {
+  int maxThreadsPerBlock;
+  size_t sharedSizeBytes;
+};
+enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlock = 8 };
+template <class T>
+inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, T) {
+  a->maxThreadsPerBlock = 1024;
+  a->sharedSizeBytes = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 48 * 1024;
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+
+struct __nv_bfloat16 {
+  uint16_t bits;
+};
+inline float __bfloat162float(__nv_bfloat16 h) {
+  const uint32_t u = (uint32_t)h.bits << 16;
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+inline __nv_bfloat16 __float2bfloat16(float f) {
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  __nv_bfloat16 h;
+  if ((u & 0x7fffffffu) > 0x7f800000u) {  // NaN stays NaN
+    h.bits = (uint16_t)((u >> 16) | 0x40);
+    return h;
+  }
+  u += 0x7fffu + ((u >> 16) & 1u);
+  h.bits = (uint16_t)(u >> 16);
+  return h;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  memcpy(&u, &f, 4);
+  return u;
+}
+
+namespace emu {
+inline std::barrier<>* block_barrier = nullptr;
+inline thread_local std::barrier<>* warp_barrier = nullptr;
+inline void syncthreads() { block_barrier->arrive_and_wait(); }
+}  // namespace emu
+#define __syncthreads() ::emu::syncthreads()
+
+template <class T>
+T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+  static T buf[1024];
+  const unsigned tid = threadIdx.x;
+  buf[tid] = v;
+  emu::warp_barrier->arrive_and_wait();
+  const T r = buf[(tid & ~31u) | ((tid & 31u) ^ (unsigned)lane_mask)];
+  emu::warp_barrier->arrive_and_wait();
+  return r;
+}
+
+inline float atomicAdd(float* p, float v) {
+  return std::atomic_ref<float>(*p).fetch_add(v);
+}
+inline unsigned atomicMax(unsigned* p, unsigned v) {
+  std::atomic_ref<unsigned> a(*p);
+  unsigned old = a.load();
+  while (old < v && !a.compare_exchange_weak(old, v)) {
+  }
+  return old;
+}
+
+namespace emu {
+// kernel<<<grid, block, smem, stream>>>(args...), rewritten by the test as
+// emu::launch(kernel, grid, block, smem, stream, args...)
+template <class... P, class... A>
+void launch(void (*kernel)(P...), dim3 grid, dim3 block, size_t,
+            cudaStream_t, A... args) {
+  const unsigned n = block.x * block.y * block.z;  // a multiple of 32
+  std::barrier<> bar(n);
+  block_barrier = &bar;
+  std::deque<std::barrier<>> warps;  // a deque: barriers cannot move
+  for (unsigned w = 0; w < n / 32; ++w) warps.emplace_back(32);
+  std::vector<std::thread> pool;
+  pool.reserve(n);
+  for (unsigned t = 0; t < n; ++t)
+    pool.emplace_back([&, t] {
+      warp_barrier = &warps[t / 32];
+      threadIdx = {t % block.x, (t / block.x) % block.y,
+                   t / (block.x * block.y)};
+      blockDim = block;
+      gridDim = grid;
+      for (unsigned z = 0; z < grid.z; ++z)
+        for (unsigned y = 0; y < grid.y; ++y)
+          for (unsigned x = 0; x < grid.x; ++x) {
+            blockIdx = {x, y, z};
+            kernel(static_cast<P>(args)...);
+            bar.arrive_and_wait();  // the block is done before the next
+          }
+    });
+  for (auto& th : pool) th.join();
+}
+}  // namespace emu
+"""
+
+
+@pytest.fixture(scope="module")
+def emulated_libs(tmp_path_factory):
+    """{kernel name: path} of the four sources built for the CPU."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a C++20 compiler")
+    out = tmp_path_factory.mktemp("emulated_kernels")
+    (out / "cuda_emulation.h").write_text(EMULATION_HEADER)
+    for header in ("cuda_bf16.h", "cuda_runtime.h"):
+        (out / header).write_text('#include "cuda_emulation.h"\n')
+    procs = {}
+    for name, src in dcn_cuda.SOURCES.items():
+        code = LAUNCH.sub(lambda m: f"::emu::launch({m[1]}, {m[2]}, ",
+                          (dcn_cuda.CSRC / src).read_text())
+        cpp = out / f"{name}.cpp"
+        cpp.write_text(code)
+        lib = out / f"lib{name}.so"
+        procs[name] = (lib, subprocess.Popen(
+            [cxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread",
+             f"-I{out}", f"-I{dcn_cuda.CSRC}", "-o", str(lib),
+             str(cpp)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate(timeout=300)
+        assert proc.returncode == 0, f"{name}:\n{log}"
+        libs[name] = lib
+    return libs
+
+
+@pytest.fixture
+def emulated(emulated_libs, monkeypatch):
+    """The wrappers' libraries replaced by the CPU builds, for one test;
+    few split-K blocks, since an emulated block costs thread switches."""
+    monkeypatch.setattr(dcn_cuda, "_LIBS", {})
+    monkeypatch.setattr(dcn_cuda, "_lib_path", emulated_libs.__getitem__)
+    monkeypatch.setattr(dcn_cuda, "_DW_TARGET_BLOCKS", 8)
+    dcn_cuda.reset_launches()
+    yield
+    dcn_cuda.reset_launches()
+
+
+def assert_close(got, want, name):
+    got, want = got.double(), want.double()
+    scale = max(1.0, float(want.abs().max()))
+    assert torch.isfinite(got).all(), name
+    torch.testing.assert_close(got, want, rtol=5e-2, atol=5e-2 * scale,
+                               msg=name)
+
+
+SHAPES = [
+    # (b, cin, cout, h, w): one tile each way, ragged tiles
+    (2, 8, 8, 12, 12),
+    (1, 40, 72, 5, 13),
+]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_emulated_f32_kernels_match_twin(emulated, shape):
+    x, off, m, wt, bias = make_inputs(0, *shape, "cpu")
+    g = torch.randn(shape[0], shape[2], shape[3], shape[4],
+                    generator=torch.Generator().manual_seed(1))
+    out = dcn_cuda._forward_launch(x, off, m, wt, bias, PALLAS_MAX_SHIFT, 0)
+    assert_close(out, dcn_cuda.dcn_v2_twin(x, off, m, wt, bias), "out")
+    got = dcn_cuda._backward_launch(x, off, m, wt, g, PALLAS_MAX_SHIFT, 0)
+    want = dcn_cuda.dcn_backward_plain(x, off, m, wt, g)
+    for name, a, b in zip(("dx", "doff", "dmask", "dw"), got, want):
+        assert_close(a, b, name)
+    sat = off[:, 0::2].abs() >= PALLAS_MAX_SHIFT
+    assert float(got[1][:, 0::2][sat].abs().max()) == 0.0
+    assert dcn_cuda.LAUNCHES["dcn_fwd"] == dcn_cuda.LAUNCHES["dcn_bwd"] == 1
+
+
+@pytest.mark.parametrize("zero_offsets", [False, True],
+                         ids=["offsets", "zero-init"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_emulated_fused_kernels_match_twin(emulated, shape, zero_offsets):
+    x, om_w, om_b, wt, bias, g = make_fused_inputs(2, *shape, "cpu")
+    if zero_offsets:
+        om_w.zero_()
+        om_b.zero_()
+    out, stat = dcn_cuda._fused_forward_launch(x, om_w, om_b, wt, bias,
+                                               PALLAS_MAX_SHIFT, 0)
+    ref, ref_stat = dcn_cuda.dcn_v2_fused_twin(x, om_w, om_b, wt, bias)
+    assert out.dtype == torch.bfloat16
+    assert_close(out, ref, "out")
+    assert float(stat) == pytest.approx(float(ref_stat), rel=1e-5)
+    got = dcn_cuda._fused_backward_launch(x, om_w, om_b, wt, g,
+                                          PALLAS_MAX_SHIFT, 0)
+    want = dcn_cuda.dcn_fused_backward_plain(x, om_w, om_b, wt, g)
+    assert got[0].dtype == torch.bfloat16
+    for name, a, b in zip(("dx", "d om_w", "d om_b", "dw"), got, want):
+        assert_close(a, b, name)
+    if not zero_offsets:
+        assert float(ref_stat) > PALLAS_MAX_SHIFT
+    assert dcn_cuda.LAUNCHES["dcn_fused_fwd"] == 1
+    assert dcn_cuda.LAUNCHES["dcn_fused_bwd"] == 1

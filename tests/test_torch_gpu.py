@@ -1,4 +1,4 @@
-"""Card-only tests: the Hopper DCN kernels against their plain twin.
+"""Card-only tests: the Hopper DCN kernels against their plain twins.
 
 They need a CUDA card and skip without one. This file imports neither JAX
 nor the JAX package, so on a machine without JAX it runs with
@@ -25,6 +25,9 @@ pytestmark = pytest.mark.gpu
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    # the twins' f32 convolutions and products in full f32, not TF32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -106,7 +109,8 @@ def test_autograd_function_counts_and_bias(cuda):
     dcn_cuda.reset_launches()
     out = dcn_cuda.dcn_v2_kernel(*leaves)
     out.square().sum().backward()
-    assert dcn_cuda.LAUNCHES == {"dcn_fwd": 1, "dcn_bwd": 1}
+    assert dcn_cuda.LAUNCHES == {"dcn_fwd": 1, "dcn_bwd": 1,
+                                 "dcn_fused_fwd": 0, "dcn_fused_bwd": 0}
     assert_close(bias.grad, (2 * out.detach()).sum((0, 2, 3)), "dbias")
 
 
@@ -114,3 +118,131 @@ def test_rejects_other_dtypes(cuda):
     x, off, m, wt, bias = make_inputs(4, 1, 8, 8, 8, 8, cuda)
     with pytest.raises(TypeError):
         dcn_cuda.dcn_forward(x.double(), off, m, wt, bias)
+    # the float32 kernels reject bf16 x: the bf16 layer must take the fused
+    # wrappers, not a cast back to f32
+    with pytest.raises(TypeError):
+        dcn_cuda.dcn_forward(x.bfloat16(), off, m, wt, bias)
+    om_w, om_b = torch.zeros(27, 8, 3, 3, device=cuda), torch.zeros(
+        27, device=cuda)
+    with pytest.raises(TypeError):
+        dcn_cuda.dcn_fused_forward(x, om_w, om_b, wt, bias)
+    with pytest.raises(TypeError):
+        dcn_cuda.dcn_fused_backward(x.bfloat16(), om_w, om_b, wt,
+                                    torch.zeros(1, 8, 8, 8, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# the fused bf16 kernels (offset conv inside), against dcn_v2_fused_twin
+# ---------------------------------------------------------------------------
+
+
+def make_fused_inputs(seed, b, cin, cout, h, w, device, om_std=2.0):
+    """bf16 x; offset-conv weights scaled so the offsets have std about
+    ``om_std``; input channel 0 zero except on the first and last rows,
+    where the offset conv's centre tap lifts dy of taps 0 and 4 to +-20,
+    past the clamp. x comes in steps of 1/8 and the offset conv's weights
+    and bias in steps of 1/64, the bias shifted by 1/1024: the offset conv
+    is then exact in f32 in any summation order, and every offset lies at
+    least 1/1024 from an integer, so kernel and twin take the sampler's
+    offset gradient on the same side of every integer crossing."""
+    rng = np.random.RandomState(seed)
+    x = (np.round(rng.randn(b, cin, h, w) * 8) / 8).astype(np.float32)
+    om_w = (np.round(rng.randn(27, cin, 3, 3) * om_std * 64 / np.sqrt(9 * cin))
+            / 64).astype(np.float32)
+    om_b = (np.round(rng.randn(27) * 32) / 64 + 1 / 1024).astype(np.float32)
+    x[:, 0] = 0.0
+    x[:, 0, 0, :] = 4.0
+    x[:, 0, -1, :] = -4.0
+    om_w[:, 0] = 0.0
+    om_w[0, 0, 1, 1] = 5.0   # tap 0's dy: +20 on row 0
+    om_w[8, 0, 1, 1] = 5.0   # tap 4's dy: -20 on the last row
+    wt = (rng.randn(cout, cin, 3, 3) / np.sqrt(9 * cin)).astype(np.float32)
+    bias = rng.randn(cout).astype(np.float32)
+    g = rng.randn(b, cout, h, w).astype(np.float32)
+    t = [torch.tensor(v, device=device) for v in (x, om_w, om_b, wt, bias, g)]
+    t[0], t[5] = t[0].bfloat16(), t[5].bfloat16()
+    return t
+
+
+FUSED_SHAPES = [
+    # (b, cin, cout, h, w): tiny, ragged tiles, two DLA-34 neck shapes
+    (2, 8, 8, 16, 16),
+    (2, 40, 72, 13, 21),
+    (4, 64, 64, 32, 32),
+    (2, 256, 128, 25, 25),
+]
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+def test_fused_forward_matches_twin(cuda, shape):
+    x, om_w, om_b, wt, bias, _ = make_fused_inputs(0, *shape, cuda)
+    dcn_cuda.reset_launches()
+    out, stat = dcn_cuda.dcn_fused_forward(x, om_w, om_b, wt, bias)
+    torch.cuda.synchronize()
+    assert dcn_cuda.LAUNCHES["dcn_fused_fwd"] == 1
+    assert out.dtype == torch.bfloat16
+    ref, ref_stat = dcn_cuda.dcn_v2_fused_twin(x, om_w, om_b, wt, bias)
+    assert_close(out, ref, "out")
+    assert float(ref_stat) > PALLAS_MAX_SHIFT
+    assert float(stat) == pytest.approx(float(ref_stat), rel=1e-5)
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+def test_fused_backward_matches_twin(cuda, shape):
+    x, om_w, om_b, wt, bias, g = make_fused_inputs(1, *shape, cuda)
+    dcn_cuda.reset_launches()
+    got = dcn_cuda.dcn_fused_backward(x, om_w, om_b, wt, g)
+    torch.cuda.synchronize()
+    assert dcn_cuda.LAUNCHES["dcn_fused_bwd"] == 1
+    assert got[0].dtype == torch.bfloat16
+    want = dcn_cuda.dcn_fused_backward_plain(x, om_w, om_b, wt, g)
+    for name, a, b in zip(("dx", "d om_w", "d om_b", "dw"), got, want):
+        assert_close(a, b, name)
+
+
+def test_fused_zero_init_first_step(cuda):
+    """The zero-initialised offset conv: every sample sits on an integer
+    position, where the y0+1 corner still enters d(dy), so the offset
+    conv's gradients are nonzero from the first step."""
+    x, om_w, om_b, wt, bias, g = make_fused_inputs(2, 2, 16, 16, 12, 12,
+                                                   cuda)
+    om_w.zero_()
+    om_b.zero_()
+    out, stat = dcn_cuda.dcn_fused_forward(x, om_w, om_b, wt, bias)
+    assert float(stat) == 0.0
+    assert_close(out, dcn_cuda.dcn_v2_fused_twin(x, om_w, om_b, wt,
+                                                 bias)[0], "out")
+    got = dcn_cuda.dcn_fused_backward(x, om_w, om_b, wt, g)
+    want = dcn_cuda.dcn_fused_backward_plain(x, om_w, om_b, wt, g)
+    for name, a, b in zip(("dx", "d om_w", "d om_b", "dw"), got, want):
+        assert_close(a, b, name)
+    assert float(got[1][0::2][:9].abs().max()) > 0.0  # the dy rows
+
+
+def test_fused_clamp_rows_pass_no_dy_gradient(cuda):
+    """Input channel 0 is nonzero on the first and last rows only, where
+    it lifts dy of taps 0 and 4 past the clamp: the centre-tap offset-conv
+    weights from it to those dy channels get exactly zero gradient."""
+    # 32 rows, so the clamped samples (14 rows away) still land on the map
+    x, om_w, om_b, wt, bias, g = make_fused_inputs(3, 2, 16, 16, 32, 32,
+                                                   cuda)
+    d_om_w = dcn_cuda.dcn_fused_backward(x, om_w, om_b, wt, g)[1]
+    assert float(d_om_w[0, 0, 1, 1]) == 0.0
+    assert float(d_om_w[8, 0, 1, 1]) == 0.0
+    assert float(d_om_w[1, 0, 1, 1].abs()) > 0.0  # tap 0's dx is live
+
+
+def test_fused_autograd_function_counts_and_bias(cuda):
+    x, om_w, om_b, wt, bias, g = make_fused_inputs(4, 2, 16, 24, 8, 8, cuda)
+    leaves = [x.requires_grad_(True)] + [t.requires_grad_(True) for t in (
+        om_w, om_b, wt, bias)]
+    dcn_cuda.reset_launches()
+    out, stat = dcn_cuda.dcn_v2_fused_kernel(*leaves)
+    out.float().square().sum().backward()
+    assert dcn_cuda.LAUNCHES == {"dcn_fwd": 0, "dcn_bwd": 0,
+                                 "dcn_fused_fwd": 1, "dcn_fused_bwd": 1}
+    assert not stat.requires_grad
+    assert x.grad.dtype == torch.bfloat16
+    assert {t.grad.dtype for t in leaves[1:]} == {torch.float32}
+    g_out = (2 * out.detach().float()).bfloat16().float()
+    assert_close(bias.grad, g_out.sum((0, 2, 3)), "dbias")

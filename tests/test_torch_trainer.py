@@ -60,7 +60,7 @@ def test_degrade_to_exact_op_at_the_clamp(caplog):
 
 
 @pytest.mark.parametrize("override,match", [
-    ("precision=bfloat16", "precision"),
+    ("precision=float16", "precision"),
     ("model.uda={entropy_minimization: {}}", "UDA"),
     ("mesh={data: 2}", "multi-device"),
     ("model.backend.params.pretrained=w.pth", "pretrained"),
@@ -69,6 +69,29 @@ def test_unported_settings_raise(override, match):
     cfg = compose(["experiment=baseline", override] + NARROW)
     with pytest.raises(NotImplementedError, match=match):
         build_trainer(cfg, device="cpu")
+
+
+def test_bfloat16_trainer_builds_and_steps():
+    """``precision=bfloat16``: every layer computes in bf16 (each DCN on the
+    fused route), the parameters and their gradients stay f32, the heads
+    come out f32, and TF32 stays off."""
+    trainer = build_trainer(compose(["experiment=baseline",
+                                     "precision=bfloat16", "dcn_impl=cuda"]
+                                    + NARROW), device="cpu")
+    trainer.init_done()
+    net = trainer.backend.module
+    dcns = [m for m in net.modules() if isinstance(m, DCN)]
+    assert {m.compute_dtype for m in dcns} == {torch.bfloat16}
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    stats = trainer.step(batch(), is_training=True)["stats"]
+    assert all(np.isfinite(float(v)) for v in stats.values())
+    assert float(stats["dcn_max_abs_dy"]) == 0.0  # zero-initialised offsets
+    assert {p.dtype for p in net.parameters()} == {torch.float32}
+    assert {p.grad.dtype for p in net.parameters()} == {torch.float32}
+    out = trainer.step(batch(1), is_training=False)
+    assert {v.dtype for v in out["source_domain"].values()} == {
+        torch.float32}
 
 
 def test_entry_points_default_to_cuda():
