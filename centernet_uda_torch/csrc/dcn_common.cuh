@@ -12,7 +12,8 @@
 //               channel 2t = dy, 2t+1 = dx, 18+t = the mask logit.
 // Tap t = 3*ti + tj samples at (y + ti - 1 + clamp(dy, +-max_shift),
 // x + tj - 1 + dx): only the vertical offset is clamped, horizontal sampling
-// is exact, and corners outside [0, H-1] x [0, W-1] read zero.
+// is exact, and corners outside [0, H-1] x [0, W-1] read zero. The wide
+// forward (dcn_wide_fwd.cu) sets `kClampDx` and clamps dx the same way.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -113,7 +114,7 @@ struct Sample {
   bool dy_live; // |dy_raw| < max_shift: the clamp passes the dy gradient
 };
 
-template <typename Geom>
+template <typename Geom, bool kClampDx = false>
 __device__ __forceinline__ Sample sample_at(const Geom& geom, int b, int t,
                                             int y, int x, int H, int W,
                                             float max_shift) {
@@ -123,6 +124,7 @@ __device__ __forceinline__ Sample sample_at(const Geom& geom, int b, int t,
   Sample s;
   geom.read(b, t, plane, pix, dy_raw, dx, s.m);
   s.dy_live = fabsf(dy_raw) < max_shift;
+  if (kClampDx) dx = fminf(fmaxf(dx, -max_shift), max_shift);
   const float dy = fminf(fmaxf(dy_raw, -max_shift), max_shift);
   const float py = (float)(y + t / 3 - 1) + dy;
   const float px = (float)(x + t % 3 - 1) + dx;

@@ -1,9 +1,11 @@
 // Kernel bodies shared by the DCN sources (dcn_fwd.cu, dcn_bwd.cu,
-// dcn_fused_fwd.cu, dcn_fused_bwd.cu). The sampling kernels are templates
-// over the geometry layout (`OffsetMask` for the float32 layer, `OffsetConv`
-// for the fused bfloat16 layer; dcn_common.cuh) and over the types of g and
-// of the output; each source notes what bounds its kernels and why they are
-// built this way.
+// dcn_fused_fwd.cu, dcn_fused_bwd.cu, dcn_sel_fwd.cu, dcn_sel_bwd.cu,
+// dcn_wide_fwd.cu). The sampling kernels are templates over the geometry
+// layout (`OffsetMask` for explicit offsets and mask, `OffsetConv` for the
+// fused bfloat16 layer; dcn_common.cuh) and over the types of g and of the
+// output; the forward also over `kClampDx`, the wide forward's horizontal
+// clamp. Each source notes what bounds its kernels and why they are built
+// this way.
 //
 // dcn_fwd_kernel: one block per (image, tile of 64 output pixels, tile of
 //   64 output channels), looping over the 9 taps and over Cin in chunks of
@@ -53,7 +55,13 @@ constexpr int kKp = 32;   // weight kernels: pixels per reduction step
 constexpr int kOmCk = 32;      // offset conv: input channels per chunk
 constexpr int kOmPerThread = 7;  // offset conv: outputs per thread (4 x 7 >= 27)
 
-template <typename Geom, typename OutT>
+// The last template parameter of the sampling kernels only names an
+// instantiation: dcn_sel_fwd.cu and dcn_sel_bwd.cu pass `Select`, so a
+// profile tells their launches from the lanes kernels' (same bodies).
+struct Select {};
+
+template <typename Geom, typename OutT, bool kClampDx = false,
+          typename Tag = void>
 __global__ void __launch_bounds__(kThreads)
     dcn_fwd_kernel(const __nv_bfloat16* __restrict__ x, const Geom geom,
                    const __nv_bfloat16* __restrict__ wt,  // (9, Cin, Cout)
@@ -85,7 +93,8 @@ __global__ void __launch_bounds__(kThreads)
     if (tid < kPix) {
       const int p = p0 + tid;
       if (p < HW) {
-        const Sample s = sample_at(geom, b, t, p / W, p % W, H, W, max_shift);
+        const Sample s = sample_at<Geom, kClampDx>(geom, b, t, p / W, p % W,
+                                                   H, W, max_shift);
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           s_idx[k][tid] = s.idx[k];
@@ -153,7 +162,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename Geom, typename GT>
+template <typename Geom, typename GT, typename Tag = void>
 __global__ void __launch_bounds__(kThreads)
     dcn_bwd_data_kernel(const __nv_bfloat16* __restrict__ x, const Geom geom,
                         const __nv_bfloat16* __restrict__ wt_t,  // (9,Cout,Cin)
@@ -315,7 +324,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename Geom, typename GT>
+template <typename Geom, typename GT, typename Tag = void>
 __global__ void __launch_bounds__(kThreads)
     dcn_bwd_weight_kernel(const __nv_bfloat16* __restrict__ x,
                           const Geom geom,

@@ -1,8 +1,8 @@
 """Backend registry: ``build(name, **params)`` resolves the config's
 ``model.backend.name`` and passes ``params`` (the config's backend params
 plus ``dcn_impl``, ``dtype``, ``seed`` and ``device``) to the backend's
-``build``. Only ``dla`` is ported so far (ROADMAP A9 holds the other
-backbones)."""
+``build``. ``dla`` and ``mobilenetv2`` are ported (ROADMAP A9 holds the
+other backbones)."""
 
 from typing import Callable, Dict
 
@@ -15,7 +15,14 @@ def _dla_build(**params) -> Backend:
     return dla.build(**params)
 
 
-_REGISTRY: Dict[str, Callable[..., Backend]] = {"dla": _dla_build}
+def _mobilenetv2_build(**params) -> Backend:
+    from centernet_uda_torch.models import mobilenetv2
+
+    return mobilenetv2.build(**params)
+
+
+_REGISTRY: Dict[str, Callable[..., Backend]] = {
+    "dla": _dla_build, "mobilenetv2": _mobilenetv2_build}
 
 
 def build(name: str, **params) -> Backend:

@@ -76,10 +76,12 @@ class Conv2d(nn.Conv2d):
 
 
 def lecun_normal_(param: torch.Tensor,
-                  generator: Optional[torch.Generator] = None) -> None:
+                  generator: Optional[torch.Generator] = None,
+                  fan_in: Optional[int] = None) -> None:
     """flax's default conv init: truncated normal (+-2 std) with variance
-    1/fan_in, fan_in = in_channels/groups * kh * kw."""
-    fan_in = param[0].numel()
+    1/fan_in, fan_in = in_channels/groups * kh * kw (a conv's layout; pass
+    it for other layouts)."""
+    fan_in = fan_in or param[0].numel()
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     # drawn on the CPU, so a seed gives the same weights on every device
     values = torch.empty(param.shape)

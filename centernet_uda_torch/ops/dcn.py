@@ -10,8 +10,9 @@ Four functions:
   (``ops/dcn_cuda.py``), with their semantics: 3x3 / stride 1 / pad 1 /
   dilation 1, the vertical offset clamped to +-``PALLAS_MAX_SHIFT`` with a
   zero gradient where ``|dy| >= PALLAS_MAX_SHIFT``, horizontal sampling
-  exact, x and the weight staged in bf16, the samples rounded to bf16, f32
-  accumulation.
+  exact (clamped the same way with ``clamp_dx``, the wide forward's
+  semantics), x and the weight staged in bf16, the samples rounded to bf16,
+  f32 accumulation, the output in x's dtype.
 - ``dcn_v2_fused_twin``: the plain version of the fused bfloat16 Hopper
   kernels, the whole layer from x: the 3x3 offset conv (bf16 x and
   bf16-rounded weights, f32 accumulation plus the f32 bias; om stays f32),
@@ -31,25 +32,42 @@ logit from 18+t.
 ``auto`` runs the Hopper kernels on CUDA tensors and the exact op on CPU
 tensors; ``cuda`` runs the kernel path (for a CPU tensor that is the plain
 twin); ``xla`` runs the exact op; ``pallas`` is read as ``cuda`` so the
-shared configs run unchanged. Outside 3x3 / s1 / p1 / d1 the exact op runs
-whatever the setting.
+shared configs run unchanged.
 
-Compute dtype (``DCN(dtype=...)``, the JAX package's ``precision``). In
-float32 the kernel path runs the offset conv as an ``nn.Conv2d`` and the
-float32 kernels. In bfloat16 the kernel path runs the fused kernels (the
-offset conv inside, ``ops/dcn_cuda.py``) on every 3x3 / s1 / p1 / d1 shape,
-and returns bf16; the exact path runs the JAX package's explicit
-composition: the offset conv in bf16, offsets and mask cast to f32, the
-exact sampler on bf16 x with an f32 contraction, f32 out. (The JAX package
-sends maps narrower than 8 columns to its "select" kernels with that
-explicit bf16 offset conv, which rounds om to bf16; the card has no lane
-width to respect, so the port fuses those too. No DLA-34 layer at 512 or
-800 px is that narrow.)
+Routing on the kernel path, as the JAX package routes its Pallas path
+(``centernet_uda_tpu/ops/dcn.py`` and ``dcn_pallas.generation_for``).
+Which kernels run decides which function is computed (the clamped kernel
+semantics, the wide forward's clamped dx, or the exact op), so the
+envelopes are copied as they are, VMEM estimates included:
+
+- ``generation_for``: "lanes" for 8 <= W <= 256 and Cin <= 512, "select"
+  elsewhere, unless ``set_kernel_version`` (or ``CENTERNET_DCN_KERNEL``,
+  read at import) forces one;
+- ``pallas_supported``: 3x3 / s1 / p1 / d1 within the generation's working
+  set; where it is False the exact op runs;
+- ``fused_supported``: bf16 x on the lanes generation at 8 <= W <= 256:
+  the fused kernels, offset conv inside (``dcn_v2_fused_kernel``);
+- otherwise the offset conv runs explicitly at the module dtype (in bf16
+  the bias is added after the conv's rounding, and offsets and mask go on
+  in f32), then the "select" kernels (``dcn_v2_select_kernel``, x and out
+  in f32 or bf16), the lanes kernels at W <= 256 (``dcn_v2_kernel``, f32)
+  or, with forced "lanes" at 256 < W <= 1024, the wide forward with dx
+  clamped too and the exact op's backward (``dcn_v2_wide_kernel``).
+
+``kernel_route`` names the route of one call.
+
+Compute dtype (``DCN(dtype=...)``, the JAX package's ``precision``): the
+parameters stay float32. The exact path in bfloat16 runs the JAX package's
+explicit composition (bf16 offset conv, f32 offsets and mask, the exact
+sampler on bf16 x with an f32 contraction, f32 out); the kernel routes give
+x's dtype out.
 """
 
 from __future__ import annotations
 
+import logging
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -57,9 +75,19 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+log = logging.getLogger(__name__)
+
 PALLAS_MAX_SHIFT = 14
 
 DCN_IMPLS = ("auto", "cuda", "xla", "pallas")
+
+# kernel generation: "auto" routes each map shape as the JAX package does;
+# "lanes" / "select" force one (centernet_uda_tpu/ops/dcn_pallas.py)
+KERNEL_VERSIONS = ("auto", "lanes", "select")
+_KERNEL_VERSION = os.environ.get("CENTERNET_DCN_KERNEL", "auto")
+# the widest map the lanes kernels take without clamping dx
+LANES_NATIVE_MAX_W = 256
+_VMEM_BYTES = 80 * 1024 * 1024
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -144,28 +172,41 @@ def _bf16_value(t: torch.Tensor) -> torch.Tensor:
     return t + (t.to(torch.bfloat16).to(t.dtype) - t).detach()
 
 
+def _clamped(v: torch.Tensor, max_shift: float) -> torch.Tensor:
+    """v clamped to +-max_shift, with a zero gradient where |v| >=
+    max_shift."""
+    return torch.where(v.abs() < max_shift, v,
+                       v.clamp(-max_shift, max_shift).detach())
+
+
 def dcn_v2_twin(x, offset, mask, weight, bias=None,
-                max_shift: float = PALLAS_MAX_SHIFT) -> torch.Tensor:
+                max_shift: float = PALLAS_MAX_SHIFT,
+                clamp_dx: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the Hopper DCN kernels (3x3/s1/p1/d1).
 
+    x and the output in float32 or bfloat16 (the sampling and the
+    contraction run in f32 either way); the weight in either too.
     Autograd through it gives the kernels' backward: the dy gradient is
     zero where ``|dy| >= max_shift`` (the clamp saturates), both y-corners
     enter the offset gradient at integer positions (the derivative of
     ``floor`` is zero), and the rounding of the samples to bf16 rounds the
-    column gradient ``g . W^T`` to bf16 as the kernels do.
+    column gradient ``g . W^T`` to bf16 as the kernels do; dx and dW come
+    out in x's and the weight's dtypes, each rounded once. ``clamp_dx``
+    clamps the horizontal offset the same way (the wide forward).
     """
     b, _, h, w = x.shape
     if tuple(weight.shape[2:]) != (3, 3):
         raise ValueError("the DCN kernels are 3x3 only")
     off = offset.reshape(b, 9, 2, h, w)
-    dy_raw = off[:, :, 0]
-    dy = torch.where(dy_raw.abs() < max_shift, dy_raw,
-                     dy_raw.clamp(-max_shift, max_shift).detach())
-    offset_c = torch.stack((dy, off[:, :, 1]), 2).reshape(offset.shape)
-    cols = deform_sample(_bf16_value(x), offset_c, mask, (3, 3), (1, 1),
-                         (1, 1), (1, 1))
-    cols = cols.to(torch.bfloat16).to(x.dtype)
-    return _contract(cols, _bf16_value(weight), bias).to(x.dtype)
+    dx = off[:, :, 1]
+    if clamp_dx:
+        dx = _clamped(dx, max_shift)
+    offset_c = torch.stack((_clamped(off[:, :, 0], max_shift), dx),
+                           2).reshape(offset.shape)
+    cols = deform_sample(_bf16_value(x.float()), offset_c, mask, (3, 3),
+                         (1, 1), (1, 1), (1, 1))
+    cols = cols.to(torch.bfloat16).float()
+    return _contract(cols, _bf16_value(weight.float()), bias).to(x.dtype)
 
 
 class _RoundGrad(torch.autograd.Function):
@@ -210,10 +251,101 @@ def dcn_v2_fused_twin(x, om_weight, om_bias, weight, bias=None,
     return out.to(torch.bfloat16), stat
 
 
-def kernel_supported(weight: torch.Tensor, stride, padding, dilation) -> bool:
-    """The geometry the Hopper kernels cover (every DCN of the reference)."""
-    return (tuple(weight.shape[2:]) == (3, 3) and _pair(stride) == (1, 1)
+def set_kernel_version(version: str) -> None:
+    """Force a kernel generation ("lanes" / "select") or route per shape
+    ("auto")."""
+    global _KERNEL_VERSION
+    if version not in KERNEL_VERSIONS:
+        raise ValueError(f"kernel version must be one of {KERNEL_VERSIONS}, "
+                         f"got {version!r}")
+    _KERNEL_VERSION = version
+
+
+def get_kernel_version() -> str:
+    return _KERNEL_VERSION
+
+
+def generation_for(x_shape) -> str:
+    """The kernel generation of a (B, Cin, H, W) map: under "auto", "lanes"
+    for 8 <= W <= 256 and Cin <= 512, "select" elsewhere."""
+    if _KERNEL_VERSION != "auto":
+        return _KERNEL_VERSION
+    cin, w = x_shape[1], x_shape[3]
+    if 8 <= w <= LANES_NATIVE_MAX_W and cin <= 512:
+        return "lanes"
+    return "select"
+
+
+def _geometry_ok(kernel_size, stride, padding, dilation) -> bool:
+    """The geometry the kernels cover: 3x3 / s1 / p1 / d1 (every DCN of the
+    reference)."""
+    return (_pair(kernel_size) == (3, 3) and _pair(stride) == (1, 1)
             and _pair(padding) == (1, 1) and _pair(dilation) == (1, 1))
+
+
+def pallas_supported(x_shape, weight_shape, stride=1, padding=1,
+                     dilation=1) -> bool:
+    """Whether the kernel generation of this (B, Cin, H, W) map covers a
+    layer of this (Cout, Cin, kh, kw) weight; else the exact op runs. The
+    JAX package's envelope: 3x3 / s1 / p1 / d1, and its VMEM working-set
+    estimate (the H-padded image in bf16, f32 and bf16, plus the dW
+    accumulator, within 80 MiB); "lanes" also 8 <= W <= 1024, Cin <= 512."""
+    if not _geometry_ok(weight_shape[2:], stride, padding, dilation):
+        return False
+    cin, h, w = x_shape[1], x_shape[2], x_shape[3]
+    dw_resident = 3 * 9 * cin * weight_shape[0] * 4
+    pad = 2 * (PALLAS_MAX_SHIFT + 2)
+    if generation_for(x_shape) == "select":
+        return (h + pad) * w * cin * 8 + dw_resident <= _VMEM_BYTES
+    resident = (h + pad) * max(w, 128) * cin * 8
+    return (8 <= w <= 1024 and cin <= 512
+            and resident + dw_resident <= _VMEM_BYTES)
+
+
+def fused_supported(x_shape, dtype, kernel_size=3, stride=1, padding=1,
+                    dilation=1) -> bool:
+    """The fused-offset-conv kernels: bf16 x, 3x3 / s1 / p1 / d1, the lanes
+    generation at its native width 8 <= W <= 256."""
+    return (dtype == torch.bfloat16
+            and _geometry_ok(kernel_size, stride, padding, dilation)
+            and generation_for(x_shape) == "lanes"
+            and 8 <= x_shape[3] <= LANES_NATIVE_MAX_W)
+
+
+def kernel_route(x_shape, dtype, weight_shape, stride=1, padding=1,
+                 dilation=1) -> Optional[str]:
+    """The kernel-path route of one call: "fused", "select", "lanes",
+    "wide", or None for the exact op."""
+    if not pallas_supported(x_shape, weight_shape, stride, padding,
+                            dilation):
+        return None
+    if fused_supported(x_shape, dtype, weight_shape[2:], stride, padding,
+                       dilation):
+        return "fused"
+    if generation_for(x_shape) == "select":
+        return "select"
+    return "wide" if x_shape[3] > LANES_NATIVE_MAX_W else "lanes"
+
+
+# (shape, reason) of each exact-op fallback already logged
+_FALLBACKS_NOTED: set = set()
+
+
+def note_fallback(x_shape, route: Optional[str]) -> None:
+    """Log once per shape where the kernel path leaves the kernels: the
+    exact op outside the envelope, or the wide route's exact backward."""
+    if route is None:
+        reason = ("outside the kernel envelope of the " +
+                  generation_for(x_shape) + " generation; the exact op runs")
+    elif route == "wide":
+        reason = (f"W > {LANES_NATIVE_MAX_W} under forced 'lanes': the "
+                  "forward clamps dx too, the backward is the exact op's")
+    else:
+        return
+    key = (tuple(x_shape), reason)
+    if key not in _FALLBACKS_NOTED:
+        _FALLBACKS_NOTED.add(key)
+        log.warning("DCN layer with input %s: %s", tuple(x_shape), reason)
 
 
 def uses_kernel_path(impl: str, x: torch.Tensor, weight: torch.Tensor,
@@ -222,8 +354,8 @@ def uses_kernel_path(impl: str, x: torch.Tensor, weight: torch.Tensor,
     impl = impl.lower()
     if impl not in DCN_IMPLS:
         raise ValueError(f"dcn_impl must be one of {DCN_IMPLS}, got {impl!r}")
-    if impl == "xla" or not kernel_supported(weight, stride, padding,
-                                             dilation):
+    if impl == "xla" or not _geometry_ok(tuple(weight.shape[2:]), stride,
+                                         padding, dilation):
         return False
     if impl == "auto":
         return x.is_cuda
@@ -272,38 +404,45 @@ class DCN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.compute_dtype)
-        kernel = uses_kernel_path(self.impl, x, self.weight, self.stride,
-                                  self.padding, self.dilation)
-        if x.dtype == torch.bfloat16:
-            return self._forward_bf16(x, kernel)
-        om = self.conv_offset_mask(x)
-        o1, o2, m = torch.chunk(om, 3, dim=1)
-        offset = torch.cat((o1, o2), dim=1)
-        mask = torch.sigmoid(m)
-        if kernel:
-            from centernet_uda_torch.ops.dcn_cuda import dcn_v2_kernel
-
-            self.max_abs_dy = offset[:, 0::2].detach().abs().amax()
-            return dcn_v2_kernel(x, offset, mask, self.weight, self.bias)
-        return self._exact(x, offset, mask, self.weight)
-
-    def _forward_bf16(self, x: torch.Tensor, kernel: bool) -> torch.Tensor:
-        om_conv = self.conv_offset_mask
-        if kernel:
+        route = None
+        if uses_kernel_path(self.impl, x, self.weight, self.stride,
+                            self.padding, self.dilation):
+            route = kernel_route(tuple(x.shape), x.dtype,
+                                 tuple(self.weight.shape), self.stride,
+                                 self.padding, self.dilation)
+            note_fallback(tuple(x.shape), route)
+        if route == "fused":
             from centernet_uda_torch.ops.dcn_cuda import dcn_v2_fused_kernel
 
+            om_conv = self.conv_offset_mask
             out, self.max_abs_dy = dcn_v2_fused_kernel(
                 x, om_conv.weight, om_conv.bias, self.weight, self.bias)
             return out
-        # the JAX package's explicit composition: the offset conv in bf16
-        # (bias added after the conv's rounding), offsets and mask in f32
-        om = F.conv2d(x, om_conv.weight.to(x.dtype), None, self.stride,
-                      self.padding, self.dilation)
-        om = om + om_conv.bias.to(x.dtype).view(1, -1, 1, 1)
+        offset, mask = self._offset_mask(x)
+        weight = self.weight.to(x.dtype)
+        if route is None:
+            return self._exact(x, offset, mask, weight)
+        from centernet_uda_torch.ops import dcn_cuda
+
+        self.max_abs_dy = offset[:, 0::2].detach().abs().amax()
+        kernel = {"select": dcn_cuda.dcn_v2_select_kernel,
+                  "lanes": dcn_cuda.dcn_v2_kernel,
+                  "wide": dcn_cuda.dcn_v2_wide_kernel}[route]
+        return kernel(x, offset, mask, weight, self.bias)
+
+    def _offset_mask(self, x: torch.Tensor):
+        """The explicit offset conv at the compute dtype: f32 offsets and
+        mask. In bf16 (the JAX package's explicit composition) the conv
+        rounds to bf16 and its bias is added after, in bf16."""
+        om_conv = self.conv_offset_mask
+        if x.dtype == torch.bfloat16:
+            om = F.conv2d(x, om_conv.weight.to(x.dtype), None, self.stride,
+                          self.padding, self.dilation)
+            om = om + om_conv.bias.to(x.dtype).view(1, -1, 1, 1)
+        else:
+            om = om_conv(x)
         o1, o2, m = torch.chunk(om, 3, dim=1)
-        offset = torch.cat((o1, o2), dim=1).float()
-        mask = torch.sigmoid(m).float()
-        return self._exact(x, offset, mask, self.weight.to(x.dtype))
+        return torch.cat((o1, o2), dim=1).float(), torch.sigmoid(m).float()
 
     def _exact(self, x, offset, mask, weight) -> torch.Tensor:
         self.max_abs_dy = None

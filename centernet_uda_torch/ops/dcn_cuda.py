@@ -15,6 +15,16 @@ through ``dcn_kernels.cuh``):
   ``dcn_v2_pallas_lanes_fused``).
 - ``dcn_fused_bwd`` (``csrc/dcn_fused_bwd.cu``, five launches) replaces
   ``_dcn_fused_bwd_kernel`` (via ``dcn_v2_pallas_bwd_lanes_fused``).
+- ``dcn_sel_fwd`` (``csrc/dcn_sel_fwd.cu``), the forward at the "select"
+  shapes (Cin > 512, W > 256, W < 8), x and out in float32 or bfloat16,
+  replaces ``_sel_fwd_kernel`` (via ``dcn_v2_pallas_select``).
+- ``dcn_sel_bwd`` (``csrc/dcn_sel_bwd.cu``, two launches), its backward, g
+  in x's dtype, dx rounded once to x's dtype, dW in the weight's dtype,
+  replaces ``_sel_bwd_kernel`` (via ``dcn_v2_pallas_bwd_select``).
+- ``dcn_wide_fwd`` (``csrc/dcn_wide_fwd.cu``), the forward with dx clamped
+  too (forced "lanes" at W > 256), replaces ``_dcn_kernel`` in panel mode
+  (via ``_dcn_v2_pallas_wide``). Its backward is the exact op's on clipped
+  offsets, as in the JAX package.
 
 Each source notes what bounds it on the H100 and what its design does about
 that. Their plain versions are ``ops.dcn.dcn_v2_twin`` and
@@ -45,6 +55,7 @@ import torch
 
 from centernet_uda_torch.ops.dcn import (
     PALLAS_MAX_SHIFT,
+    dcn_v2,
     dcn_v2_fused_twin,
     dcn_v2_twin,
 )
@@ -53,7 +64,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = {"dcn_fwd": "dcn_fwd.cu", "dcn_bwd": "dcn_bwd.cu",
            "dcn_fused_fwd": "dcn_fused_fwd.cu",
-           "dcn_fused_bwd": "dcn_fused_bwd.cu"}
+           "dcn_fused_bwd": "dcn_fused_bwd.cu",
+           "dcn_sel_fwd": "dcn_sel_fwd.cu", "dcn_sel_bwd": "dcn_sel_bwd.cu",
+           "dcn_wide_fwd": "dcn_wide_fwd.cu"}
 _HEADERS = ("dcn_common.cuh", "dcn_kernels.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -138,6 +151,9 @@ def _lib(name: str) -> ctypes.CDLL:
         "dcn_bwd": [vp] * 9 + [i32] * 5 + [f32, i32, vp],
         "dcn_fused_fwd": [vp] * 8 + [i32] * 5 + [f32, vp],
         "dcn_fused_bwd": [vp] * 11 + [i32] * 5 + [f32, i32, i32, vp],
+        "dcn_sel_fwd": [vp] * 6 + [i32] * 5 + [f32, i32, vp],
+        "dcn_sel_bwd": [vp] * 9 + [i32] * 5 + [f32, i32, i32, vp],
+        "dcn_wide_fwd": [vp] * 6 + [i32] * 5 + [f32, i32, vp],
     }[name]
     fn.restype = i32
     err_fn = getattr(lib, f"{name}_error_string")
@@ -153,14 +169,26 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
 
 
-def _check(x, offset, mask, weight, bias=None, g=None) -> Tuple[int, ...]:
+_F32 = (torch.float32,)
+_F32_BF16 = (torch.float32, torch.bfloat16)
+
+
+def _check(x, offset, mask, weight, bias=None, g=None, x_dtypes=_F32,
+           weight_dtypes=_F32) -> Tuple[int, ...]:
+    """Device, dtype and shape checks of the explicit-offset kernels: x (and
+    g, in x's dtype) in ``x_dtypes``, the weight in ``weight_dtypes``,
+    offset, mask and bias float32."""
     tensors = [x, offset, mask, weight] + [t for t in (bias, g)
                                            if t is not None]
     for t in tensors:
         if t.device != x.device:
             raise ValueError("DCN operands must lie on one device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the DCN kernels take float32 operands, got "
+    for t, allowed in ((x, x_dtypes), (weight, weight_dtypes), (offset, _F32),
+                       (mask, _F32), (bias, _F32), (g, (x.dtype,))):
+        if t is not None and t.dtype not in allowed:
+            names = " or ".join(str(d).replace("torch.", "")
+                                for d in allowed)
+            raise TypeError(f"the DCN kernels take {names} here, got "
                             f"{t.dtype}")
     b, cin, h, w = x.shape
     cout = weight.shape[0]
@@ -188,6 +216,13 @@ def _stage_x(x: torch.Tensor) -> torch.Tensor:
     return xs
 
 
+def _stage_weight(weight: torch.Tensor) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) -> (9, Cin, Cout) bf16, tap-major."""
+    cout, cin = weight.shape[:2]
+    return (weight.permute(2, 3, 1, 0).reshape(9, cin, cout)
+            .to(torch.bfloat16).contiguous())
+
+
 def dcn_forward(x, offset, mask, weight, bias,
                 max_shift: float = PALLAS_MAX_SHIFT) -> torch.Tensor:
     """DCNv2 forward, 3x3/s1/p1/d1. NCHW in and out; float32."""
@@ -203,13 +238,14 @@ def dcn_forward(x, offset, mask, weight, bias,
 def _forward_launch(x, offset, mask, weight, bias, max_shift, stream):
     """The kernel path proper, on ``stream``, for checked operands. Each
     wrapper has one (``_backward_launch``, ``_fused_forward_launch``,
-    ``_fused_backward_launch``); ``tests/test_torch_emulated_kernels.py``
-    calls them on CPU tensors with the sources built for the CPU."""
+    ``_fused_backward_launch``, ``_sel_backward_launch``, and
+    ``_explicit_forward_launch`` for the select and wide forwards);
+    ``tests/test_torch_emulated_kernels.py`` calls them on CPU tensors with
+    the sources built for the CPU."""
     b, cin, h, w = x.shape
     cout = weight.shape[0]
     xs = _stage_x(x)
-    wt = (weight.permute(2, 3, 1, 0).reshape(9, cin, cout)
-          .to(torch.bfloat16).contiguous())
+    wt = _stage_weight(weight)
     offset, mask, bias = (offset.contiguous(), mask.contiguous(),
                           bias.contiguous())
     out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
@@ -361,8 +397,7 @@ def _fused_forward_launch(x, om_weight, om_bias, weight, bias, max_shift,
     dev = x.device
     xs = _stage_x(x)
     wom = _stage_om_weight(om_weight)
-    wt = (weight.permute(2, 3, 1, 0).reshape(9, cin, cout)
-          .to(torch.bfloat16).contiguous())
+    wt = _stage_weight(weight)
     om_bias, bias = om_bias.contiguous(), bias.contiguous()
     om = torch.empty((b, 27, h, w), dtype=torch.float32, device=dev)
     out = torch.empty((b, cout, h, w), dtype=torch.bfloat16, device=dev)
@@ -456,6 +491,151 @@ def dcn_v2_fused_kernel(x, om_weight, om_bias, weight, bias):
     Hopper kernels on CUDA tensors, from the fused twin on CPU tensors,
     differentiable either way (max_abs_dy has no gradient)."""
     return _DCNFusedFn.apply(x, om_weight, om_bias, weight, bias)
+
+
+def dcn_sel_forward(x, offset, mask, weight, bias,
+                    max_shift: float = PALLAS_MAX_SHIFT) -> torch.Tensor:
+    """DCNv2 forward at the "select" shapes, 3x3/s1/p1/d1. x (B, Cin, H, W)
+    float32 or bfloat16, offset and mask float32, the weight float32 or
+    bfloat16, bias float32; out (B, Cout, H, W) in x's dtype."""
+    if not x.is_cuda:
+        with torch.no_grad():
+            return dcn_v2_twin(x, offset, mask, weight, bias, max_shift)
+    _check(x, offset, mask, weight, bias, x_dtypes=_F32_BF16,
+           weight_dtypes=_F32_BF16)
+    with torch.cuda.device(x.device):
+        return _explicit_forward_launch(
+            "dcn_sel_fwd", x, offset, mask, weight, bias, max_shift,
+            torch.cuda.current_stream().cuda_stream)
+
+
+def _explicit_forward_launch(name, x, offset, mask, weight, bias,
+                             max_shift, stream):
+    """One launch of ``dcn_sel_fwd`` or ``dcn_wide_fwd`` (same operands)."""
+    b, cin, h, w = x.shape
+    cout = weight.shape[0]
+    xs = _stage_x(x)
+    wt = _stage_weight(weight)
+    offset, mask, bias = (offset.contiguous(), mask.contiguous(),
+                          bias.contiguous())
+    out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
+    err = getattr(_lib(name), name)(
+        xs.data_ptr(), offset.data_ptr(), mask.data_ptr(), wt.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
+        float(max_shift), int(x.dtype == torch.bfloat16), stream)
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def dcn_sel_backward(x, offset, mask, weight, g,
+                     max_shift: float = PALLAS_MAX_SHIFT):
+    """Gradients (dx, doffset, dmask, dweight) of ``dcn_sel_forward`` for g
+    in x's dtype: dx in x's dtype, doffset and dmask float32, dweight in the
+    weight's dtype. The bias gradient, sum(g), is the caller's."""
+    if not x.is_cuda:
+        return dcn_backward_plain(x, offset, mask, weight, g, max_shift)
+    g = g.contiguous()
+    _check(x, offset, mask, weight, None, g, x_dtypes=_F32_BF16,
+           weight_dtypes=_F32_BF16)
+    with torch.cuda.device(x.device):
+        return _sel_backward_launch(x, offset, mask, weight, g, max_shift,
+                                    torch.cuda.current_stream().cuda_stream)
+
+
+def _sel_backward_launch(x, offset, mask, weight, g, max_shift, stream):
+    b, cin, h, w = x.shape
+    cout = weight.shape[0]
+    dev = x.device
+    xs = _stage_x(x)
+    wt_t = (weight.permute(2, 3, 0, 1).reshape(9, cout, cin)
+            .to(torch.bfloat16).contiguous())
+    offset, mask = offset.contiguous(), mask.contiguous()
+    dx = torch.zeros((b, h, w, cin), dtype=torch.float32, device=dev)
+    doff = torch.empty_like(offset)
+    dmask = torch.empty_like(mask)
+    dw = torch.zeros((9, cin, cout), dtype=torch.float32, device=dev)
+    err = _lib("dcn_sel_bwd").dcn_sel_bwd(
+        xs.data_ptr(), offset.data_ptr(), mask.data_ptr(), wt_t.data_ptr(),
+        g.data_ptr(), dx.data_ptr(), doff.data_ptr(), dmask.data_ptr(),
+        dw.data_ptr(), b, h, w, cin, cout, float(max_shift),
+        _dw_pixels_per_block(b * h * w, cin, cout),
+        int(g.dtype == torch.bfloat16), stream)
+    _raise_on(err, "dcn_sel_bwd")
+    LAUNCHES["dcn_sel_bwd"] += 1
+    # dx rounded to x's dtype once, after every atomic is in
+    dx_out = torch.empty((b, cin, h, w), dtype=x.dtype, device=dev)
+    dx_out.copy_(dx.permute(0, 3, 1, 2))
+    return dx_out, doff, dmask, _dw_to_oihw(dw, cout).to(weight.dtype)
+
+
+class _DCNSelectFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, offset, mask, weight, bias):
+        ctx.save_for_backward(x, offset, mask, weight)
+        return dcn_sel_forward(x, offset, mask, weight, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, offset, mask, weight = ctx.saved_tensors
+        dx, doff, dmask, dw = dcn_sel_backward(x, offset, mask, weight,
+                                               g.to(x.dtype))
+        return dx, doff, dmask, dw, g.float().sum((0, 2, 3))
+
+
+def dcn_v2_select_kernel(x, offset, mask, weight, bias) -> torch.Tensor:
+    """The "select" route of ``DCN``: rows 6 and 7's Hopper kernels on CUDA
+    tensors, the plain twin on CPU tensors, differentiable either way; out
+    in x's dtype, the weight's gradient in its dtype."""
+    return _DCNSelectFn.apply(x, offset, mask, weight, bias)
+
+
+def dcn_wide_forward(x, offset, mask, weight, bias,
+                     max_shift: float = PALLAS_MAX_SHIFT) -> torch.Tensor:
+    """DCNv2 forward with both offsets clamped to +-max_shift (forced
+    "lanes" at W > 256), 3x3/s1/p1/d1; operands as ``dcn_sel_forward``'s."""
+    if not x.is_cuda:
+        with torch.no_grad():
+            return dcn_v2_twin(x, offset, mask, weight, bias, max_shift,
+                               clamp_dx=True)
+    _check(x, offset, mask, weight, bias, x_dtypes=_F32_BF16,
+           weight_dtypes=_F32_BF16)
+    with torch.cuda.device(x.device):
+        return _explicit_forward_launch(
+            "dcn_wide_fwd", x, offset, mask, weight, bias, max_shift,
+            torch.cuda.current_stream().cuda_stream)
+
+
+def dcn_wide_backward(x, offset, mask, weight, bias, g,
+                      max_shift: float = PALLAS_MAX_SHIFT):
+    """Gradients (dx, doffset, dmask, dweight, dbias) of the wide route:
+    autograd through the exact ``dcn_v2`` on offsets clipped to
+    +-max_shift, its output cast to x's dtype (the JAX package's
+    ``_dcn_pallas_bwd`` for forced "lanes" at W > 256)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (x, offset, mask, weight, bias)]
+        out = dcn_v2(leaves[0], leaves[1].clamp(-max_shift, max_shift),
+                     *leaves[2:]).to(x.dtype)
+        return torch.autograd.grad(out, leaves, g)
+
+
+class _DCNWideFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, offset, mask, weight, bias):
+        ctx.save_for_backward(x, offset, mask, weight, bias)
+        return dcn_wide_forward(x, offset, mask, weight, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        return dcn_wide_backward(*ctx.saved_tensors, g)
+
+
+def dcn_v2_wide_kernel(x, offset, mask, weight, bias) -> torch.Tensor:
+    """The wide route of ``DCN`` (forced "lanes", 256 < W <= 1024): row 2's
+    Hopper forward on CUDA tensors, the clamp-dx twin on CPU tensors; the
+    exact op's backward on clipped offsets either way."""
+    return _DCNWideFn.apply(x, offset, mask, weight, bias)
 
 
 def compiler_report(reports: Dict[str, str]) -> str:

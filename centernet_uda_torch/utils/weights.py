@@ -1,13 +1,18 @@
-"""Weight bridge from the JAX package's DLA variables to the port.
+"""Weight bridge from the JAX package's variables to the port.
 
-``state_dict_from_jax(variables)`` turns the ``{"params", "batch_stats"}``
-trees of ``centernet_uda_tpu``'s DLA (nested dicts of arrays) into the
-port's ``DLASeg`` state dict, with the key map of
-``centernet_uda_tpu/utils/torch_import.py`` (``_dla_path_to_torch``) run
-backwards:
+``state_dict_from_jax(variables, backend)`` turns the ``{"params",
+"batch_stats"}`` trees of a ``centernet_uda_tpu`` backend (nested dicts of
+arrays) into the port's state dict of the same backend, with the key maps
+of ``centernet_uda_tpu/utils/torch_import.py`` run backwards: ``dla``
+(``_dla_path_to_torch``) and ``mobilenetv2``
+(``_mobilenetv2_path_to_torch``), selected by backend name as the JAX
+package's ``import_state_dict`` selects its shims (digits ignored, so
+``dla34`` is ``dla``):
 
-- conv kernels HWIO -> OIHW;
-- the depthwise upsample kernel (k, k, 1, o) -> (o, 1, k, k);
+- conv kernels HWIO -> OIHW (a depthwise (k, k, 1, c) kernel -> (c, 1, k,
+  k));
+- transposed-conv kernels (k, k, in, out) -> (in, out, k, k), spatially
+  flipped (flax's ``ConvTranspose`` does not flip, torch's does);
 - BatchNorm scale / bias / mean / var -> weight / bias / running_mean /
   running_var (``num_batches_tracked`` starts at 0).
 
@@ -96,13 +101,89 @@ def _dla_key(path: Tuple[str, ...]) -> Optional[Tuple[str, object]]:
     return None
 
 
-def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
-    """The port's ``DLASeg`` state dict from JAX DLA ``variables``."""
+def _conv_transpose(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 0, 1))[..., ::-1,
+                                                               ::-1])
+
+
+# torchvision's InvertedResidual: JAX (conv|bn)<i> -> key inside .conv, for
+# layer 1 (no expand conv) and the others
+_MNV2_CONV = {True: {0: "0.0", 1: "1"}, False: {0: "0.0", 1: "1.0", 2: "2"}}
+_MNV2_BN = {True: {0: "0.1", 1: "2"}, False: {0: "0.1", 1: "1.1", 2: "3"}}
+
+
+def _mobilenetv2_key(path: Tuple[str, ...], use_dcn: bool
+                     ) -> Optional[Tuple[str, object]]:
+    """(torch key, transform) of one JAX MobileNetV2 leaf, or None."""
+    parts = list(path)
+    leaf, top = parts[-1], parts[0]
+    if top == "base":
+        sub = parts[1]
+        fixed = {"stem_conv": "base.0.0", "stem_bn": "base.0.1",
+                 "head_conv": "base.18.0", "head_bn": "base.18.1"}
+        if sub in fixed:
+            if sub.endswith("conv"):
+                return f"{fixed[sub]}.weight", _conv
+            return _bn(fixed[sub], leaf)
+        if sub.startswith("layer"):
+            lid = int(sub[len("layer"):])
+            mod = parts[2]
+            idx = int(mod[-1])
+            if mod.startswith("conv"):
+                return f"base.{lid}.conv.{_MNV2_CONV[lid == 1][idx]}.weight", \
+                    _conv
+            return _bn(f"base.{lid}.conv.{_MNV2_BN[lid == 1][idx]}", leaf)
+        return None
+    per_stage = 6 if use_dcn else 3
+    for name, offset in (("neck_dcn_bn", 1), ("neck_bn", 4 if use_dcn else 1)):
+        if top.startswith(name) and top[len(name):].isdigit():
+            stage = int(top[len(name):])
+            return _bn(f"deconv_layers.{per_stage * stage + offset}", leaf)
+    if top.startswith("neck_dcn"):
+        key = f"deconv_layers.{per_stage * int(top[len('neck_dcn'):])}"
+        if parts[-2] == "conv_offset_mask":
+            return ((f"{key}.conv_offset_mask.weight", _conv)
+                    if leaf == "kernel"
+                    else (f"{key}.conv_offset_mask.bias", _same))
+        return f"{key}.{leaf}", _conv if leaf == "weight" else _same
+    if top.startswith("neck_deconv"):
+        stage = int(top[len("neck_deconv"):])
+        offset = 3 if use_dcn else 0
+        return (f"deconv_layers.{per_stage * stage + offset}.weight",
+                _conv_transpose)
+    if top.startswith("skip_"):
+        key = f"skip_{3 * int(top[len('skip_'):])}"
+        return ((f"{key}.weight", _conv) if leaf == "kernel"
+                else (f"{key}.bias", _same))
+    if top == "heads":
+        name, kind = parts[1].rsplit("_", 1)
+        idx = 0 if kind == "conv" else 2
+        if leaf == "kernel":
+            return f"{name}.{idx}.weight", _conv
+        return f"{name}.{idx}.bias", _same
+    return None
+
+
+def state_dict_from_jax(variables, backend: str = "dla"
+                        ) -> Dict[str, torch.Tensor]:
+    """The port's state dict of ``backend`` ("dla", "dla34", "mobilenetv2")
+    from that JAX backend's ``variables``."""
+    kind = "".join(c for c in backend if not c.isdigit())
+    if kind == "dla":
+        key_of = _dla_key
+    elif kind == "mobilenetv":
+        # a DCN neck has neck_dcn* params and neck_dcn_bn* statistics
+        use_dcn = any(top.startswith("neck_dcn")
+                      for col in ("params", "batch_stats")
+                      for top in variables.get(col, {}))
+        key_of = lambda path: _mobilenetv2_key(path, use_dcn)  # noqa: E731
+    else:
+        raise KeyError(f"no weight bridge for backend {backend!r}")
     sd: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, value in _flatten(dict(variables.get(collection, {}))
                                     ).items():
-            spec = _dla_key(path)
+            spec = key_of(path)
             if spec is None:
                 raise KeyError(f"no port key for {collection}/"
                                + "/".join(path))

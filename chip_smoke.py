@@ -6,32 +6,46 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
 
 1. probe: the card, its power limit, torch, CUDA, nvcc; the card must be
    compute capability 9.0;
-2. build: compiles the four DCN kernel sources from
-   ``centernet_uda_torch/csrc/`` and prints the compiler's register /
-   shared-memory report;
-3. kernels: at every distinct DCN shape of the 512 px train path (batch 16)
-   and of the 800 px eval path (batch 4), holds the float32 kernels'
-   forward and all five gradients against their plain PyTorch twin, and the
-   fused bfloat16 kernels' output, max |dy| and all five gradients against
-   theirs (atol 5e-2 * max(1, max|twin|), rtol 5e-2: the bound of the Pallas
-   kernels' own tests; max |dy| to 1e-5 relative), and times kernel, twin
-   and the cuDNN yardstick;
-4. train: ``experiment=baseline`` (DLA-34 at full width, ``dcn_impl:
-   auto``) takes 4 steps at 512 px, batch 16, on one seeded synthetic batch,
-   first at float32 and then at ``precision=bfloat16``; the losses must be
-   finite, each step must launch each DCN kernel of its precision 16 times
-   and the other precision's none, and no layer may reach the offset clamp;
-5. eval: at each precision, one eval step at 800 px plus decode; the
-   detections must be finite with shape (B, 150, 4) and the forward kernel
-   of that precision must run 16 times.
+2. build: compiles the seven DCN kernel sources from
+   ``centernet_uda_torch/csrc/`` (one ``nvcc`` each, in parallel) and prints
+   the compiler's register / shared-memory report;
+3. kernels: each kernel against its plain PyTorch twin on the same inputs
+   (atol 5e-2 * max(1, max|twin|), rtol 5e-2: the bound of the Pallas
+   kernels' own tests; max |dy| to 1e-5 relative), timed beside its twin
+   and a cuDNN yardstick:
+   - the float32 pair and the fused bfloat16 pair at every DCN shape of
+     DLA-34's 512 px train path (batch 16) and 800 px eval path (batch 4);
+   - the "select" pair, in float32 and in bfloat16, at MobileNetV2's
+     1280 -> 256 DCN shapes (512 px train, batch 32: 16 x 16; 800 px eval,
+     batch 4: 25 x 25) and at 2 x 300 x 300 x 64;
+   - the wide forward (dx clamped too), in both dtypes, at 2 x 300 x 300 x
+     64 and at DLA-34's 64 -> 64 @272, batch 4 (the 1088 px eval);
+4. DLA-34 train and eval: ``experiment=baseline`` (full width, ``dcn_impl:
+   auto``) takes 4 steps at 512 px, batch 16, on one seeded synthetic
+   batch, then one eval step at 800 px plus decode, first at float32 and
+   then at ``precision=bfloat16``; losses and detections finite, no layer
+   at the offset clamp, and each step launches exactly its precision's
+   kernels (16 layers);
+5. MobileNetV2 train and eval: ``experiment=baseline_mobilenet_v2`` with
+   ``use_dcn=true`` (full width, skips, batch 32) the same way at each
+   precision: a train step launches ``dcn_sel_fwd``/``dcn_sel_bwd`` once
+   (the 1280-channel layer) and the lanes kernels twice (float32:
+   ``dcn_fwd``/``dcn_bwd``; bfloat16: the fused pair), an eval the forward
+   kernels only;
+6. forced "lanes": DLA-34 at float32 evaluates 1088 px, batch 4, under
+   ``set_kernel_version("lanes")``: the layers at W = 272 launch
+   ``dcn_wide_fwd`` and the rest ``dcn_fwd``.
 
-Before each precision trains, its model's heads on the kernel path are held
-against the exact DCN op on the same weights and a small input. The last
-lines are a ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name
-and power limit, and ``{"ok": true, "device": {...}}``. Any failure exits
-non-zero. ``--json PATH`` also writes every measurement to PATH;
-``--profile`` adds a torch.profiler breakdown by kernel of two more train
-steps at each precision.
+Before each model trains, its heads on the kernel path are held against the
+exact DCN op on the same weights and a small input. Every phase drives the
+entry points a user calls (``build_trainer``, ``Model.step``,
+``get_detections``) with the launch counters set to 0 just before and read
+just after. The last lines are a ``{"kernels": [...]}`` JSON line (one
+entry per kernel source, launches summed over phases 4-6), the card's
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
+Any failure exits non-zero. ``--json PATH`` also writes every measurement
+to PATH; ``--profile`` adds a torch.profiler breakdown by kernel of two
+more train steps of each model at each precision.
 """
 
 from __future__ import annotations
@@ -48,6 +62,12 @@ ROOT = Path(__file__).resolve().parent
 
 TRAIN_SIZE, TRAIN_BATCH, TRAIN_STEPS = 512, 16, 4
 EVAL_SIZE, EVAL_BATCH_KERNELS = 800, 4
+MNV2_TRAIN_BATCH = 32  # experiment=baseline_mobilenet_v2's batch_size
+# the forced-"lanes" eval: DLA-34 at 1088 px puts its stride-4 DCN layers
+# at W = 272, past the lanes kernels' native 256
+WIDE_SIZE, WIDE_BATCH = 1088, 4
+# ROADMAP B5's W > 256 shape for the select pair and the wide forward
+SHAPE_300 = (2, 64, 64, 300, 300)  # (batch, cin, cout, h, w)
 # H100 SXM published peaks (dense): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -204,23 +224,35 @@ def print_record(label, batch, cin, cout, h, w, layers, errs, t, fb, fk, bb,
           f" conv {t['conv_bwd_ms']:.3f}, bound {bb:.4f} {bk})", flush=True)
 
 
-def check_kernels(shapes, batch, device, label):
-    """Phase 3 for the float32 kernels at one input size; returns
-    per-shape records."""
+def check_kernels(shapes, batch, device, label, pair="f32",
+                  dtype="float32"):
+    """Phase 3 for an explicit-offset kernel pair at one input size:
+    ``pair`` "f32" (``dcn_forward``/``dcn_backward``, float32 only) or
+    "select" (``dcn_sel_forward``/``dcn_sel_backward``, x, g, out, dx and
+    the weight in ``dtype``). Returns per-shape records. The yardstick is
+    cuDNN's convolution of the same shape in the same dtype."""
     import torch
     import torch.nn.functional as F
 
     from centernet_uda_torch.ops import dcn_cuda
 
+    fwd, bwd = {"f32": (dcn_cuda.dcn_forward, dcn_cuda.dcn_backward),
+                "select": (dcn_cuda.dcn_sel_forward,
+                           dcn_cuda.dcn_sel_backward)}[pair]
+    dt = getattr(torch, dtype)
+    elem = torch.finfo(dt).bits // 8
     records = []
     for i, ((cin, cout, h, w), layers) in enumerate(sorted(shapes.items())):
         x, off, m, wt, bias, g = make_operands(i, batch, cin, cout, h, w,
                                                device)
-        out = dcn_cuda.dcn_forward(x, off, m, wt, bias)
+        x, wt, g = x.to(dt), wt.to(dt), g.to(dt)
+        out = fwd(x, off, m, wt, bias)
         ref = dcn_cuda.dcn_v2_twin(x, off, m, wt, bias)
+        if out.dtype != dt:
+            raise AssertionError(f"{pair} forward gave {out.dtype}")
         errs = {"out": compare("out", out, ref)}
         del out, ref
-        got = dcn_cuda.dcn_backward(x, off, m, wt, g) + (g.sum((0, 2, 3)),)
+        got = bwd(x, off, m, wt, g) + (g.float().sum((0, 2, 3)),)
         leaves = [t.clone().requires_grad_(True) for t in (x, off, m, wt,
                                                            bias)]
         with torch.enable_grad():
@@ -228,23 +260,30 @@ def check_kernels(shapes, batch, device, label):
             want = torch.autograd.grad(ref_out, leaves, g)
         for name, a, b in zip(("dx", "doff", "dmask", "dw", "dbias"), got,
                               want):
+            if a.dtype != b.dtype:
+                raise AssertionError(f"{pair} {name} is {a.dtype}, its twin "
+                                     f"{b.dtype}")
             errs[name] = compare(name, a, b)
         del got, want, ref_out, leaves
         torch.cuda.synchronize()
 
         n = batch * h * w
         fwd_flops = 2.0 * n * cin * cout * 9
-        fwd_bytes = 4.0 * (n * (cin + 18 + 9 + cout) + 9 * cin * cout + cout)
-        bwd_bytes = 4.0 * (n * (cin + 18 + 9 + cout) + 9 * cin * cout
-                           + n * (cin + 18 + 9) + 9 * cin * cout + cout)
+        # each input read once, each output written once: x, offset,
+        # mask, W (+ bias) in, out; backward x, offset, mask, W, g in, dx,
+        # doffset, dmask, dW, dbias out
+        weights = elem * 9 * cin * cout
+        fwd_bytes = (elem * n * (cin + cout) + 4.0 * n * 27 + weights
+                     + 4.0 * cout)
+        bwd_bytes = (elem * n * (2 * cin + cout) + 4.0 * n * 27 * 2
+                     + 2 * weights + 4.0 * cout)
         t = {
-            "fwd_ms": time_ms(lambda: dcn_cuda.dcn_forward(x, off, m, wt,
-                                                           bias)),
+            "fwd_ms": time_ms(lambda: fwd(x, off, m, wt, bias)),
             "twin_fwd_ms": time_ms(lambda: dcn_cuda.dcn_v2_twin(
                 x, off, m, wt, bias)),
-            "conv_fwd_ms": time_ms(lambda: F.conv2d(x, wt, bias, padding=1)),
-            "bwd_ms": time_ms(lambda: dcn_cuda.dcn_backward(x, off, m, wt,
-                                                            g)),
+            "conv_fwd_ms": time_ms(lambda: F.conv2d(x, wt, bias.to(dt),
+                                                    padding=1)),
+            "bwd_ms": time_ms(lambda: bwd(x, off, m, wt, g)),
             "twin_bwd_ms": time_ms(lambda: dcn_cuda.dcn_backward_plain(
                 x, off, m, wt, g)),
             "conv_bwd_ms": time_ms(
@@ -255,15 +294,69 @@ def check_kernels(shapes, batch, device, label):
         fb, fk = bound_ms(fwd_bytes, fwd_flops)
         bb, bk = bound_ms(bwd_bytes, 2 * fwd_flops)
         records.append({
-            "path": label, "batch": batch, "cin": cin, "cout": cout, "h": h,
-            "w": w, "layers": layers,
+            "path": label, "dtype": dtype, "batch": batch, "cin": cin,
+            "cout": cout, "h": h, "w": w, "layers": layers,
             "max_abs_err": {k: v[0] for k, v in errs.items()},
             "max_rel_err": {k: v[1] for k, v in errs.items()},
             "fwd_bound_ms": fb, "fwd_bound_by": fk,
             "bwd_bound_ms": bb, "bwd_bound_by": bk, **t})
-        print_record(label, batch, cin, cout, h, w, layers, errs, t, fb, fk,
-                     bb, bk)
+        print_record(f"{pair} {dtype} {label}", batch, cin, cout, h, w,
+                     layers, errs, t, fb, fk, bb, bk)
         del x, off, m, wt, bias, g
+        torch.cuda.empty_cache()
+    return records
+
+
+def check_wide_kernel(shapes, batch, device, label, dtype="float32"):
+    """Phase 3 for the wide forward (both offsets clamped) in ``dtype``:
+    against ``dcn_v2_twin(..., clamp_dx=True)``, with dx scaled to std 16
+    so many samples pass the clamp. Its backward is the exact op's, not a
+    kernel. Returns per-shape records."""
+    import torch
+    import torch.nn.functional as F
+
+    from centernet_uda_torch.ops import dcn_cuda
+
+    dt = getattr(torch, dtype)
+    elem = torch.finfo(dt).bits // 8
+    records = []
+    for i, ((cin, cout, h, w), layers) in enumerate(sorted(shapes.items())):
+        x, off, m, wt, bias, _ = make_operands(200 + i, batch, cin, cout, h,
+                                               w, device)
+        off[:, 1::2] *= 8.0
+        x = x.to(dt)
+        out = dcn_cuda.dcn_wide_forward(x, off, m, wt, bias)
+        ref = dcn_cuda.dcn_v2_twin(x, off, m, wt, bias, clamp_dx=True)
+        if out.dtype != dt:
+            raise AssertionError(f"wide forward gave {out.dtype}")
+        errs = {"out": compare("out", out, ref)}
+        del out, ref
+        torch.cuda.synchronize()
+        n = batch * h * w
+        flops = 2.0 * n * cin * cout * 9
+        nbytes = (elem * n * (cin + cout) + 4.0 * n * 27 + 4.0 * 9 * cin
+                  * cout + 4.0 * cout)
+        t = {
+            "fwd_ms": time_ms(lambda: dcn_cuda.dcn_wide_forward(
+                x, off, m, wt, bias)),
+            "twin_fwd_ms": time_ms(lambda: dcn_cuda.dcn_v2_twin(
+                x, off, m, wt, bias, clamp_dx=True)),
+            "conv_fwd_ms": time_ms(lambda: F.conv2d(
+                x, wt.to(dt), bias.to(dt), padding=1)),
+        }
+        fb, fk = bound_ms(nbytes, flops)
+        records.append({
+            "path": label, "dtype": dtype, "batch": batch, "cin": cin,
+            "cout": cout, "h": h, "w": w, "layers": layers,
+            "max_abs_err": {k: v[0] for k, v in errs.items()},
+            "max_rel_err": {k: v[1] for k, v in errs.items()},
+            "fwd_bound_ms": fb, "fwd_bound_by": fk, **t})
+        print(f"wide {dtype} {label} B={batch} {cin}->{cout} @{h}x{w} "
+              f"(x{layers}): err {errs['out'][0]:.3g}/{errs['out'][1]:.2g} "
+              f"| fwd {t['fwd_ms']:.3f} ms (twin {t['twin_fwd_ms']:.3f}, "
+              f"conv {t['conv_fwd_ms']:.3f}, bound {fb:.4f} {fk})",
+              flush=True)
+        del x, off, m, wt, bias
         torch.cuda.empty_cache()
     return records
 
@@ -410,10 +503,18 @@ def check_heads_against_exact(trainer, device, bf16=False):
     return {k: v[0] for k, v in errs.items()}
 
 
-def train_and_eval(trainer, cfg, data, eval_data, n_dcn, fwd, bwd):
+def expect(**counts):
+    """The launch counters with ``counts`` and every other kernel at 0."""
+    from centernet_uda_torch.ops import dcn_cuda
+
+    return {name: counts.get(name, 0) for name in dcn_cuda.LAUNCHES}
+
+
+def train_and_eval(trainer, cfg, data, eval_data, per_step, per_eval):
     """Phases 4 and 5 for one trainer: TRAIN_STEPS train steps, then one
-    eval step with decode. ``fwd``/``bwd`` name the kernels this precision
-    must launch (16 a step); every other kernel must not launch."""
+    eval step with decode. ``per_step``/``per_eval`` are the launches each
+    kernel must make in one train step / the eval step; every other kernel
+    must not launch."""
     import numpy as np
     import torch
 
@@ -437,8 +538,7 @@ def train_and_eval(trainer, cfg, data, eval_data, n_dcn, fwd, bwd):
         print(f"step {i}: {step_ms[-1]:.1f} ms " + " ".join(
             f"{k}={v:.5f}" for k, v in vals.items()), flush=True)
     train_launches = dict(dcn_cuda.LAUNCHES)
-    want = {k: 0 for k in dcn_cuda.LAUNCHES}
-    want[fwd] = want[bwd] = n_dcn * TRAIN_STEPS
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     if train_launches != want:
         raise AssertionError(f"launches {train_launches} != {want}")
     peak = torch.cuda.max_memory_allocated()
@@ -454,10 +554,9 @@ def train_and_eval(trainer, cfg, data, eval_data, n_dcn, fwd, bwd):
     torch.cuda.synchronize()
     eval_ms = (time.perf_counter() - t0) * 1e3
     eval_launches = dict(dcn_cuda.LAUNCHES)
-    want = {k: 0 for k in dcn_cuda.LAUNCHES}
-    want[fwd] = n_dcn
-    if eval_launches != want:
-        raise AssertionError(f"eval launches {eval_launches} != {want}")
+    if eval_launches != per_eval:
+        raise AssertionError(f"eval launches {eval_launches} != "
+                             f"{per_eval}")
     vals = {k: float(v) for k, v in outputs["stats"].items()}
     boxes = dets["pred_boxes"]
     max_det = int(cfg.max_detections)
@@ -468,7 +567,8 @@ def train_and_eval(trainer, cfg, data, eval_data, n_dcn, fwd, bwd):
         raise AssertionError("non-finite eval outputs")
     if trainer.maybe_degrade_dcn(vals["dcn_max_abs_dy"]):
         raise AssertionError("the DCN offsets reached the clamp in eval")
-    print(f"eval {EVAL_SIZE}px B={cfg.batch_size}: {eval_ms:.1f} ms, "
+    print(f"eval {eval_data['input'].shape[-1]}px B={cfg.batch_size}: "
+          f"{eval_ms:.1f} ms, "
           f"pred_boxes {boxes.shape}, launches {eval_launches}, " + " ".join(
               f"{k}={v:.5f}" for k, v in vals.items()), flush=True)
     return train, {"ms": eval_ms, "stats": vals, "launches": eval_launches}
@@ -506,19 +606,23 @@ def profile_train_steps(trainer, data, steps=2, top=12):
             "top_kernels_ms_per_step": {k: v / steps for k, v in rows}}
 
 
-def kernel_line(name, src, replaces, outs, records, label, launches):
-    """One entry of the ``kernels`` JSON line: sums over one train step's
-    16 layers at the 512 px path (times, bound and yardstick weighted by
-    the layer count of each shape); the error is the largest over every
-    shape of both paths."""
+def kernel_line(name, src, replaces, outs, records, label, launches,
+                dtype=None):
+    """One entry of the ``kernels`` JSON line: times, bound and yardstick
+    summed over the layers of one step of the ``label`` path (weighted by
+    the layer count of each shape; ``dtype`` picks one precision's
+    records); the error is the largest over every record of the kernel."""
     pre = "bwd" if name.endswith("bwd") else "fwd"
-    train_recs = [r for r in records if r["path"] == label]
+    recs = [r for r in records if r["path"] == label
+            and (dtype is None or r.get("dtype") == dtype)]
+    if not recs:
+        raise AssertionError(f"{name}: no record of the {label} path")
 
     def per_step(key):
-        return sum(r[key] * r["layers"] for r in train_recs)
+        return sum(r[key] * r["layers"] for r in recs)
 
     by_kind = {}
-    for r in train_recs:
+    for r in recs:
         kind = r[f"{pre}_bound_by"]
         by_kind[kind] = by_kind.get(kind, 0.0) + (
             r[f"{pre}_bound_ms"] * r["layers"])
@@ -533,6 +637,59 @@ def kernel_line(name, src, replaces, outs, records, label, launches):
         "bound_by": max(by_kind, key=by_kind.get),
         "library_ms": per_step(f"conv_{pre}_ms"),
     }
+
+
+def forced_lanes_eval(cfg, device):
+    """Phase 6: DLA-34 (float32) evaluates WIDE_SIZE px under
+    ``set_kernel_version("lanes")``: the layers wider than 256 px launch
+    the wide forward, the rest the f32 forward, nothing else. Restores
+    "auto". Returns the phase's record."""
+    import numpy as np
+    import torch
+
+    from centernet_uda_torch.ops import dcn, dcn_cuda
+    from centernet_uda_torch.train import build_trainer
+
+    trainer = build_trainer(cfg, device="cuda")
+    trainer.init_done()
+    net = trainer.backend.module
+    dcn.set_kernel_version("lanes")
+    try:
+        shapes = dcn_shapes(net, WIDE_SIZE, device)
+        n_wide = sum(n for k, n in shapes.items()
+                     if k[3] > dcn.LANES_NATIVE_MAX_W)
+        n_lanes = sum(shapes.values()) - n_wide
+        if not n_wide:
+            raise AssertionError(f"no DCN layer wider than "
+                                 f"{dcn.LANES_NATIVE_MAX_W} at {WIDE_SIZE}")
+        data = synthetic_batch(np.random.RandomState(5), WIDE_BATCH,
+                               WIDE_SIZE, int(cfg.model.backend.params
+                                              .num_classes),
+                               int(cfg.max_detections))
+        torch.cuda.synchronize()
+        dcn_cuda.reset_launches()
+        t0 = time.perf_counter()
+        outputs = trainer.step(data, is_training=False)
+        dets = trainer.get_detections(outputs, data)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(dcn_cuda.LAUNCHES)
+    finally:
+        dcn.set_kernel_version("auto")
+    want = expect(dcn_wide_fwd=n_wide, dcn_fwd=n_lanes)
+    if launches != want:
+        raise AssertionError(f"forced-lanes launches {launches} != {want}")
+    vals = {k: float(v) for k, v in outputs["stats"].items()}
+    boxes = dets["pred_boxes"]
+    if boxes.shape != (WIDE_BATCH, int(cfg.max_detections), 4) or not (
+            np.isfinite(boxes).all()
+            and all(math.isfinite(v) for v in vals.values())):
+        raise AssertionError(f"forced-lanes eval: boxes {boxes.shape}, "
+                             f"stats {vals}")
+    print(f"forced lanes eval {WIDE_SIZE}px B={WIDE_BATCH}: {ms:.1f} ms, "
+          f"DCN shapes {shapes}, launches {launches}", flush=True)
+    return {"ms": ms, "stats": vals, "launches": launches,
+            "shapes": {str(k): n for k, n in shapes.items()}}
 
 
 def main(argv=None) -> int:
@@ -598,6 +755,43 @@ def main(argv=None) -> int:
           f"{eval_shapes}", flush=True)
     train_label = f"train{TRAIN_SIZE}"
 
+    # the MobileNetV2 path's DCN shapes, and the widest DLA-34 layers at
+    # WIDE_SIZE (their route under "auto" is select; phase 6 forces lanes)
+    from centernet_uda_torch.ops.dcn import LANES_NATIVE_MAX_W, kernel_route
+
+    cfg_m = compose(["experiment=baseline_mobilenet_v2",
+                     "model.backend.params.use_dcn=true"],
+                    config_dir=str(ROOT / "configs"))
+    if int(cfg_m.batch_size) != MNV2_TRAIN_BATCH:
+        raise RuntimeError(f"expected batch {MNV2_TRAIN_BATCH}")
+    mnv2 = build_trainer(cfg_m, device="cuda").backend.module
+    m_train = dcn_shapes(mnv2, TRAIN_SIZE, device)
+    m_eval = dcn_shapes(mnv2, EVAL_SIZE, device)
+    del mnv2
+
+    def routes(shapes, dtype):
+        return {k: kernel_route((1, k[0], k[2], k[3]), dtype,
+                                (k[1], k[0], 3, 3)) for k in shapes}
+
+    for shapes in (m_train, m_eval):
+        want_routes = {k: "select" if k[0] == 1280 else "lanes"
+                       for k in shapes}
+        if routes(shapes, torch.float32) != want_routes or sorted(
+                want_routes.values()) != ["lanes", "lanes", "select"]:
+            raise AssertionError(f"MobileNetV2 routes "
+                                 f"{routes(shapes, torch.float32)}")
+    sel_train = {k: n for k, n in m_train.items() if k[0] == 1280}
+    sel_eval = {k: n for k, n in m_eval.items() if k[0] == 1280}
+    wide_shapes = {k: n for k, n in dcn_shapes(net, WIDE_SIZE, device).items()
+                   if k[3] > LANES_NATIVE_MAX_W}
+    b300, c300, o300, h300, w300 = SHAPE_300
+    shape_300 = {(c300, o300, h300, w300): 1}
+    print(f"MobileNetV2 DCN shapes: train {m_train}, eval {m_eval}; "
+          f"DLA-34 at {WIDE_SIZE} px wider than {LANES_NATIVE_MAX_W}: "
+          f"{wide_shapes}", flush=True)
+    train_label = f"train{TRAIN_SIZE}"
+    m_label, wide_label = f"mnv2_train{TRAIN_SIZE}", f"lanes{WIDE_SIZE}"
+
     phase("kernels against their plain twin")
     records = check_kernels(train_shapes, TRAIN_BATCH, device, train_label)
     records += check_kernels(eval_shapes, EVAL_BATCH_KERNELS, device,
@@ -609,6 +803,23 @@ def main(argv=None) -> int:
     fused += check_fused_kernels(eval_shapes, EVAL_BATCH_KERNELS, device,
                                  f"eval{EVAL_SIZE}")
     report["fused_shapes"] = fused
+    phase("select kernels against their plain twin")
+    select = []
+    for dtype in ("float32", "bfloat16"):
+        select += check_kernels(sel_train, MNV2_TRAIN_BATCH, device, m_label,
+                                "select", dtype)
+        select += check_kernels(sel_eval, EVAL_BATCH_KERNELS, device,
+                                f"mnv2_eval{EVAL_SIZE}", "select", dtype)
+        select += check_kernels(shape_300, b300, device, "w300", "select",
+                                dtype)
+    report["select_shapes"] = select
+    phase("wide forward against its plain twin")
+    wide = []
+    for dtype in ("float32", "bfloat16"):
+        wide += check_wide_kernel(wide_shapes, WIDE_BATCH, device,
+                                  wide_label, dtype)
+        wide += check_wide_kernel(shape_300, b300, device, "w300", dtype)
+    report["wide_shapes"] = wide
 
     rng = np.random.RandomState(int(cfg.seed))
     num_classes = int(cfg.model.backend.params.num_classes)
@@ -622,7 +833,8 @@ def main(argv=None) -> int:
     report["heads_vs_exact_max_abs_err"] = check_heads_against_exact(
         trainer, device)
     report["train"], report["eval"] = train_and_eval(
-        trainer, cfg, data, eval_data, n_dcn, "dcn_fwd", "dcn_bwd")
+        trainer, cfg, data, eval_data, expect(dcn_fwd=n_dcn, dcn_bwd=n_dcn),
+        expect(dcn_fwd=n_dcn))
     if args.profile:
         report["profile"] = profile_train_steps(trainer, data)
     del trainer, net
@@ -636,15 +848,55 @@ def main(argv=None) -> int:
     report["bf16_heads_vs_exact_max_abs_err"] = check_heads_against_exact(
         trainer16, device, bf16=True)
     report["bf16_train"], report["bf16_eval"] = train_and_eval(
-        trainer16, cfg16, data, eval_data, n_dcn, "dcn_fused_fwd",
-        "dcn_fused_bwd")
+        trainer16, cfg16, data, eval_data,
+        expect(dcn_fused_fwd=n_dcn, dcn_fused_bwd=n_dcn),
+        expect(dcn_fused_fwd=n_dcn))
     if args.profile:
         report["bf16_profile"] = profile_train_steps(trainer16, data)
+    del trainer16, data, eval_data
+    torch.cuda.empty_cache()
+
+    m_num_classes = int(cfg_m.model.backend.params.num_classes)
+    m_data = synthetic_batch(rng, MNV2_TRAIN_BATCH, TRAIN_SIZE,
+                             m_num_classes, max_det)
+    m_eval_data = synthetic_batch(rng, MNV2_TRAIN_BATCH, EVAL_SIZE,
+                                  m_num_classes, max_det)
+    for precision, lanes_fwd, lanes_bwd in (
+            ("float32", "dcn_fwd", "dcn_bwd"),
+            ("bfloat16", "dcn_fused_fwd", "dcn_fused_bwd")):
+        phase(f"MobileNetV2 {precision} train and eval")
+        cfg_p = compose(["experiment=baseline_mobilenet_v2",
+                         "model.backend.params.use_dcn=true",
+                         f"precision={precision}"],
+                        config_dir=str(ROOT / "configs"))
+        trainer_m = build_trainer(cfg_p, device="cuda")
+        trainer_m.init_done()
+        key = "mnv2" if precision == "float32" else "mnv2_bf16"
+        report[f"{key}_heads_vs_exact_max_abs_err"] = (
+            check_heads_against_exact(trainer_m, device,
+                                      bf16=precision == "bfloat16"))
+        report[f"{key}_train"], report[f"{key}_eval"] = train_and_eval(
+            trainer_m, cfg_p, m_data, m_eval_data,
+            expect(dcn_sel_fwd=1, dcn_sel_bwd=1, **{lanes_fwd: 2,
+                                                    lanes_bwd: 2}),
+            expect(dcn_sel_fwd=1, **{lanes_fwd: 2}))
+        if args.profile:
+            report[f"{key}_profile"] = profile_train_steps(trainer_m, m_data)
+        del trainer_m
+        torch.cuda.empty_cache()
+    del m_data, m_eval_data
+
+    phase(f"forced lanes: DLA-34 float32 eval at {WIDE_SIZE} px")
+    cfg_w = compose(["experiment=baseline", f"batch_size={WIDE_BATCH}"],
+                    config_dir=str(ROOT / "configs"))
+    report["lanes_eval"] = forced_lanes_eval(cfg_w, device)
+
+    runs = [report[k]["launches"] for k in (
+        "train", "eval", "bf16_train", "bf16_eval", "mnv2_train",
+        "mnv2_eval", "mnv2_bf16_train", "mnv2_bf16_eval", "lanes_eval")]
 
     def launches(name):
-        pre = "bf16_" if "fused" in name else ""
-        return (report[f"{pre}train"]["launches"][name]
-                + report[f"{pre}eval"]["launches"][name])
+        return sum(run[name] for run in runs)
 
     csrc = "centernet_uda_torch/csrc"
     pallas = "centernet_uda_tpu/ops/dcn_pallas.py"
@@ -653,6 +905,9 @@ def main(argv=None) -> int:
     kernels = [
         kernel_line("dcn_fwd", f"{csrc}/dcn_fwd.cu", f"{pallas}:210",
                     ("out",), records, train_label, launches("dcn_fwd")),
+        kernel_line("dcn_wide_fwd", f"{csrc}/dcn_wide_fwd.cu",
+                    f"{pallas}:531", ("out",), wide, wide_label,
+                    launches("dcn_wide_fwd"), "float32"),
         kernel_line("dcn_bwd", f"{csrc}/dcn_bwd.cu", f"{pallas}:571",
                     f32_outs, records, train_label, launches("dcn_bwd")),
         kernel_line("dcn_fused_fwd", f"{csrc}/dcn_fused_fwd.cu",
@@ -661,7 +916,17 @@ def main(argv=None) -> int:
         kernel_line("dcn_fused_bwd", f"{csrc}/dcn_fused_bwd.cu",
                     f"{pallas}:1153", f16_outs, fused, train_label,
                     launches("dcn_fused_bwd")),
+        kernel_line("dcn_sel_fwd", f"{csrc}/dcn_sel_fwd.cu",
+                    f"{pallas}:1544", ("out",), select, m_label,
+                    launches("dcn_sel_fwd"), "float32"),
+        kernel_line("dcn_sel_bwd", f"{csrc}/dcn_sel_bwd.cu",
+                    f"{pallas}:1675", f32_outs, select, m_label,
+                    launches("dcn_sel_bwd"), "float32"),
     ]
+    missing = [k["name"] for k in kernels if k["launches"] <= 0]
+    if missing or len(kernels) != len(dcn_cuda.SOURCES):
+        raise AssertionError(f"kernels not launched on a main path: "
+                             f"{missing}")
     report["kernels"] = kernels
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

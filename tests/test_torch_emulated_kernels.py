@@ -2,7 +2,7 @@
 
 The kernels in ``centernet_uda_torch/csrc/`` run only on an H100, and the
 card-only tests (``tests/test_torch_gpu.py``) skip without one. This file
-compiles the same four sources with the host C++ compiler against
+compiles the same seven sources with the host C++ compiler against
 ``EMULATION_HEADER`` below (a CPU emulation of the CUDA subset they use: a
 block's threads as a pool of OS threads, ``__syncthreads`` as a barrier),
 loads them in place of the ``nvcc`` builds, and runs them through the
@@ -196,7 +196,7 @@ void launch(void (*kernel)(P...), dim3 grid, dim3 block, size_t,
 
 @pytest.fixture(scope="module")
 def emulated_libs(tmp_path_factory):
-    """{kernel name: path} of the four sources built for the CPU."""
+    """{kernel name: path} of the kernel sources built for the CPU."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a C++20 compiler")
@@ -291,3 +291,46 @@ def test_emulated_fused_kernels_match_twin(emulated, shape, zero_offsets):
         assert float(ref_stat) > PALLAS_MAX_SHIFT
     assert dcn_cuda.LAUNCHES["dcn_fused_fwd"] == 1
     assert dcn_cuda.LAUNCHES["dcn_fused_bwd"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 12, 12), (1, 40, 72, 5, 6)])
+def test_emulated_select_kernels_match_twin(emulated, shape, dtype):
+    """Rows 6 and 7: x, out, g, dx and dW in ``dtype``; W < 8 in the second
+    shape."""
+    x, off, m, wt, bias = make_inputs(3, *shape, "cpu")
+    x, wt = x.to(dtype), wt.to(dtype)
+    g = torch.randn(shape[0], shape[2], shape[3], shape[4],
+                    generator=torch.Generator().manual_seed(4)).to(dtype)
+    out = dcn_cuda._explicit_forward_launch("dcn_sel_fwd", x, off, m, wt,
+                                            bias, PALLAS_MAX_SHIFT, 0)
+    assert out.dtype == dtype
+    assert_close(out, dcn_cuda.dcn_v2_twin(x, off, m, wt, bias), "out")
+    got = dcn_cuda._sel_backward_launch(x, off, m, wt, g, PALLAS_MAX_SHIFT, 0)
+    want = dcn_cuda.dcn_backward_plain(x, off, m, wt, g)
+    assert got[0].dtype == got[3].dtype == dtype
+    for name, a, b in zip(("dx", "doff", "dmask", "dw"), got, want):
+        assert_close(a, b, name)
+    sat = off[:, 0::2].abs() >= PALLAS_MAX_SHIFT
+    assert float(got[1][:, 0::2][sat].abs().max()) == 0.0
+    assert dcn_cuda.LAUNCHES["dcn_sel_fwd"] == 1
+    assert dcn_cuda.LAUNCHES["dcn_sel_bwd"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_emulated_wide_kernel_matches_clamp_dx_twin(emulated, dtype):
+    """Row 2: dx clamped as dy is; the offsets put dx past the clamp at many
+    pixels, where the unclamped twin differs."""
+    x, off, m, wt, bias = make_inputs(5, 1, 8, 8, 6, 40, "cpu")
+    off[:, 1::2] *= 8.0
+    x = x.to(dtype)
+    out = dcn_cuda._explicit_forward_launch("dcn_wide_fwd", x, off, m, wt,
+                                            bias, PALLAS_MAX_SHIFT, 0)
+    assert out.dtype == dtype
+    want = dcn_cuda.dcn_v2_twin(x, off, m, wt, bias, clamp_dx=True)
+    assert_close(out, want, "out")
+    unclamped = dcn_cuda.dcn_v2_twin(x, off, m, wt, bias)
+    assert float((want.float() - unclamped.float()).abs().max()) > 0.5
+    assert dcn_cuda.LAUNCHES["dcn_wide_fwd"] == 1

@@ -46,6 +46,11 @@ def make_inputs(seed, b, cin, cout, h, w, device, off_std=2.0):
     return [torch.tensor(v, device=device) for v in (x, off, m, wt, bias)]
 
 
+def only(**counts):
+    """The launch counters with ``counts`` and every other kernel at 0."""
+    return {name: counts.get(name, 0) for name in dcn_cuda.SOURCES}
+
+
 def assert_close(got, want, name):
     got, want = got.double().cpu(), want.double().cpu()
     scale = max(1.0, float(want.abs().max()))
@@ -109,8 +114,7 @@ def test_autograd_function_counts_and_bias(cuda):
     dcn_cuda.reset_launches()
     out = dcn_cuda.dcn_v2_kernel(*leaves)
     out.square().sum().backward()
-    assert dcn_cuda.LAUNCHES == {"dcn_fwd": 1, "dcn_bwd": 1,
-                                 "dcn_fused_fwd": 0, "dcn_fused_bwd": 0}
+    assert dcn_cuda.LAUNCHES == only(dcn_fwd=1, dcn_bwd=1)
     assert_close(bias.grad, (2 * out.detach()).sum((0, 2, 3)), "dbias")
 
 
@@ -239,10 +243,85 @@ def test_fused_autograd_function_counts_and_bias(cuda):
     dcn_cuda.reset_launches()
     out, stat = dcn_cuda.dcn_v2_fused_kernel(*leaves)
     out.float().square().sum().backward()
-    assert dcn_cuda.LAUNCHES == {"dcn_fwd": 0, "dcn_bwd": 0,
-                                 "dcn_fused_fwd": 1, "dcn_fused_bwd": 1}
+    assert dcn_cuda.LAUNCHES == only(dcn_fused_fwd=1, dcn_fused_bwd=1)
     assert not stat.requires_grad
     assert x.grad.dtype == torch.bfloat16
     assert {t.grad.dtype for t in leaves[1:]} == {torch.float32}
     g_out = (2 * out.detach().float()).bfloat16().float()
     assert_close(bias.grad, g_out.sum((0, 2, 3)), "dbias")
+
+
+# ---------------------------------------------------------------------------
+# the "select" pair (x and out in f32 or bf16) and the wide forward, against
+# dcn_v2_twin
+# ---------------------------------------------------------------------------
+
+SEL_SHAPES = [
+    # (b, cin, cout, h, w): Cin > 512 at MobileNetV2's 16 x 16, W < 8,
+    # W > 256
+    (2, 1280, 256, 16, 16),
+    (2, 40, 72, 13, 5),
+    (1, 16, 24, 6, 300),
+]
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SEL_SHAPES)
+def test_select_pair_matches_twin(cuda, shape, dtype):
+    x, off, m, wt, bias = make_inputs(5, *shape, cuda)
+    x, wt = x.to(dtype), wt.to(dtype)
+    g = torch.randn(shape[0], shape[2], shape[3], shape[4], device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(2)).to(dtype)
+    dcn_cuda.reset_launches()
+    out = dcn_cuda.dcn_sel_forward(x, off, m, wt, bias)
+    got = dcn_cuda.dcn_sel_backward(x, off, m, wt, g)
+    torch.cuda.synchronize()
+    assert dcn_cuda.LAUNCHES == only(dcn_sel_fwd=1, dcn_sel_bwd=1)
+    assert out.dtype == got[0].dtype == dtype and got[3].dtype == dtype
+    assert_close(out, dcn_v2_twin(x, off, m, wt, bias), "out")
+    want = dcn_cuda.dcn_backward_plain(x, off, m, wt, g)
+    for name, a, b in zip(("dx", "doff", "dmask", "dw"), got, want):
+        assert_close(a, b, name)
+    sat = off[:, 0::2].abs() >= PALLAS_MAX_SHIFT
+    assert float(got[1][:, 0::2][sat].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 16, 24, 8, 300), (1, 40, 72, 13, 21)])
+def test_wide_forward_matches_clamp_dx_twin(cuda, shape, dtype):
+    x, off, m, wt, bias = make_inputs(6, *shape, cuda)
+    off[:, 1::2] *= 8.0  # dx past the clamp at many pixels
+    x = x.to(dtype)
+    dcn_cuda.reset_launches()
+    out = dcn_cuda.dcn_wide_forward(x, off, m, wt, bias)
+    torch.cuda.synchronize()
+    assert dcn_cuda.LAUNCHES == only(dcn_wide_fwd=1)
+    assert out.dtype == dtype
+    assert_close(out, dcn_v2_twin(x, off, m, wt, bias, clamp_dx=True),
+                 "out")
+
+
+def test_select_and_wide_autograd_functions(cuda):
+    """The select route differentiates through its kernel pair, with a bf16
+    weight's gradient in bf16; the wide route runs its forward kernel and
+    the exact op's backward (no kernel)."""
+    x, off, m, wt, bias = make_inputs(7, 2, 24, 16, 6, 10, cuda)
+    leaves = [x.bfloat16().requires_grad_(True), off.requires_grad_(True),
+              m.requires_grad_(True), wt.bfloat16().requires_grad_(True),
+              bias.requires_grad_(True)]
+    dcn_cuda.reset_launches()
+    out = dcn_cuda.dcn_v2_select_kernel(*leaves)
+    out.float().square().sum().backward()
+    assert dcn_cuda.LAUNCHES == only(dcn_sel_fwd=1, dcn_sel_bwd=1)
+    assert leaves[0].grad.dtype == leaves[3].grad.dtype == torch.bfloat16
+    assert bias.grad.dtype == torch.float32
+    leaves = [t.detach().float().requires_grad_(True) for t in leaves]
+    dcn_cuda.reset_launches()
+    out = dcn_cuda.dcn_v2_wide_kernel(*leaves)
+    out.square().sum().backward()
+    assert dcn_cuda.LAUNCHES == only(dcn_wide_fwd=1)
+    want = dcn_cuda.dcn_wide_backward(*[t.detach() for t in leaves],
+                                      2 * out.detach())
+    for t, w in zip(leaves, want):
+        assert_close(t.grad, w, "wide grad")

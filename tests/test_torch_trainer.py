@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from centernet_uda_torch.config import compose
-from centernet_uda_torch.ops.dcn import DCN, PALLAS_MAX_SHIFT
+from centernet_uda_torch.ops.dcn import DCN, PALLAS_MAX_SHIFT, kernel_route
 from centernet_uda_torch.ops.gaussian import encode_targets
 from centernet_uda_torch.train import build_trainer
 from centernet_uda_torch.uda.base import Model
@@ -73,8 +73,10 @@ def test_unported_settings_raise(override, match):
 
 def test_bfloat16_trainer_builds_and_steps():
     """``precision=bfloat16``: every layer computes in bf16 (each DCN on the
-    fused route), the parameters and their gradients stay f32, the heads
-    come out f32, and TF32 stays off."""
+    route the JAX package takes: fused at 8 <= W <= 256, select below 8
+    columns, which this 64 px input reaches at W = 4 and 2; bf16 out on
+    both), the parameters and their gradients stay f32, the heads come out
+    f32, and TF32 stays off."""
     trainer = build_trainer(compose(["experiment=baseline",
                                      "precision=bfloat16", "dcn_impl=cuda"]
                                     + NARROW), device="cpu")
@@ -84,7 +86,22 @@ def test_bfloat16_trainer_builds_and_steps():
     assert {m.compute_dtype for m in dcns} == {torch.bfloat16}
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
+    routes = {}
+
+    def record(mod, args, out):
+        x = args[0]
+        routes[tuple(x.shape[2:])] = (kernel_route(
+            tuple(x.shape), torch.bfloat16, tuple(mod.weight.shape)),
+            out.dtype)
+
+    hooks = [m.register_forward_hook(record) for m in dcns]
     stats = trainer.step(batch(), is_training=True)["stats"]
+    for h in hooks:
+        h.remove()
+    assert routes == {(16, 16): ("fused", torch.bfloat16),
+                      (8, 8): ("fused", torch.bfloat16),
+                      (4, 4): ("select", torch.bfloat16),
+                      (2, 2): ("select", torch.bfloat16)}
     assert all(np.isfinite(float(v)) for v in stats.values())
     assert float(stats["dcn_max_abs_dy"]) == 0.0  # zero-initialised offsets
     assert {p.dtype for p in net.parameters()} == {torch.float32}
