@@ -5,7 +5,7 @@
 //   x       (B, H, W, Cin)  bf16, channels-last, so each bilinear corner is
 //                           one contiguous Cin vector
 // and the sampling geometry of tap t at each output pixel, read from one of
-// two layouts (the `Geom` parameter of the kernels in dcn_kernels.cuh):
+// two layouts (the `Geom` parameter of `sample_at`):
 //   OffsetMask  offset (B, 18, H, W) f32, channel 2t = dy of tap t, 2t+1 =
 //               dx, and mask (B, 9, H, W) f32, post-sigmoid;
 //   OffsetConv  om (B, 27, H, W) f32, the fused layer's offset-conv output:
@@ -79,11 +79,10 @@ struct OffsetMask {
 };
 
 // The offset-conv output om (the bfloat16 layer, offsets fused into the
-// layer). The backward writes dz = d(loss)/d(om): the dy gradient gated by
-// the clamp, the dx gradient, and the mask gradient times sigmoid'.
+// layer), as the fused backward's om scratch holds it. Its kernels write
+// dz = d(loss)/d(om) themselves (dcn_fused_bwd.cu).
 struct OffsetConv {
   const float* om;
-  float* dz;
 
   __device__ __forceinline__ void read(int b, int t, size_t plane, size_t pix,
                                        float& dy, float& dx,
@@ -92,16 +91,6 @@ struct OffsetConv {
     dy = o[(size_t)(2 * t) * plane];
     dx = o[(size_t)(2 * t + 1) * plane];
     m = 1.f / (1.f + expf(-o[(size_t)(2 * kTaps + t) * plane]));
-  }
-
-  __device__ __forceinline__ void write_grads(int b, int t, size_t plane,
-                                              size_t pix, bool dy_live,
-                                              float m, float gy, float gx,
-                                              float dm) const {
-    float* o = dz + (size_t)b * kOm * plane + pix;
-    o[(size_t)(2 * t) * plane] = dy_live ? m * gy : 0.f;
-    o[(size_t)(2 * t + 1) * plane] = m * gx;
-    o[(size_t)(2 * kTaps + t) * plane] = dm * m * (1.f - m);
   }
 };
 
@@ -152,21 +141,30 @@ __device__ __forceinline__ Sample sample_at(const Geom& geom, int b, int t,
   return s;
 }
 
-// Rejects a launch the device cannot run: too many threads for the compiled
-// kernel, or more static shared memory than one block may hold.
+// Rejects a launch the device cannot run: more than `threads` threads for
+// the compiled kernel, more static shared memory than one block may hold,
+// or, with `dyn_smem` bytes of dynamic shared memory, more static plus
+// dynamic than the opt-in limit of one block (cudaFuncSetAttribute raises
+// a kernel's limit up to it).
 template <typename Kernel>
-__host__ cudaError_t check_launch(Kernel kernel) {
+__host__ cudaError_t check_launch(Kernel kernel, int threads = kThreads,
+                                  size_t dyn_smem = 0) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
-  int dev = 0, smem_max = 0;
+  int dev = 0, smem_max = 0, smem_optin = 0;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlock,
                                dev);
   if (err != cudaSuccess) return err;
-  if (attr.maxThreadsPerBlock < kThreads) return cudaErrorInvalidConfiguration;
+  err = cudaDeviceGetAttribute(&smem_optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (attr.maxThreadsPerBlock < threads) return cudaErrorInvalidConfiguration;
   if (attr.sharedSizeBytes > (size_t)smem_max)
+    return cudaErrorInvalidConfiguration;
+  if (attr.sharedSizeBytes + dyn_smem > (size_t)smem_optin)
     return cudaErrorInvalidConfiguration;
   return cudaSuccess;
 }

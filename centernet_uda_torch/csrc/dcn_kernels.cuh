@@ -1,11 +1,11 @@
-// Kernel bodies shared by the DCN sources (dcn_fwd.cu, dcn_bwd.cu,
-// dcn_fused_fwd.cu, dcn_fused_bwd.cu, dcn_sel_fwd.cu, dcn_sel_bwd.cu,
-// dcn_wide_fwd.cu). The sampling kernels are templates over the geometry
-// layout (`OffsetMask` for explicit offsets and mask, `OffsetConv` for the
-// fused bfloat16 layer; dcn_common.cuh) and over the types of g and of the
-// output; the forward also over `kClampDx`, the wide forward's horizontal
-// clamp. Each source notes what bounds its kernels and why they are built
-// this way.
+// Kernel bodies shared by the DCN sources of the explicit-offset layer
+// (dcn_fwd.cu, dcn_bwd.cu, dcn_sel_fwd.cu, dcn_sel_bwd.cu, dcn_wide_fwd.cu;
+// the fused bfloat16 layer has its own, in dcn_fused.cuh and its two
+// sources). The sampling kernels are templates over the geometry layout
+// (`OffsetMask`, dcn_common.cuh) and over the types of g and of the output;
+// the forward also over `kClampDx`, the wide forward's horizontal clamp.
+// Each source notes what bounds its kernels and why they are built this
+// way.
 //
 // dcn_fwd_kernel: one block per (image, tile of 64 output pixels, tile of
 //   64 output channels), looping over the 9 taps and over Cin in chunks of
@@ -30,11 +30,6 @@
 //   tile of 64, Cout tile of 64, slice of pixels) samples its columns into
 //   shared memory (rounded to bf16), contracts them with bf16 g by FMAs,
 //   and adds its f32 partial into dW with atomicAdd.
-// dcn_om_kernel: the fused layer's 3x3 offset conv, om = conv(x, W_om) +
-//   b_om, bf16 operands with f32 accumulation, f32 out (not rounded); it
-//   also folds max |dy| over its pixels into one f32 scalar by atomicMax on
-//   the bit pattern (non-negative floats order as unsigned ints; a NaN
-//   orders above every float, so it shows).
 //
 // dx and dW are sums of atomics whose order changes from run to run; they
 // agree with the plain versions to f32 rounding of the summation order.
@@ -52,8 +47,6 @@ constexpr int kCoK = 32;  // data kernel: output channels per reduction step
 constexpr int kWc = 64;   // weight kernels: input channels per block
 constexpr int kWo = 64;   // weight kernel: output channels per block
 constexpr int kKp = 32;   // weight kernels: pixels per reduction step
-constexpr int kOmCk = 32;      // offset conv: input channels per chunk
-constexpr int kOmPerThread = 7;  // offset conv: outputs per thread (4 x 7 >= 27)
 
 // The last template parameter of the sampling kernels only names an
 // instantiation: dcn_sel_fwd.cu and dcn_sel_bwd.cu pass `Select`, so a
@@ -429,92 +422,6 @@ __global__ void __launch_bounds__(kThreads)
       if (co < Cout)
         atomicAdd(dw + ((size_t)t * Cin + c) * Cout + co, acc[i][j]);
     }
-  }
-}
-
-// One block per (image, tile of 64 pixels). A thread owns one pixel and 7
-// of the 27 outputs; a warp's threads share their outputs, so the weight
-// reads are broadcasts.
-__global__ void __launch_bounds__(kThreads)
-    dcn_om_kernel(const __nv_bfloat16* __restrict__ x,
-                  const __nv_bfloat16* __restrict__ wom,  // (9, Cin, 27)
-                  const float* __restrict__ bom,          // (27)
-                  float* __restrict__ om,                 // (B, 27, H, W)
-                  unsigned int* __restrict__ stat,  // max |dy| bits, or null
-                  int H, int W, int Cin) {
-  __shared__ float s_x[kOmCk][kPix];  // x at the tap's neighbour, [chan][pix]
-  __shared__ float s_w[kOmCk][kOm];   // W_om[t] chunk, [chan][output]
-
-  const int tid = threadIdx.x;
-  const int pp = tid & (kPix - 1);
-  const int o0 = (tid / kPix) * kOmPerThread;
-  const int b = blockIdx.y;
-  const int p0 = blockIdx.x * kPix;
-  const int HW = H * W;
-  const __nv_bfloat16* xb = x + (size_t)b * HW * Cin;
-
-  float acc[kOmPerThread];
-#pragma unroll
-  for (int j = 0; j < kOmPerThread; ++j) acc[j] = 0.f;
-
-  for (int t = 0; t < kTaps; ++t) {
-    const int dy = t / 3 - 1;
-    const int dx = t % 3 - 1;
-    for (int c0 = 0; c0 < Cin; c0 += kOmCk) {
-      __syncthreads();  // the last chunk's FMAs are done with s_x/s_w
-      {
-        const int cc = tid & (kOmCk - 1);
-        const int c = c0 + cc;
-        for (int q = tid / kOmCk; q < kPix; q += kThreads / kOmCk) {
-          const int p = p0 + q;
-          float v = 0.f;
-          if (p < HW && c < Cin) {
-            const int yy = p / W + dy;
-            const int xx = p % W + dx;
-            if (yy >= 0 && yy < H && xx >= 0 && xx < W)
-              v = bf16_load(xb + ((size_t)yy * W + xx) * Cin + c);
-          }
-          s_x[cc][q] = v;
-        }
-      }
-      for (int e = tid; e < kOmCk * kOm; e += kThreads) {
-        const int cc = e / kOm;
-        const int o = e % kOm;
-        s_w[cc][o] = c0 + cc < Cin
-                         ? bf16_load(wom + ((size_t)t * Cin + c0 + cc) * kOm + o)
-                         : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int cc = 0; cc < kOmCk; ++cc) {
-        const float a = s_x[cc][pp];
-#pragma unroll
-        for (int j = 0; j < kOmPerThread; ++j)
-          if (o0 + j < kOm) acc[j] = fmaf(a, s_w[cc][o0 + j], acc[j]);
-      }
-    }
-  }
-
-  const int p = p0 + pp;
-  unsigned int dmax = 0u;  // bits of a non-negative float
-#pragma unroll
-  for (int j = 0; j < kOmPerThread; ++j) {
-    const int o = o0 + j;
-    if (o >= kOm || p >= HW) continue;
-    const float v = acc[j] + bom[o];
-    om[((size_t)b * kOm + o) * HW + p] = v;
-    if (o < 2 * kTaps && (o & 1) == 0) {
-      const unsigned int bits = __float_as_uint(fabsf(v));
-      dmax = bits > dmax ? bits : dmax;
-    }
-  }
-  if (stat != nullptr) {
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) {
-      const unsigned int other = __shfl_xor_sync(0xffffffffu, dmax, s);
-      dmax = other > dmax ? other : dmax;
-    }
-    if ((tid & 31) == 0) atomicMax(stat, dmax);
   }
 }
 

@@ -1,7 +1,9 @@
 """Hand-written Hopper (sm_90a) kernels of the DCNv2 layer, and their build.
 
-Four kernel sources, CUDA C++ in ``centernet_uda_torch/csrc/`` (bodies shared
-through ``dcn_kernels.cuh``):
+Seven kernel sources, CUDA C++ in ``centernet_uda_torch/csrc/`` (the
+explicit-offset bodies shared through ``dcn_kernels.cuh``, the fused
+layer's through ``dcn_fused.cuh`` on the ``mma.sync`` primitives of
+``dcn_mma.cuh``):
 
 - ``dcn_fwd`` (``csrc/dcn_fwd.cu``), the float32 layer's forward, replaces
   the TPU kernel ``_dcn_kernel`` (``centernet_uda_tpu/ops/dcn_pallas.py``,
@@ -9,11 +11,12 @@ through ``dcn_kernels.cuh``):
 - ``dcn_bwd`` (``csrc/dcn_bwd.cu``, two launches: sampling gradients + dx,
   then dW) replaces ``_dcn_bwd_params_kernel`` (same file, via
   ``_bwd_params_call`` / ``dcn_v2_pallas_bwd_lanes``).
-- ``dcn_fused_fwd`` (``csrc/dcn_fused_fwd.cu``, two launches: the offset
-  conv, then sampling and contraction), the bfloat16 layer's forward with
-  its offset conv inside, replaces ``_dcn_fused_kernel`` (via
-  ``dcn_v2_pallas_lanes_fused``).
-- ``dcn_fused_bwd`` (``csrc/dcn_fused_bwd.cu``, five launches) replaces
+- ``dcn_fused_fwd`` (``csrc/dcn_fused_fwd.cu``, one launch: the offset
+  conv, sampling and contraction of a pixel tile, all on the tensor cores),
+  the bfloat16 layer's forward with its offset conv inside, replaces
+  ``_dcn_fused_kernel`` (via ``dcn_v2_pallas_lanes_fused``).
+- ``dcn_fused_bwd`` (``csrc/dcn_fused_bwd.cu``, four launches: om
+  recompute, sampling data, dW with dW_om and db_om, dx from dz) replaces
   ``_dcn_fused_bwd_kernel`` (via ``dcn_v2_pallas_bwd_lanes_fused``).
 - ``dcn_sel_fwd`` (``csrc/dcn_sel_fwd.cu``), the forward at the "select"
   shapes (Cin > 512, W > 256, W < 8), x and out in float32 or bfloat16,
@@ -67,7 +70,8 @@ SOURCES = {"dcn_fwd": "dcn_fwd.cu", "dcn_bwd": "dcn_bwd.cu",
            "dcn_fused_bwd": "dcn_fused_bwd.cu",
            "dcn_sel_fwd": "dcn_sel_fwd.cu", "dcn_sel_bwd": "dcn_sel_bwd.cu",
            "dcn_wide_fwd": "dcn_wide_fwd.cu"}
-_HEADERS = ("dcn_common.cuh", "dcn_kernels.cuh")
+_HEADERS = ("dcn_common.cuh", "dcn_kernels.cuh", "dcn_mma.cuh",
+            "dcn_fused.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -79,6 +83,9 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 # blocks are in flight across the 132 SMs
 _DW_TARGET_BLOCKS = 2048
 _DW_PIX_STEP = 32  # pixels per reduction step of the weight kernel
+# the fused weight kernel's blocks cover all of Cout (up to 256), so fewer
+# of them, about four per SM, keep its atomics few
+_FUSED_DW_TARGET_BLOCKS = 528
 
 
 def reset_launches() -> None:
@@ -149,8 +156,8 @@ def _lib(name: str) -> ctypes.CDLL:
     fn.argtypes = {
         "dcn_fwd": [vp] * 6 + [i32] * 5 + [f32, vp],
         "dcn_bwd": [vp] * 9 + [i32] * 5 + [f32, i32, vp],
-        "dcn_fused_fwd": [vp] * 8 + [i32] * 5 + [f32, vp],
-        "dcn_fused_bwd": [vp] * 11 + [i32] * 5 + [f32, i32, i32, vp],
+        "dcn_fused_fwd": [vp] * 7 + [i32] * 5 + [f32, vp],
+        "dcn_fused_bwd": [vp] * 11 + [i32] * 5 + [f32, i32, vp],
         "dcn_sel_fwd": [vp] * 6 + [i32] * 5 + [f32, i32, vp],
         "dcn_sel_bwd": [vp] * 9 + [i32] * 5 + [f32, i32, i32, vp],
         "dcn_wide_fwd": [vp] * 6 + [i32] * 5 + [f32, i32, vp],
@@ -367,10 +374,44 @@ def _check_fused(x, om_weight, om_bias, weight, bias=None, g=None
     return b, cin, h, w, cout
 
 
-def _stage_om_weight(om_weight: torch.Tensor) -> torch.Tensor:
-    """(27, Cin, 3, 3) f32 -> (9, Cin, 27) bf16, tap-major."""
-    return (om_weight.permute(2, 3, 1, 0).reshape(9, -1, 27)
-            .to(torch.bfloat16).contiguous())
+def _pad8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _stage_x_padded(x: torch.Tensor) -> torch.Tensor:
+    """(B, Cin, H, W) -> channels-last bf16 (B, H, W, Cp), Cp = Cin rounded
+    up to a multiple of 8 with zero channels, in one pass."""
+    b, cin, h, w = x.shape
+    cp = _pad8(cin)
+    if cp == cin:
+        return _stage_x(x)
+    xs = torch.zeros((b, h, w, cp), dtype=torch.bfloat16, device=x.device)
+    xs[..., :cin].copy_(x.permute(0, 2, 3, 1))
+    return xs
+
+
+def _stage_fused_weights(om_weight, weight, cp: int):
+    """The fused kernels' weights, tap-major bf16 with zero pads: the offset
+    conv's (27, Cin, 3, 3) -> (9, Cp, 32), the layer's (Cout, Cin, 3, 3) ->
+    (9, Cp, Cout rounded up to 16)."""
+    cout, cin = weight.shape[:2]
+    staged = []
+    for wgt, width in ((om_weight, 32), (weight, -(-cout // 16) * 16)):
+        out = torch.zeros((9, cp, width), dtype=torch.bfloat16,
+                          device=weight.device)
+        n = wgt.shape[0]
+        out[:, :cin, :n].copy_(wgt.permute(2, 3, 1, 0).reshape(9, cin, n))
+        staged.append(out)
+    return staged
+
+
+def _fused_dw_pixels_per_block(n_pix: int, cp: int, cout: int) -> int:
+    """Pixels per block of the fused weight kernel's split-K, a multiple
+    of its 64-pixel step."""
+    tiles = 9 * (-(-cp // 64)) * (-(-cout // 256))
+    splits = max(1, -(-_FUSED_DW_TARGET_BLOCKS // tiles))
+    per = -(-n_pix // splits)
+    return max(64, -(-per // 64) * 64)
 
 
 def dcn_fused_forward(x, om_weight, om_bias, weight, bias,
@@ -395,17 +436,16 @@ def _fused_forward_launch(x, om_weight, om_bias, weight, bias, max_shift,
     b, cin, h, w = x.shape
     cout = weight.shape[0]
     dev = x.device
-    xs = _stage_x(x)
-    wom = _stage_om_weight(om_weight)
-    wt = _stage_weight(weight)
+    xs = _stage_x_padded(x)
+    cp = xs.shape[-1]
+    wom, wt = _stage_fused_weights(om_weight, weight, cp)
     om_bias, bias = om_bias.contiguous(), bias.contiguous()
-    om = torch.empty((b, 27, h, w), dtype=torch.float32, device=dev)
     out = torch.empty((b, cout, h, w), dtype=torch.bfloat16, device=dev)
     stat = torch.zeros(1, dtype=torch.int32, device=dev)
     err = _lib("dcn_fused_fwd").dcn_fused_fwd(
         xs.data_ptr(), wom.data_ptr(), om_bias.data_ptr(), wt.data_ptr(),
-        bias.data_ptr(), om.data_ptr(), out.data_ptr(), stat.data_ptr(), b,
-        h, w, cin, cout, float(max_shift), stream)
+        bias.data_ptr(), out.data_ptr(), stat.data_ptr(), b, h, w, cp, cout,
+        float(max_shift), stream)
     _raise_on(err, "dcn_fused_fwd")
     LAUNCHES["dcn_fused_fwd"] += 1
     return out, stat.view(torch.float32).reshape(())
@@ -444,30 +484,29 @@ def _fused_backward_launch(x, om_weight, om_bias, weight, g, max_shift,
     cout = weight.shape[0]
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    xs = _stage_x(x)
-    wom = _stage_om_weight(om_weight)
-    wt_t = (weight.permute(2, 3, 0, 1).reshape(9, cout, cin)
-            .to(torch.bfloat16).contiguous())
+    xs = _stage_x_padded(x)
+    cp = xs.shape[-1]
+    wom, wt = _stage_fused_weights(om_weight, weight, cp)
     om_bias = om_bias.contiguous()
     om = torch.empty((b, 27, h, w), **f32)
-    dz = torch.empty((b, 27, h, w), **f32)
-    dx = torch.zeros((b, h, w, cin), **f32)
-    dw = torch.zeros((9, cin, cout), **f32)
-    dwom = torch.zeros((9, cin, 27), **f32)
+    dz = torch.zeros((b, 27, h, w), **f32)
+    dx = torch.zeros((b, h, w, cp), **f32)
+    dw = torch.zeros((9, cp, cout), **f32)
+    dwom = torch.zeros((9, cp, 27), **f32)
     dbom = torch.zeros(27, **f32)
-    n_pix = b * h * w
     err = _lib("dcn_fused_bwd").dcn_fused_bwd(
-        xs.data_ptr(), wom.data_ptr(), om_bias.data_ptr(), wt_t.data_ptr(),
+        xs.data_ptr(), wom.data_ptr(), om_bias.data_ptr(), wt.data_ptr(),
         g.data_ptr(), om.data_ptr(), dz.data_ptr(), dx.data_ptr(),
-        dw.data_ptr(), dwom.data_ptr(), dbom.data_ptr(), b, h, w, cin, cout,
-        float(max_shift), _dw_pixels_per_block(n_pix, cin, cout),
-        _dw_pixels_per_block(n_pix, cin, 27), stream)
+        dw.data_ptr(), dwom.data_ptr(), dbom.data_ptr(), b, h, w, cp, cout,
+        float(max_shift), _fused_dw_pixels_per_block(b * h * w, cp, cout),
+        stream)
     _raise_on(err, "dcn_fused_bwd")
     LAUNCHES["dcn_fused_bwd"] += 1
     # dx rounded to bf16 once, after both of its parts are in
     dx_out = torch.empty((b, cin, h, w), dtype=torch.bfloat16, device=dev)
-    dx_out.copy_(dx.permute(0, 3, 1, 2))
-    return dx_out, _dw_to_oihw(dwom, 27), dbom, _dw_to_oihw(dw, cout)
+    dx_out.copy_(dx[..., :cin].permute(0, 3, 1, 2))
+    return (dx_out, _dw_to_oihw(dwom[:, :cin], 27), dbom,
+            _dw_to_oihw(dw[:, :cin], cout))
 
 
 class _DCNFusedFn(torch.autograd.Function):
@@ -644,6 +683,7 @@ def compiler_report(reports: Dict[str, str]) -> str:
     lines = []
     for name, out in reports.items():
         lines += [f"{name}: {ln.strip()}" for ln in out.splitlines()
-                  if "ptxas" in ln and ("registers" in ln or "smem" in ln
-                                        or "Compiling" in ln or "spill" in ln)]
+                  if ("ptxas" in ln and ("registers" in ln or "smem" in ln
+                                         or "Compiling" in ln))
+                  or "spill" in ln]
     return "\n".join(lines)

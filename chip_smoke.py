@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port (``centernet_uda_torch``) on one card.
 
-    python3 chip_smoke.py [--json PATH] [--profile]
+    python3 chip_smoke.py [--json PATH] [--profile] [--parent DIR]
 
 Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
 
@@ -14,7 +14,11 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
    kernels' own tests; max |dy| to 1e-5 relative), timed beside its twin
    and a cuDNN yardstick:
    - the float32 pair and the fused bfloat16 pair at every DCN shape of
-     DLA-34's 512 px train path (batch 16) and 800 px eval path (batch 4);
+     DLA-34's 512 px train path (batch 16) and 800 px eval path (batch 4),
+     and the fused pair at MobileNetV2's 256 -> 256 shapes (@32 and @64,
+     batch 32); one call of the fused pair at the largest DLA-34 shape is
+     profiled for its launches (1 forward, 4 backward) and each launch's
+     device time;
    - the "select" pair, in float32 and in bfloat16, at MobileNetV2's
      1280 -> 256 DCN shapes (512 px train, batch 32: 16 x 16; 800 px eval,
      batch 4: 25 x 25) and at 2 x 300 x 300 x 64;
@@ -45,7 +49,10 @@ entry per kernel source, launches summed over phases 4-6), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero. ``--json PATH`` also writes every measurement
 to PATH; ``--profile`` adds a torch.profiler breakdown by kernel of two
-more train steps of each model at each precision.
+more train steps of each model at each precision; ``--parent DIR`` (a
+checkout of another commit, e.g. ``git archive`` of the parent unpacked
+under ``build/``) builds that checkout's kernels too and times its fused
+pair at every fused shape in the same run, in turns (its, this, this, its).
 """
 
 from __future__ import annotations
@@ -215,13 +222,16 @@ def dcn_shapes(model, size, device):
 
 def print_record(label, batch, cin, cout, h, w, layers, errs, t, fb, fk, bb,
                  bk):
+    parent = {d: (f", parent {t[f'parent_{d}_ms']:.3f}"
+                  if f"parent_{d}_ms" in t else "") for d in ("fwd", "bwd")}
     print(f"{label} B={batch} {cin}->{cout} @{h}x{w} (x{layers}): "
           f"errs " + " ".join(f"{k}={v[0]:.3g}/{v[1]:.2g}"
                               for k, v in errs.items())
           + f" | fwd {t['fwd_ms']:.3f} ms (twin {t['twin_fwd_ms']:.3f},"
-          f" conv {t['conv_fwd_ms']:.3f}, bound {fb:.4f} {fk})"
+          f" conv {t['conv_fwd_ms']:.3f}{parent['fwd']}, bound {fb:.4f} {fk})"
           f" | bwd {t['bwd_ms']:.3f} ms (twin {t['twin_bwd_ms']:.3f},"
-          f" conv {t['conv_bwd_ms']:.3f}, bound {bb:.4f} {bk})", flush=True)
+          f" conv {t['conv_bwd_ms']:.3f}{parent['bwd']}, bound {bb:.4f} {bk})",
+          flush=True)
 
 
 def check_kernels(shapes, batch, device, label, pair="f32",
@@ -361,11 +371,13 @@ def check_wide_kernel(shapes, batch, device, label, dtype="float32"):
     return records
 
 
-def check_fused_kernels(shapes, batch, device, label):
+def check_fused_kernels(shapes, batch, device, label, parent=None):
     """Phase 3 for the fused bf16 kernels at one input size; returns
     per-shape records. The yardstick is one cuDNN bf16 convolution of
     Cin -> Cout + 27 (the layer with zero offsets and mask 1, plus the
-    offset conv, on the same input) and its convolution_backward."""
+    offset conv, on the same input) and its convolution_backward.
+    ``parent``, another checkout's ``dcn_cuda`` module, is timed beside the
+    kernels, in turns."""
     import torch
     import torch.nn.functional as F
 
@@ -406,22 +418,32 @@ def check_fused_kernels(shapes, batch, device, label):
         w_cat = torch.cat([wt, om_w]).bfloat16()
         g_cat = g.repeat(1, 1 - (-27 // cout), 1, 1)[:, :cout + 27]
         g_cat = g_cat.contiguous()
-        t = {
-            "fwd_ms": time_ms(lambda: dcn_cuda.dcn_fused_forward(
-                x, om_w, om_b, wt, bias)),
+        fwd = {name: (lambda m=m: m.dcn_fused_forward(x, om_w, om_b, wt,
+                                                      bias))
+               for name, m in (("", dcn_cuda), ("parent_", parent)) if m}
+        bwd = {name: (lambda m=m: m.dcn_fused_backward(x, om_w, om_b, wt, g))
+               for name, m in (("", dcn_cuda), ("parent_", parent)) if m}
+        t = {}
+        for d, fns in (("fwd", fwd), ("bwd", bwd)):
+            if parent is None:
+                t[f"{d}_ms"] = time_ms(fns[""])
+                continue
+            # in turns: parent, this, this, parent
+            runs = [time_ms(fns[n]) for n in ("parent_", "", "", "parent_")]
+            t[f"parent_{d}_ms"] = (runs[0] + runs[3]) / 2
+            t[f"{d}_ms"] = (runs[1] + runs[2]) / 2
+        t.update({
             "twin_fwd_ms": time_ms(lambda: dcn_cuda.dcn_v2_fused_twin(
                 x, om_w, om_b, wt, bias)),
             "conv_fwd_ms": time_ms(lambda: F.conv2d(x, w_cat, None,
                                                     padding=1)),
-            "bwd_ms": time_ms(lambda: dcn_cuda.dcn_fused_backward(
-                x, om_w, om_b, wt, g)),
             "twin_bwd_ms": time_ms(lambda: dcn_cuda.dcn_fused_backward_plain(
                 x, om_w, om_b, wt, g)),
             "conv_bwd_ms": time_ms(
                 lambda: torch.ops.aten.convolution_backward(
                     g_cat, x, w_cat, None, [1, 1], [1, 1], [1, 1], False,
                     [0, 0], 1, [True, True, False])),
-        }
+        })
         fb, fk = bound_ms(fwd_bytes, fwd_flops)
         bb, bk = bound_ms(bwd_bytes, 2 * fwd_flops)
         records.append({
@@ -436,6 +458,67 @@ def check_fused_kernels(shapes, batch, device, label):
         del x, om_w, om_b, wt, bias, g, w_cat, g_cat
         torch.cuda.empty_cache()
     return records
+
+
+def profile_fused_call(shape, batch, device):
+    """One call of each fused wrapper at ``shape`` under torch.profiler:
+    the kernels each launches (the forward must launch 1, the backward 4)
+    and each launch's device ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from centernet_uda_torch.ops import dcn_cuda
+
+    cin, cout, h, w = shape
+    x, om_w, om_b, wt, bias, g = make_fused_operands(7, batch, cin, cout, h,
+                                                     w, device)
+    calls = {"fwd": (lambda: dcn_cuda.dcn_fused_forward(x, om_w, om_b, wt,
+                                                        bias), 1),
+             "bwd": (lambda: dcn_cuda.dcn_fused_backward(x, om_w, om_b, wt,
+                                                         g), 4)}
+    record = {}
+    for d, (fn, want) in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        # the profiler now and then returns a cycle without device events;
+        # a profile that saw no fused kernel at all is taken again
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            launches = [(ev.name, ev.device_time_total / 1e3)
+                        for ev in prof.events()
+                        if ev.device_type == torch.autograd.DeviceType.CUDA
+                        and "dcn_fused_" in ev.name]
+            if launches:
+                break
+        if len(launches) != want:
+            raise AssertionError(f"fused {d} launched {len(launches)} "
+                                 f"kernels, not {want}: {launches}")
+        print(f"fused {d} B={batch} {cin}->{cout} @{h}x{w}: {want} "
+              f"launch(es) per call: " + ", ".join(
+                  f"{name.split('(')[0].split('<')[0].split(' ')[-1]} "
+                  f"{ms:.3f} ms" for name, ms in launches), flush=True)
+        record[d] = launches
+    del x, om_w, om_b, wt, bias, g
+    torch.cuda.empty_cache()
+    return record
+
+
+def load_parent(path):
+    """Another checkout's ``ops/dcn_cuda.py`` as a module of its own: its
+    kernel sources, built into that checkout's ``build/kernels/``."""
+    import importlib.util
+
+    src = Path(path).resolve() / "centernet_uda_torch" / "ops" / "dcn_cuda.py"
+    spec = importlib.util.spec_from_file_location("parent_dcn_cuda", src)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    t0 = time.time()
+    module.build_kernels()
+    print(f"parent checkout {path}: kernels built in {time.time() - t0:.1f} "
+          f"s", flush=True)
+    return module
 
 
 def synthetic_batch(rng, batch, size, num_classes, max_det, down_ratio=4):
@@ -698,6 +781,8 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", action="store_true",
                         help="after the checks, profile two train steps at "
                              "each precision with torch.profiler")
+    parser.add_argument("--parent", help="a checkout of another commit whose "
+                        "fused pair is timed beside this one's")
     args = parser.parse_args(argv)
 
     import torch
@@ -781,6 +866,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"MobileNetV2 routes "
                                  f"{routes(shapes, torch.float32)}")
     sel_train = {k: n for k, n in m_train.items() if k[0] == 1280}
+    m_fused = {k: n for k, n in m_train.items() if k[0] != 1280}
     sel_eval = {k: n for k, n in m_eval.items() if k[0] == 1280}
     wide_shapes = {k: n for k, n in dcn_shapes(net, WIDE_SIZE, device).items()
                    if k[3] > LANES_NATIVE_MAX_W}
@@ -798,11 +884,18 @@ def main(argv=None) -> int:
                              f"eval{EVAL_SIZE}")
     report["shapes"] = records
     phase("fused bf16 kernels against their plain twin")
+    parent = load_parent(args.parent) if args.parent else None
     fused = check_fused_kernels(train_shapes, TRAIN_BATCH, device,
-                                train_label)
+                                train_label, parent)
     fused += check_fused_kernels(eval_shapes, EVAL_BATCH_KERNELS, device,
-                                 f"eval{EVAL_SIZE}")
+                                 f"eval{EVAL_SIZE}", parent)
+    fused += check_fused_kernels(m_fused, MNV2_TRAIN_BATCH, device, m_label,
+                                 parent)
     report["fused_shapes"] = fused
+    largest = max(train_shapes, key=lambda k: k[0] * (k[1] + 27) * k[2] * k[3])
+    report["fused_call_launches"] = profile_fused_call(largest, TRAIN_BATCH,
+                                                       device)
+    del parent
     phase("select kernels against their plain twin")
     select = []
     for dtype in ("float32", "bfloat16"):

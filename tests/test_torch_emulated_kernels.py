@@ -4,7 +4,8 @@ The kernels in ``centernet_uda_torch/csrc/`` run only on an H100, and the
 card-only tests (``tests/test_torch_gpu.py``) skip without one. This file
 compiles the same seven sources with the host C++ compiler against
 ``EMULATION_HEADER`` below (a CPU emulation of the CUDA subset they use: a
-block's threads as a pool of OS threads, ``__syncthreads`` as a barrier),
+block's threads as a pool of OS threads, ``__syncthreads`` as a barrier,
+the warp-wide ``mma.sync`` primitives lane by lane),
 loads them in place of the ``nvcc`` builds, and runs them through the
 wrappers' launch helpers on CPU tensors at tiny shapes. That holds the
 kernels' indexing, tiling, masking and arithmetic against the twins on every
@@ -37,12 +38,16 @@ EMULATION_HEADER = r"""// CPU emulation of the CUDA subset that centernet_uda_to
 // A launch runs one block at a time on a pool of blockDim threads;
 // __syncthreads is a barrier of that pool, __shared__ variables are statics
 // (one instance per kernel, reused block after block, which is safe because
-// every kernel writes its shared memory before it reads it), a warp shuffle
-// goes through a buffer between two barriers of the warp's 32 threads
-// (every lane must reach it, as the kernels' shuffles do), and atomics are
-// std::atomic_ref.
+// every kernel writes its shared memory before it reads it), dynamic shared
+// memory is one buffer of the launch's size, and atomics are
+// std::atomic_ref. The warp-wide operations go through a buffer between
+// two barriers of the warp's 32 threads (every lane must reach them, as on
+// the card): a shuffle, and the dcn_mma.cuh primitives with the per-lane
+// fragment layouts of the PTX ISA (ldmatrix x4 and its .trans form, mma
+// m16n8k16 with bf16 operands and f32 accumulation). cp.async is a plain
+// copy (its waits no-ops) and the vector reduction four atomic adds.
 // bf16 conversions round to nearest even, as __float2bfloat16 does. Device
-// limits and errors are stubs: every launch "succeeds".
+// limits and errors are stubs: every launch "succeeds", on a card of 2 SMs.
 #pragma once
 
 #include <atomic>
@@ -63,6 +68,8 @@ EMULATION_HEADER = r"""// CPU emulation of the CUDA subset that centernet_uda_to
 #define __restrict__ __restrict
 #define __launch_bounds__(...)
 #define __shared__ static
+#define DCN_CPU_EMULATION 1
+#define DCN_DYNAMIC_SMEM(name) unsigned char* name = ::emu::dynamic_smem
 
 struct dim3 {
   unsigned x, y, z;
@@ -86,7 +93,16 @@ struct cudaFuncAttributes {
   int maxThreadsPerBlock;
   size_t sharedSizeBytes;
 };
-enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlock = 8 };
+enum cudaDeviceAttr {
+  cudaDevAttrMaxSharedMemoryPerBlock = 8,
+  cudaDevAttrMultiProcessorCount = 16,
+  cudaDevAttrMaxSharedMemoryPerBlockOptin = 97
+};
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class T>
+inline cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
 template <class T>
 inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, T) {
   a->maxThreadsPerBlock = 1024;
@@ -97,8 +113,10 @@ inline cudaError_t cudaGetDevice(int* d) {
   *d = 0;
   return cudaSuccess;
 }
-inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
-  *v = 48 * 1024;
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
+  *v = a == cudaDevAttrMultiProcessorCount ? 2
+       : a == cudaDevAttrMaxSharedMemoryPerBlockOptin ? 227 * 1024
+                                                      : 48 * 1024;
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
@@ -130,8 +148,18 @@ inline unsigned __float_as_uint(float f) {
   memcpy(&u, &f, 4);
   return u;
 }
+inline float __uint_as_float(unsigned u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.bits; }
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
 
 namespace emu {
+inline unsigned char* dynamic_smem = nullptr;
 inline std::barrier<>* block_barrier = nullptr;
 inline thread_local std::barrier<>* warp_barrier = nullptr;
 inline void syncthreads() { block_barrier->arrive_and_wait(); }
@@ -160,13 +188,100 @@ inline unsigned atomicMax(unsigned* p, unsigned v) {
   return old;
 }
 
+// the dcn_mma.cuh primitives
+namespace dcn {
+inline uint16_t emu_b16(const void* row, int col) {
+  return static_cast<const uint16_t*>(row)[col];
+}
+
+// lane l gives the address of row l % 8 of tile l / 8; register j gets row
+// l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 of tile j (transposed: rows
+// 2 (l % 4) and 2 (l % 4) + 1 of column l / 4)
+inline void emu_ldmatrix(uint32_t (&r)[4], const void* row, bool trans) {
+  static const void* rows[1024];
+  const unsigned tid = threadIdx.x, base = tid & ~31u, lane = tid & 31u;
+  rows[tid] = row;
+  emu::warp_barrier->arrive_and_wait();
+  for (int j = 0; j < 4; ++j) {
+    const unsigned tile = base + 8 * j;
+    uint16_t lo, hi;
+    if (trans) {
+      lo = emu_b16(rows[tile + 2 * (lane % 4)], lane / 4);
+      hi = emu_b16(rows[tile + 2 * (lane % 4) + 1], lane / 4);
+    } else {
+      lo = emu_b16(rows[tile + lane / 4], 2 * (lane % 4));
+      hi = emu_b16(rows[tile + lane / 4], 2 * (lane % 4) + 1);
+    }
+    r[j] = (uint32_t)lo | ((uint32_t)hi << 16);
+  }
+  emu::warp_barrier->arrive_and_wait();
+}
+inline void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  emu_ldmatrix(r, row, false);
+}
+inline void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  emu_ldmatrix(r, row, true);
+}
+
+inline float emu_half(uint32_t reg, int hi) {
+  return __uint_as_float(hi ? reg & 0xffff0000u : reg << 16);
+}
+
+// D += A . B over the warp's fragments (A 16 x 16 row-major, B 16 x 8
+// column-major, D 16 x 8 f32), element k in order
+inline void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                           uint32_t b0, uint32_t b1) {
+  static uint32_t fa[1024][4], fb[1024][2];
+  const unsigned tid = threadIdx.x, base = tid & ~31u, lane = tid & 31u;
+  for (int i = 0; i < 4; ++i) fa[tid][i] = a[i];
+  fb[tid][0] = b0;
+  fb[tid][1] = b1;
+  emu::warp_barrier->arrive_and_wait();
+  auto A = [&](int m, int k) {  // a0 (g, 2q..), a1 (g+8, ..), a2, a3: k+8
+    const uint32_t reg = fa[base + 4 * (m % 8) + (k % 8) / 2]
+                           [(m >= 8) + 2 * (k >= 8)];
+    return emu_half(reg, k % 2);
+  };
+  auto B = [&](int k, int n) {  // b0 (2q.., g), b1 (2q+8.., g)
+    return emu_half(fb[base + 4 * n + (k % 8) / 2][k >= 8], k % 2);
+  };
+  for (int i = 0; i < 4; ++i) {
+    const int m = lane / 4 + 8 * (i / 2), n = 2 * (lane % 4) + i % 2;
+    float s = d[i];
+    for (int k = 0; k < 16; ++k) s += A(m, k) * B(k, n);
+    d[i] = s;
+  }
+  emu::warp_barrier->arrive_and_wait();
+}
+
+inline void cp_async16(void* dst, const void* src, bool pred) {
+  if (pred)
+    memcpy(dst, src, 16);
+  else
+    memset(dst, 0, 16);
+}
+inline void cp_async_commit() {}
+template <int N>
+inline void cp_async_wait() {}
+
+inline void red_add_v4(float* p, float a, float b, float c, float d) {
+  std::atomic_ref<float>(p[0]).fetch_add(a);
+  std::atomic_ref<float>(p[1]).fetch_add(b);
+  std::atomic_ref<float>(p[2]).fetch_add(c);
+  std::atomic_ref<float>(p[3]).fetch_add(d);
+}
+}  // namespace dcn
+
 namespace emu {
 // kernel<<<grid, block, smem, stream>>>(args...), rewritten by the test as
 // emu::launch(kernel, grid, block, smem, stream, args...)
 template <class... P, class... A>
-void launch(void (*kernel)(P...), dim3 grid, dim3 block, size_t,
+void launch(void (*kernel)(P...), dim3 grid, dim3 block, size_t smem,
             cudaStream_t, A... args) {
   const unsigned n = block.x * block.y * block.z;  // a multiple of 32
+  std::vector<uint64_t> dyn(smem / 8 + 4);
+  dynamic_smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(dyn.data()) + 15) & ~(uintptr_t)15);
   std::barrier<> bar(n);
   block_barrier = &bar;
   std::deque<std::barrier<>> warps;  // a deque: barriers cannot move
@@ -231,6 +346,7 @@ def emulated(emulated_libs, monkeypatch):
     monkeypatch.setattr(dcn_cuda, "_LIBS", {})
     monkeypatch.setattr(dcn_cuda, "_lib_path", emulated_libs.__getitem__)
     monkeypatch.setattr(dcn_cuda, "_DW_TARGET_BLOCKS", 8)
+    monkeypatch.setattr(dcn_cuda, "_FUSED_DW_TARGET_BLOCKS", 8)
     dcn_cuda.reset_launches()
     yield
     dcn_cuda.reset_launches()
@@ -267,13 +383,35 @@ def test_emulated_f32_kernels_match_twin(emulated, shape):
     assert dcn_cuda.LAUNCHES["dcn_fwd"] == dcn_cuda.LAUNCHES["dcn_bwd"] == 1
 
 
-@pytest.mark.parametrize("zero_offsets", [False, True],
-                         ids=["offsets", "zero-init"])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_emulated_fused_kernels_match_twin(emulated, shape, zero_offsets):
+# the fused kernels' tile edges: Cin not a multiple of the 32- and
+# 64-channel chunks (nor of 8: padded), H and W not multiples of the 8 x 8
+# pixel tile, Cout above one 256-wide channel group; a 1 x 3 x 9 map, under
+# one tile; Cin split across data-kernel blocks (6 chunks of 64)
+FUSED_EDGE_SHAPES = [
+    (1, 24, 264, 3, 9),
+    (1, 20, 40, 9, 10),
+    (1, 384, 16, 4, 8),
+]
+
+
+def _fused_cases():
+    # offsets: the card tests' operands (offsets of std about 2, two rows
+    # past the clamp); zero-init: the zero-initialised offset conv; uniform:
+    # its weight zeroed, so every pixel has the bias's fractional offsets
+    # and neighbouring pixels share corners with nonzero weights
+    cases = [pytest.param(shape, mode, id=f"{shape}-{mode}")
+             for shape in SHAPES
+             for mode in ("offsets", "zero-init", "uniform")]
+    return cases + [pytest.param(shape, "offsets", id=f"{shape}-edge")
+                    for shape in FUSED_EDGE_SHAPES]
+
+
+@pytest.mark.parametrize("shape,mode", _fused_cases())
+def test_emulated_fused_kernels_match_twin(emulated, shape, mode):
     x, om_w, om_b, wt, bias, g = make_fused_inputs(2, *shape, "cpu")
-    if zero_offsets:
+    if mode != "offsets":
         om_w.zero_()
+    if mode == "zero-init":
         om_b.zero_()
     out, stat = dcn_cuda._fused_forward_launch(x, om_w, om_b, wt, bias,
                                                PALLAS_MAX_SHIFT, 0)
@@ -287,7 +425,7 @@ def test_emulated_fused_kernels_match_twin(emulated, shape, zero_offsets):
     assert got[0].dtype == torch.bfloat16
     for name, a, b in zip(("dx", "d om_w", "d om_b", "dw"), got, want):
         assert_close(a, b, name)
-    if not zero_offsets:
+    if mode == "offsets":
         assert float(ref_stat) > PALLAS_MAX_SHIFT
     assert dcn_cuda.LAUNCHES["dcn_fused_fwd"] == 1
     assert dcn_cuda.LAUNCHES["dcn_fused_bwd"] == 1

@@ -174,6 +174,14 @@ FUSED_SHAPES = [
     (2, 40, 72, 13, 21),
     (4, 64, 64, 32, 32),
     (2, 256, 128, 25, 25),
+    # the 8 x 8 pixel tile's edges: W = 8 and W = 256; Cout 264 (two
+    # channel groups) at Cin 40; one image under one tile; MobileNetV2's
+    # 256 -> 256 @64
+    (2, 16, 32, 12, 8),
+    (1, 32, 64, 9, 256),
+    (2, 40, 264, 11, 13),
+    (1, 24, 48, 5, 8),
+    (4, 256, 256, 64, 64),
 ]
 
 
@@ -221,6 +229,19 @@ def test_fused_zero_init_first_step(cuda):
     for name, a, b in zip(("dx", "d om_w", "d om_b", "dw"), got, want):
         assert_close(a, b, name)
     assert float(got[1][0::2][:9].abs().max()) > 0.0  # the dy rows
+
+
+def test_fused_uniform_offsets(cuda):
+    """The offset conv's weight zeroed: every pixel has the bias's
+    fractional offsets, so neighbouring pixels share bilinear corners with
+    nonzero weights (the data kernel merges their dx reductions)."""
+    x, om_w, om_b, wt, bias, g = make_fused_inputs(5, 2, 40, 72, 13, 21,
+                                                   cuda)
+    om_w.zero_()
+    got = dcn_cuda.dcn_fused_backward(x, om_w, om_b, wt, g)
+    want = dcn_cuda.dcn_fused_backward_plain(x, om_w, om_b, wt, g)
+    for name, a, b in zip(("dx", "d om_w", "d om_b", "dw"), got, want):
+        assert_close(a, b, name)
 
 
 def test_fused_clamp_rows_pass_no_dy_gradient(cuda):
