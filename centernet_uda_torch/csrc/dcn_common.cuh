@@ -34,23 +34,25 @@ __device__ __forceinline__ float bf16_load(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
-// An operand that the kernels contract in bf16: an f32 one is rounded on
-// load, a bf16 one is exact.
-__device__ __forceinline__ float load_as_bf16(const float* p) {
-  return bf16_round(*p);
-}
-__device__ __forceinline__ float load_as_bf16(const __nv_bfloat16* p) {
-  return bf16_load(p);
-}
-
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// Offsets and mask as two tensors (the float32 layer). The backward writes
-// doffset and dmask.
+// One gradient of a sampling position: stored by its one writer, or, where
+// the backward's data kernel splits Cin across blocks, added by an atomic
+// into a zeroed buffer.
+__device__ __forceinline__ void put_grad(float* p, float v, bool accumulate) {
+  if (accumulate)
+    atomicAdd(p, v);
+  else
+    *p = v;
+}
+
+// Offsets and mask as two tensors (the explicit-offset layer). The backward
+// writes doffset and dmask.
 struct OffsetMask {
+  static constexpr bool kOmGrads = false;  // no offset conv inside
   const float* offset;
   const float* mask;
   float* doff;
@@ -70,19 +72,23 @@ struct OffsetMask {
   __device__ __forceinline__ void write_grads(int b, int t, size_t plane,
                                               size_t pix, bool dy_live,
                                               float m, float gy, float gx,
-                                              float dm) const {
+                                              float dm,
+                                              bool accumulate) const {
     float* o = doff + (size_t)b * 2 * kTaps * plane + pix;
-    o[(size_t)(2 * t) * plane] = dy_live ? m * gy : 0.f;
-    o[(size_t)(2 * t + 1) * plane] = m * gx;
-    dmask[((size_t)b * kTaps + t) * plane + pix] = dm;
+    put_grad(o + (size_t)(2 * t) * plane, dy_live ? m * gy : 0.f, accumulate);
+    put_grad(o + (size_t)(2 * t + 1) * plane, m * gx, accumulate);
+    put_grad(dmask + ((size_t)b * kTaps + t) * plane + pix, dm, accumulate);
   }
 };
 
 // The offset-conv output om (the bfloat16 layer, offsets fused into the
-// layer), as the fused backward's om scratch holds it. Its kernels write
-// dz = d(loss)/d(om) themselves (dcn_fused_bwd.cu).
+// layer), as the fused backward's om scratch holds it. The backward writes
+// dz = d(loss)/d(om) (B, 27, H, W) f32, which its weight kernel then reads
+// for dW_om and db_om (dcn_sample_bwd.cuh, dcn_fused_bwd.cu).
 struct OffsetConv {
+  static constexpr bool kOmGrads = true;  // dW_om, db_om from dz
   const float* om;
+  float* dz;
 
   __device__ __forceinline__ void read(int b, int t, size_t plane, size_t pix,
                                        float& dy, float& dx,
@@ -92,7 +98,26 @@ struct OffsetConv {
     dx = o[(size_t)(2 * t + 1) * plane];
     m = 1.f / (1.f + expf(-o[(size_t)(2 * kTaps + t) * plane]));
   }
+
+  // as OffsetMask's, through the sigmoid: dz = [m gy (0 where the clamp
+  // holds), m gx, dm m (1 - m)]
+  __device__ __forceinline__ void write_grads(int b, int t, size_t plane,
+                                              size_t pix, bool dy_live,
+                                              float m, float gy, float gx,
+                                              float dm,
+                                              bool accumulate) const {
+    float* o = dz + (size_t)b * kOm * plane + pix;
+    put_grad(o + (size_t)(2 * t) * plane, dy_live ? m * gy : 0.f, accumulate);
+    put_grad(o + (size_t)(2 * t + 1) * plane, m * gx, accumulate);
+    put_grad(o + (size_t)(2 * kTaps + t) * plane, dm * m * (1.f - m),
+             accumulate);
+  }
 };
+
+// Names an instantiation only: dcn_sel_fwd.cu and dcn_sel_bwd.cu pass it as
+// the last template parameter of their kernels, so a profile tells their
+// launches from those of the lanes sources (same bodies).
+struct Select {};
 
 // Bilinear geometry of one output pixel and tap.
 struct Sample {

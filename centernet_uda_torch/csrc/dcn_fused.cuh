@@ -1,5 +1,6 @@
-// Device code shared by the fused bfloat16 DCN kernels (dcn_fused_fwd.cu,
-// dcn_fused_bwd.cu): the 8 x 8 pixel tile, the offset-conv tile routine on
+// Device code shared by the tensor-core DCN kernels (dcn_fused_fwd.cu,
+// dcn_fused_bwd.cu and the sampling backward of dcn_sample_bwd.cuh): the
+// 8 x 8 pixel tile, the ldmatrix row helper, the offset-conv tile routine on
 // the tensor cores, and the launch helpers.
 //
 // Operand layouts (the wrapper stages them; Cp is Cin rounded up to a

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) primitives of the fused DCN kernels, each one inline PTX
-// instruction behind a small function:
+// Hopper (sm_90a) primitives of the tensor-core DCN kernels, each one inline
+// PTX instruction behind a small function:
 //   ldmatrix_x4 / ldmatrix_x4_trans  four 8x8 b16 tiles from shared memory
 //                                    into the fragment layout of mma.sync;
 //   mma_bf16_16816                   D += A . B, m16n8k16, bf16 operands,
@@ -21,7 +21,7 @@
 //   mma C/D (16 x 8): d0, d1 = (g, 2q..2q+1), d2, d3 = (g + 8, 2q..).
 // The lower-indexed element of a pair sits in the low 16 bits.
 //
-// All PTX of the fused kernels is in this file. A CPU build that defines
+// All PTX of the DCN kernels is in this file. A CPU build that defines
 // DCN_CPU_EMULATION provides the same functions (and DCN_DYNAMIC_SMEM)
 // itself, lane by lane.
 #pragma once

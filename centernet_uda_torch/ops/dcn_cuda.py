@@ -1,16 +1,22 @@
 """Hand-written Hopper (sm_90a) kernels of the DCNv2 layer, and their build.
 
-Seven kernel sources, CUDA C++ in ``centernet_uda_torch/csrc/`` (the
-explicit-offset bodies shared through ``dcn_kernels.cuh``, the fused
-layer's through ``dcn_fused.cuh`` on the ``mma.sync`` primitives of
-``dcn_mma.cuh``):
+Seven kernel sources, CUDA C++ in ``centernet_uda_torch/csrc/``. The
+explicit-offset forward body is shared through ``dcn_kernels.cuh``, the
+fused forward's offset-conv tile through ``dcn_fused.cuh``, and every
+backward runs the tensor-core sampling kernels of ``dcn_sample_bwd.cuh``
+(a data kernel for dx and the sampling gradients, a split-K weight kernel
+for dW), templates over the geometry: the explicit layer's offset and mask
+tensors, or the fused layer's offset-conv output. All the inline PTX
+(``ldmatrix``, ``mma.sync``, ``cp.async``, vector reductions) is in
+``dcn_mma.cuh``:
 
 - ``dcn_fwd`` (``csrc/dcn_fwd.cu``), the float32 layer's forward, replaces
   the TPU kernel ``_dcn_kernel`` (``centernet_uda_tpu/ops/dcn_pallas.py``,
   via ``dcn_v2_pallas_lanes``).
 - ``dcn_bwd`` (``csrc/dcn_bwd.cu``, two launches: sampling gradients + dx,
-  then dW) replaces ``_dcn_bwd_params_kernel`` (same file, via
-  ``_bwd_params_call`` / ``dcn_v2_pallas_bwd_lanes``).
+  then dW, on the tensor cores; g rounded to bf16 once by the wrapper, as
+  the TPU kernel rounds it) replaces ``_dcn_bwd_params_kernel`` (same file,
+  via ``_bwd_params_call`` / ``dcn_v2_pallas_bwd_lanes``).
 - ``dcn_fused_fwd`` (``csrc/dcn_fused_fwd.cu``, one launch: the offset
   conv, sampling and contraction of a pixel tile, all on the tensor cores),
   the bfloat16 layer's forward with its offset conv inside, replaces
@@ -21,8 +27,9 @@ layer's through ``dcn_fused.cuh`` on the ``mma.sync`` primitives of
 - ``dcn_sel_fwd`` (``csrc/dcn_sel_fwd.cu``), the forward at the "select"
   shapes (Cin > 512, W > 256, W < 8), x and out in float32 or bfloat16,
   replaces ``_sel_fwd_kernel`` (via ``dcn_v2_pallas_select``).
-- ``dcn_sel_bwd`` (``csrc/dcn_sel_bwd.cu``, two launches), its backward, g
-  in x's dtype, dx rounded once to x's dtype, dW in the weight's dtype,
+- ``dcn_sel_bwd`` (``csrc/dcn_sel_bwd.cu``, the same two launches as
+  ``dcn_bwd``), its backward, g in x's dtype (rounded to bf16 for the
+  kernels), dx rounded once to x's dtype, dW in the weight's dtype,
   replaces ``_sel_bwd_kernel`` (via ``dcn_v2_pallas_bwd_select``).
 - ``dcn_wide_fwd`` (``csrc/dcn_wide_fwd.cu``), the forward with dx clamped
   too (forced "lanes" at W > 256), replaces ``_dcn_kernel`` in panel mode
@@ -71,7 +78,7 @@ SOURCES = {"dcn_fwd": "dcn_fwd.cu", "dcn_bwd": "dcn_bwd.cu",
            "dcn_sel_fwd": "dcn_sel_fwd.cu", "dcn_sel_bwd": "dcn_sel_bwd.cu",
            "dcn_wide_fwd": "dcn_wide_fwd.cu"}
 _HEADERS = ("dcn_common.cuh", "dcn_kernels.cuh", "dcn_mma.cuh",
-            "dcn_fused.cuh")
+            "dcn_fused.cuh", "dcn_sample_bwd.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -79,13 +86,10 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
-# the weight kernel splits the B*H*W reduction so that about this many
-# blocks are in flight across the 132 SMs
-_DW_TARGET_BLOCKS = 2048
-_DW_PIX_STEP = 32  # pixels per reduction step of the weight kernel
-# the fused weight kernel's blocks cover all of Cout (up to 256), so fewer
-# of them, about four per SM, keep its atomics few
-_FUSED_DW_TARGET_BLOCKS = 528
+# the backward's weight kernel splits the B*H*W reduction so that about
+# this many blocks are in flight: its blocks cover all of Cout (up to 256),
+# so about four per SM keep its atomics few
+_DW_TARGET_BLOCKS = 528
 
 
 def reset_launches() -> None:
@@ -159,7 +163,7 @@ def _lib(name: str) -> ctypes.CDLL:
         "dcn_fused_fwd": [vp] * 7 + [i32] * 5 + [f32, vp],
         "dcn_fused_bwd": [vp] * 11 + [i32] * 5 + [f32, i32, vp],
         "dcn_sel_fwd": [vp] * 6 + [i32] * 5 + [f32, i32, vp],
-        "dcn_sel_bwd": [vp] * 9 + [i32] * 5 + [f32, i32, i32, vp],
+        "dcn_sel_bwd": [vp] * 9 + [i32] * 5 + [f32, i32, vp],
         "dcn_wide_fwd": [vp] * 6 + [i32] * 5 + [f32, i32, vp],
     }[name]
     fn.restype = i32
@@ -244,9 +248,9 @@ def dcn_forward(x, offset, mask, weight, bias,
 
 def _forward_launch(x, offset, mask, weight, bias, max_shift, stream):
     """The kernel path proper, on ``stream``, for checked operands. Each
-    wrapper has one (``_backward_launch``, ``_fused_forward_launch``,
-    ``_fused_backward_launch``, ``_sel_backward_launch``, and
-    ``_explicit_forward_launch`` for the select and wide forwards);
+    wrapper has one (``_fused_forward_launch``, ``_fused_backward_launch``,
+    ``_explicit_forward_launch`` for the select and wide forwards and
+    ``_explicit_backward_launch`` for the float32 and select backwards);
     ``tests/test_torch_emulated_kernels.py`` calls them on CPU tensors with
     the sources built for the CPU."""
     b, cin, h, w = x.shape
@@ -280,46 +284,18 @@ def _dw_to_oihw(dw: torch.Tensor, cout: int) -> torch.Tensor:
     return dw.reshape(3, 3, -1, cout).permute(3, 2, 0, 1).contiguous()
 
 
-def _dw_pixels_per_block(n_pix: int, cin: int, cout: int) -> int:
-    tiles = 9 * (-(-cin // 64)) * (-(-cout // 64))
-    splits = max(1, -(-_DW_TARGET_BLOCKS // tiles))
-    per = -(-n_pix // splits)
-    return max(_DW_PIX_STEP, -(-per // _DW_PIX_STEP) * _DW_PIX_STEP)
-
-
 def dcn_backward(x, offset, mask, weight, g,
                  max_shift: float = PALLAS_MAX_SHIFT):
     """Gradients (dx, doffset, dmask, dweight) of ``dcn_forward``; the bias
     gradient, sum(g), is the caller's."""
     if not x.is_cuda:
         return dcn_backward_plain(x, offset, mask, weight, g, max_shift)
-    g = g.float().contiguous()
+    g = g.float()
     _check(x, offset, mask, weight, None, g)
     with torch.cuda.device(x.device):
-        return _backward_launch(x, offset, mask, weight, g, max_shift,
-                                torch.cuda.current_stream().cuda_stream)
-
-
-def _backward_launch(x, offset, mask, weight, g, max_shift, stream):
-    b, cin, h, w = x.shape
-    cout = weight.shape[0]
-    xs = _stage_x(x)
-    wt_t = (weight.permute(2, 3, 0, 1).reshape(9, cout, cin)
-            .to(torch.bfloat16).contiguous())
-    offset, mask = offset.contiguous(), mask.contiguous()
-    dx = torch.zeros((b, h, w, cin), dtype=torch.float32, device=x.device)
-    doff = torch.empty_like(offset)
-    dmask = torch.empty_like(mask)
-    dw = torch.zeros((9, cin, cout), dtype=torch.float32, device=x.device)
-    err = _lib("dcn_bwd").dcn_bwd(
-        xs.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-        wt_t.data_ptr(), g.data_ptr(), dx.data_ptr(), doff.data_ptr(),
-        dmask.data_ptr(), dw.data_ptr(), b, h, w, cin, cout,
-        float(max_shift), _dw_pixels_per_block(b * h * w, cin, cout), stream)
-    _raise_on(err, "dcn_bwd")
-    LAUNCHES["dcn_bwd"] += 1
-    dx = dx.permute(0, 3, 1, 2).contiguous().to(x.dtype)
-    return dx, doff, dmask, _dw_to_oihw(dw, cout)
+        return _explicit_backward_launch(
+            "dcn_bwd", x, offset, mask, weight, g, max_shift,
+            torch.cuda.current_stream().cuda_stream)
 
 
 class _DCNKernelFn(torch.autograd.Function):
@@ -390,28 +366,74 @@ def _stage_x_padded(x: torch.Tensor) -> torch.Tensor:
     return xs
 
 
+def _stage_weight_padded(weight: torch.Tensor, cp: int,
+                         width: int) -> torch.Tensor:
+    """(N, Cin, 3, 3) -> (9, Cp, width) bf16, tap-major, Cin and N padded
+    with zeros: the layout of the tensor-core kernels' weights."""
+    n, cin = weight.shape[:2]
+    out = torch.zeros((9, cp, width), dtype=torch.bfloat16,
+                      device=weight.device)
+    out[:, :cin, :n].copy_(weight.permute(2, 3, 1, 0).reshape(9, cin, n))
+    return out
+
+
 def _stage_fused_weights(om_weight, weight, cp: int):
-    """The fused kernels' weights, tap-major bf16 with zero pads: the offset
-    conv's (27, Cin, 3, 3) -> (9, Cp, 32), the layer's (Cout, Cin, 3, 3) ->
-    (9, Cp, Cout rounded up to 16)."""
-    cout, cin = weight.shape[:2]
-    staged = []
-    for wgt, width in ((om_weight, 32), (weight, -(-cout // 16) * 16)):
-        out = torch.zeros((9, cp, width), dtype=torch.bfloat16,
-                          device=weight.device)
-        n = wgt.shape[0]
-        out[:, :cin, :n].copy_(wgt.permute(2, 3, 1, 0).reshape(9, cin, n))
-        staged.append(out)
-    return staged
+    """The fused kernels' weights: the offset conv's (27, Cin, 3, 3) -> (9,
+    Cp, 32), the layer's (Cout, Cin, 3, 3) -> (9, Cp, Cout rounded up to
+    16)."""
+    return (_stage_weight_padded(om_weight, cp, 32),
+            _stage_weight_padded(weight, cp, -(-weight.shape[0] // 16) * 16))
 
 
-def _fused_dw_pixels_per_block(n_pix: int, cp: int, cout: int) -> int:
-    """Pixels per block of the fused weight kernel's split-K, a multiple
+def _stage_g(g: torch.Tensor) -> torch.Tensor:
+    """The output gradient as the backward kernels read it: (B, Cout, H, W)
+    bf16 (a float32 g rounded once, to nearest even), contiguous and
+    16-byte aligned (the weight kernel copies its rows 16 bytes at a
+    time)."""
+    g = g.to(torch.bfloat16).contiguous()
+    return g if g.data_ptr() % 16 == 0 else g.clone()
+
+
+def _dw_pixels_per_block(n_pix: int, cp: int, cout: int) -> int:
+    """Pixels per block of the backward weight kernel's split-K, a multiple
     of its 64-pixel step."""
     tiles = 9 * (-(-cp // 64)) * (-(-cout // 256))
-    splits = max(1, -(-_FUSED_DW_TARGET_BLOCKS // tiles))
+    splits = max(1, -(-_DW_TARGET_BLOCKS // tiles))
     per = -(-n_pix // splits)
     return max(64, -(-per // 64) * 64)
+
+
+def _explicit_backward_launch(name, x, offset, mask, weight, g, max_shift,
+                              stream):
+    """One call of ``dcn_bwd`` or ``dcn_sel_bwd`` (same operands, two
+    launches): dx in x's dtype, doffset and dmask float32, dW in the
+    weight's dtype."""
+    b, cin, h, w = x.shape
+    cout = weight.shape[0]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    xs = _stage_x_padded(x)
+    cp = xs.shape[-1]
+    wt = _stage_weight_padded(weight, cp, -(-cout // 16) * 16)
+    gs = _stage_g(g)
+    offset, mask = offset.contiguous(), mask.contiguous()
+    # all zeroed: where the data kernel splits Cin, doffset and dmask are
+    # sums of atomics too
+    dx = torch.zeros((b, h, w, cp), **f32)
+    doff = torch.zeros_like(offset)
+    dmask = torch.zeros_like(mask)
+    dw = torch.zeros((9, cp, cout), **f32)
+    err = getattr(_lib(name), name)(
+        xs.data_ptr(), offset.data_ptr(), mask.data_ptr(), wt.data_ptr(),
+        gs.data_ptr(), dx.data_ptr(), doff.data_ptr(), dmask.data_ptr(),
+        dw.data_ptr(), b, h, w, cp, cout, float(max_shift),
+        _dw_pixels_per_block(b * h * w, cp, cout), stream)
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    # dx rounded to x's dtype once, after every reduction is in
+    dx_out = torch.empty((b, cin, h, w), dtype=x.dtype, device=x.device)
+    dx_out.copy_(dx[..., :cin].permute(0, 3, 1, 2))
+    return (dx_out, doff, dmask,
+            _dw_to_oihw(dw[:, :cin], cout).to(weight.dtype))
 
 
 def dcn_fused_forward(x, om_weight, om_bias, weight, bias,
@@ -470,7 +492,6 @@ def dcn_fused_backward(x, om_weight, om_bias, weight, g,
     if not x.is_cuda:
         return dcn_fused_backward_plain(x, om_weight, om_bias, weight, g,
                                         max_shift)
-    g = g.contiguous()
     _check_fused(x, om_weight, om_bias, weight, None, g)
     with torch.cuda.device(x.device):
         return _fused_backward_launch(
@@ -487,6 +508,7 @@ def _fused_backward_launch(x, om_weight, om_bias, weight, g, max_shift,
     xs = _stage_x_padded(x)
     cp = xs.shape[-1]
     wom, wt = _stage_fused_weights(om_weight, weight, cp)
+    g = _stage_g(g)
     om_bias = om_bias.contiguous()
     om = torch.empty((b, 27, h, w), **f32)
     dz = torch.zeros((b, 27, h, w), **f32)
@@ -498,8 +520,7 @@ def _fused_backward_launch(x, om_weight, om_bias, weight, g, max_shift,
         xs.data_ptr(), wom.data_ptr(), om_bias.data_ptr(), wt.data_ptr(),
         g.data_ptr(), om.data_ptr(), dz.data_ptr(), dx.data_ptr(),
         dw.data_ptr(), dwom.data_ptr(), dbom.data_ptr(), b, h, w, cp, cout,
-        float(max_shift), _fused_dw_pixels_per_block(b * h * w, cp, cout),
-        stream)
+        float(max_shift), _dw_pixels_per_block(b * h * w, cp, cout), stream)
     _raise_on(err, "dcn_fused_bwd")
     LAUNCHES["dcn_fused_bwd"] += 1
     # dx rounded to bf16 once, after both of its parts are in
@@ -574,38 +595,12 @@ def dcn_sel_backward(x, offset, mask, weight, g,
     weight's dtype. The bias gradient, sum(g), is the caller's."""
     if not x.is_cuda:
         return dcn_backward_plain(x, offset, mask, weight, g, max_shift)
-    g = g.contiguous()
     _check(x, offset, mask, weight, None, g, x_dtypes=_F32_BF16,
            weight_dtypes=_F32_BF16)
     with torch.cuda.device(x.device):
-        return _sel_backward_launch(x, offset, mask, weight, g, max_shift,
-                                    torch.cuda.current_stream().cuda_stream)
-
-
-def _sel_backward_launch(x, offset, mask, weight, g, max_shift, stream):
-    b, cin, h, w = x.shape
-    cout = weight.shape[0]
-    dev = x.device
-    xs = _stage_x(x)
-    wt_t = (weight.permute(2, 3, 0, 1).reshape(9, cout, cin)
-            .to(torch.bfloat16).contiguous())
-    offset, mask = offset.contiguous(), mask.contiguous()
-    dx = torch.zeros((b, h, w, cin), dtype=torch.float32, device=dev)
-    doff = torch.empty_like(offset)
-    dmask = torch.empty_like(mask)
-    dw = torch.zeros((9, cin, cout), dtype=torch.float32, device=dev)
-    err = _lib("dcn_sel_bwd").dcn_sel_bwd(
-        xs.data_ptr(), offset.data_ptr(), mask.data_ptr(), wt_t.data_ptr(),
-        g.data_ptr(), dx.data_ptr(), doff.data_ptr(), dmask.data_ptr(),
-        dw.data_ptr(), b, h, w, cin, cout, float(max_shift),
-        _dw_pixels_per_block(b * h * w, cin, cout),
-        int(g.dtype == torch.bfloat16), stream)
-    _raise_on(err, "dcn_sel_bwd")
-    LAUNCHES["dcn_sel_bwd"] += 1
-    # dx rounded to x's dtype once, after every atomic is in
-    dx_out = torch.empty((b, cin, h, w), dtype=x.dtype, device=dev)
-    dx_out.copy_(dx.permute(0, 3, 1, 2))
-    return dx_out, doff, dmask, _dw_to_oihw(dw, cout).to(weight.dtype)
+        return _explicit_backward_launch(
+            "dcn_sel_bwd", x, offset, mask, weight, g, max_shift,
+            torch.cuda.current_stream().cuda_stream)
 
 
 class _DCNSelectFn(torch.autograd.Function):

@@ -18,10 +18,12 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      and the fused pair at MobileNetV2's 256 -> 256 shapes (@32 and @64,
      batch 32); one call of the fused pair at the largest DLA-34 shape is
      profiled for its launches (1 forward, 4 backward) and each launch's
-     device time;
+     device time, and so is one call of the float32 backward there (2
+     launches);
    - the "select" pair, in float32 and in bfloat16, at MobileNetV2's
      1280 -> 256 DCN shapes (512 px train, batch 32: 16 x 16; 800 px eval,
-     batch 4: 25 x 25) and at 2 x 300 x 300 x 64;
+     batch 4: 25 x 25) and at 2 x 300 x 300 x 64; one bfloat16 call of its
+     backward at the train shape is profiled (2 launches);
    - the wide forward (dx clamped too), in both dtypes, at 2 x 300 x 300 x
      64 and at DLA-34's 64 -> 64 @272, batch 4 (the 1088 px eval);
 4. DLA-34 train and eval: ``experiment=baseline`` (full width, ``dcn_impl:
@@ -51,8 +53,9 @@ Any failure exits non-zero. ``--json PATH`` also writes every measurement
 to PATH; ``--profile`` adds a torch.profiler breakdown by kernel of two
 more train steps of each model at each precision; ``--parent DIR`` (a
 checkout of another commit, e.g. ``git archive`` of the parent unpacked
-under ``build/``) builds that checkout's kernels too and times its fused
-pair at every fused shape in the same run, in turns (its, this, this, its).
+under ``build/``) builds that checkout's kernels too and times, in the same
+run and in turns (its, this, this, its), its fused pair at every fused
+shape and its float32 and select backwards at every shape of theirs.
 """
 
 from __future__ import annotations
@@ -120,6 +123,15 @@ def time_ms(fn, budget_ms: float = 300.0) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_in_turns(fn, parent_fn):
+    """(ms of ``fn``, ms of ``parent_fn``), timed in turns: parent, this,
+    this, parent; the parent's None without ``parent_fn``."""
+    if parent_fn is None:
+        return time_ms(fn), None
+    runs = [time_ms(f) for f in (parent_fn, fn, fn, parent_fn)]
+    return (runs[1] + runs[2]) / 2, (runs[0] + runs[3]) / 2
 
 
 def bound_ms(bytes_moved: float, flops: float):
@@ -234,21 +246,26 @@ def print_record(label, batch, cin, cout, h, w, layers, errs, t, fb, fk, bb,
           flush=True)
 
 
+EXPLICIT_PAIRS = {"f32": ("dcn_forward", "dcn_backward"),
+                  "select": ("dcn_sel_forward", "dcn_sel_backward")}
+
+
 def check_kernels(shapes, batch, device, label, pair="f32",
-                  dtype="float32"):
+                  dtype="float32", parent=None):
     """Phase 3 for an explicit-offset kernel pair at one input size:
     ``pair`` "f32" (``dcn_forward``/``dcn_backward``, float32 only) or
     "select" (``dcn_sel_forward``/``dcn_sel_backward``, x, g, out, dx and
     the weight in ``dtype``). Returns per-shape records. The yardstick is
-    cuDNN's convolution of the same shape in the same dtype."""
+    cuDNN's convolution of the same shape in the same dtype. ``parent``,
+    another checkout's ``dcn_cuda`` module, has its backward timed beside
+    this one's, in turns."""
     import torch
     import torch.nn.functional as F
 
     from centernet_uda_torch.ops import dcn_cuda
 
-    fwd, bwd = {"f32": (dcn_cuda.dcn_forward, dcn_cuda.dcn_backward),
-                "select": (dcn_cuda.dcn_sel_forward,
-                           dcn_cuda.dcn_sel_backward)}[pair]
+    fwd, bwd = (getattr(dcn_cuda, n) for n in EXPLICIT_PAIRS[pair])
+    parent_bwd = parent and getattr(parent, EXPLICIT_PAIRS[pair][1])
     dt = getattr(torch, dtype)
     elem = torch.finfo(dt).bits // 8
     records = []
@@ -287,13 +304,16 @@ def check_kernels(shapes, batch, device, label, pair="f32",
                      + 4.0 * cout)
         bwd_bytes = (elem * n * (2 * cin + cout) + 4.0 * n * 27 * 2
                      + 2 * weights + 4.0 * cout)
+        bwd_ms, parent_bwd_ms = time_in_turns(
+            lambda: bwd(x, off, m, wt, g),
+            parent_bwd and (lambda: parent_bwd(x, off, m, wt, g)))
         t = {
             "fwd_ms": time_ms(lambda: fwd(x, off, m, wt, bias)),
             "twin_fwd_ms": time_ms(lambda: dcn_cuda.dcn_v2_twin(
                 x, off, m, wt, bias)),
             "conv_fwd_ms": time_ms(lambda: F.conv2d(x, wt, bias.to(dt),
                                                     padding=1)),
-            "bwd_ms": time_ms(lambda: bwd(x, off, m, wt, g)),
+            "bwd_ms": bwd_ms,
             "twin_bwd_ms": time_ms(lambda: dcn_cuda.dcn_backward_plain(
                 x, off, m, wt, g)),
             "conv_bwd_ms": time_ms(
@@ -301,6 +321,8 @@ def check_kernels(shapes, batch, device, label, pair="f32",
                     g, x, wt, [cout], [1, 1], [1, 1], [1, 1], False, [0, 0],
                     1, [True, True, True])),
         }
+        if parent_bwd_ms is not None:
+            t["parent_bwd_ms"] = parent_bwd_ms
         fb, fk = bound_ms(fwd_bytes, fwd_flops)
         bb, bk = bound_ms(bwd_bytes, 2 * fwd_flops)
         records.append({
@@ -425,13 +447,10 @@ def check_fused_kernels(shapes, batch, device, label, parent=None):
                for name, m in (("", dcn_cuda), ("parent_", parent)) if m}
         t = {}
         for d, fns in (("fwd", fwd), ("bwd", bwd)):
-            if parent is None:
-                t[f"{d}_ms"] = time_ms(fns[""])
-                continue
-            # in turns: parent, this, this, parent
-            runs = [time_ms(fns[n]) for n in ("parent_", "", "", "parent_")]
-            t[f"parent_{d}_ms"] = (runs[0] + runs[3]) / 2
-            t[f"{d}_ms"] = (runs[1] + runs[2]) / 2
+            t[f"{d}_ms"], parent_ms = time_in_turns(fns[""],
+                                                    fns.get("parent_"))
+            if parent_ms is not None:
+                t[f"parent_{d}_ms"] = parent_ms
         t.update({
             "twin_fwd_ms": time_ms(lambda: dcn_cuda.dcn_v2_fused_twin(
                 x, om_w, om_b, wt, bias)),
@@ -460,49 +479,77 @@ def check_fused_kernels(shapes, batch, device, label, parent=None):
     return records
 
 
-def profile_fused_call(shape, batch, device):
-    """One call of each fused wrapper at ``shape`` under torch.profiler:
-    the kernels each launches (the forward must launch 1, the backward 4)
-    and each launch's device ms."""
+def profile_launches(label, fn, want):
+    """One call of ``fn`` under torch.profiler: the DCN kernels it launches
+    (there must be ``want``) and each launch's device ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    # the profiler now and then returns a cycle without device events; a
+    # profile that saw no DCN kernel at all is taken again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        launches = [(ev.name, ev.device_time_total / 1e3)
+                    for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA
+                    and "dcn_" in ev.name]
+        if launches:
+            break
+    if len(launches) != want:
+        raise AssertionError(f"{label} launched {len(launches)} kernels, "
+                             f"not {want}: {launches}")
+    print(f"{label}: {want} launch(es) per call: " + ", ".join(
+        f"{name.split('(')[0].split('<')[0].split(' ')[-1]} {ms:.3f} ms"
+        for name, ms in launches), flush=True)
+    return launches
+
+
+def profile_fused_call(shape, batch, device):
+    """One call of each fused wrapper at ``shape`` under torch.profiler:
+    the forward must launch 1 kernel, the backward 4."""
+    import torch
 
     from centernet_uda_torch.ops import dcn_cuda
 
     cin, cout, h, w = shape
     x, om_w, om_b, wt, bias, g = make_fused_operands(7, batch, cin, cout, h,
                                                      w, device)
-    calls = {"fwd": (lambda: dcn_cuda.dcn_fused_forward(x, om_w, om_b, wt,
-                                                        bias), 1),
-             "bwd": (lambda: dcn_cuda.dcn_fused_backward(x, om_w, om_b, wt,
-                                                         g), 4)}
-    record = {}
-    for d, (fn, want) in calls.items():
-        fn()
-        torch.cuda.synchronize()
-        # the profiler now and then returns a cycle without device events;
-        # a profile that saw no fused kernel at all is taken again
-        for _ in range(3):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            launches = [(ev.name, ev.device_time_total / 1e3)
-                        for ev in prof.events()
-                        if ev.device_type == torch.autograd.DeviceType.CUDA
-                        and "dcn_fused_" in ev.name]
-            if launches:
-                break
-        if len(launches) != want:
-            raise AssertionError(f"fused {d} launched {len(launches)} "
-                                 f"kernels, not {want}: {launches}")
-        print(f"fused {d} B={batch} {cin}->{cout} @{h}x{w}: {want} "
-              f"launch(es) per call: " + ", ".join(
-                  f"{name.split('(')[0].split('<')[0].split(' ')[-1]} "
-                  f"{ms:.3f} ms" for name, ms in launches), flush=True)
-        record[d] = launches
+    where = f"B={batch} {cin}->{cout} @{h}x{w}"
+    record = {
+        "fwd": profile_launches(
+            f"fused fwd {where}",
+            lambda: dcn_cuda.dcn_fused_forward(x, om_w, om_b, wt, bias), 1),
+        "bwd": profile_launches(
+            f"fused bwd {where}",
+            lambda: dcn_cuda.dcn_fused_backward(x, om_w, om_b, wt, g), 4)}
     del x, om_w, om_b, wt, bias, g
     torch.cuda.empty_cache()
     return record
+
+
+def profile_explicit_backward(pair, dtype, shape, batch, device):
+    """One call of the explicit-offset backward of ``pair`` ("f32" or
+    "select") in ``dtype`` at ``shape`` under torch.profiler: it must
+    launch 2 kernels."""
+    import torch
+
+    from centernet_uda_torch.ops import dcn_cuda
+
+    cin, cout, h, w = shape
+    x, off, m, wt, _, g = make_operands(8, batch, cin, cout, h, w, device)
+    dt = getattr(torch, dtype)
+    x, wt, g = x.to(dt), wt.to(dt), g.to(dt)
+    bwd = getattr(dcn_cuda, EXPLICIT_PAIRS[pair][1])
+    launches = profile_launches(
+        f"{pair} {dtype} bwd B={batch} {cin}->{cout} @{h}x{w}",
+        lambda: bwd(x, off, m, wt, g), 2)
+    del x, off, m, wt, g
+    torch.cuda.empty_cache()
+    return launches
 
 
 def load_parent(path):
@@ -879,12 +926,13 @@ def main(argv=None) -> int:
     m_label, wide_label = f"mnv2_train{TRAIN_SIZE}", f"lanes{WIDE_SIZE}"
 
     phase("kernels against their plain twin")
-    records = check_kernels(train_shapes, TRAIN_BATCH, device, train_label)
+    parent = load_parent(args.parent) if args.parent else None
+    records = check_kernels(train_shapes, TRAIN_BATCH, device, train_label,
+                            parent=parent)
     records += check_kernels(eval_shapes, EVAL_BATCH_KERNELS, device,
-                             f"eval{EVAL_SIZE}")
+                             f"eval{EVAL_SIZE}", parent=parent)
     report["shapes"] = records
     phase("fused bf16 kernels against their plain twin")
-    parent = load_parent(args.parent) if args.parent else None
     fused = check_fused_kernels(train_shapes, TRAIN_BATCH, device,
                                 train_label, parent)
     fused += check_fused_kernels(eval_shapes, EVAL_BATCH_KERNELS, device,
@@ -895,17 +943,22 @@ def main(argv=None) -> int:
     largest = max(train_shapes, key=lambda k: k[0] * (k[1] + 27) * k[2] * k[3])
     report["fused_call_launches"] = profile_fused_call(largest, TRAIN_BATCH,
                                                        device)
-    del parent
+    report["f32_bwd_call_launches"] = profile_explicit_backward(
+        "f32", "float32", largest, TRAIN_BATCH, device)
     phase("select kernels against their plain twin")
     select = []
     for dtype in ("float32", "bfloat16"):
         select += check_kernels(sel_train, MNV2_TRAIN_BATCH, device, m_label,
-                                "select", dtype)
+                                "select", dtype, parent)
         select += check_kernels(sel_eval, EVAL_BATCH_KERNELS, device,
-                                f"mnv2_eval{EVAL_SIZE}", "select", dtype)
+                                f"mnv2_eval{EVAL_SIZE}", "select", dtype,
+                                parent)
         select += check_kernels(shape_300, b300, device, "w300", "select",
-                                dtype)
+                                dtype, parent)
+    del parent
     report["select_shapes"] = select
+    report["select_bwd_call_launches"] = profile_explicit_backward(
+        "select", "bfloat16", max(sel_train), MNV2_TRAIN_BATCH, device)
     phase("wide forward against its plain twin")
     wide = []
     for dtype in ("float32", "bfloat16"):

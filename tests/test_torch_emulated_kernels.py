@@ -5,7 +5,8 @@ card-only tests (``tests/test_torch_gpu.py``) skip without one. This file
 compiles the same seven sources with the host C++ compiler against
 ``EMULATION_HEADER`` below (a CPU emulation of the CUDA subset they use: a
 block's threads as a pool of OS threads, ``__syncthreads`` as a barrier,
-the warp-wide ``mma.sync`` primitives lane by lane),
+the warp-wide ``mma.sync`` primitives lane by lane; the ``<<<...>>>``
+launches of the sources and of their headers rewritten as calls),
 loads them in place of the ``nvcc`` builds, and runs them through the
 wrappers' launch helpers on CPU tensors at tiny shapes. That holds the
 kernels' indexing, tiling, masking and arithmetic against the twins on every
@@ -319,12 +320,19 @@ def emulated_libs(tmp_path_factory):
     (out / "cuda_emulation.h").write_text(EMULATION_HEADER)
     for header in ("cuda_bf16.h", "cuda_runtime.h"):
         (out / header).write_text('#include "cuda_emulation.h"\n')
+
+    def emulated(path):  # launches rewritten as emu::launch calls
+        return LAUNCH.sub(lambda m: f"::emu::launch({m[1]}, {m[2]}, ",
+                          path.read_text())
+
+    # the sources' own headers, launches rewritten too, beside the .cpp
+    # files, so that their quoted includes find these copies first
+    for header in dcn_cuda.CSRC.glob("*.cuh"):
+        (out / header.name).write_text(emulated(header))
     procs = {}
     for name, src in dcn_cuda.SOURCES.items():
-        code = LAUNCH.sub(lambda m: f"::emu::launch({m[1]}, {m[2]}, ",
-                          (dcn_cuda.CSRC / src).read_text())
         cpp = out / f"{name}.cpp"
-        cpp.write_text(code)
+        cpp.write_text(emulated(dcn_cuda.CSRC / src))
         lib = out / f"lib{name}.so"
         procs[name] = (lib, subprocess.Popen(
             [cxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread",
@@ -346,7 +354,6 @@ def emulated(emulated_libs, monkeypatch):
     monkeypatch.setattr(dcn_cuda, "_LIBS", {})
     monkeypatch.setattr(dcn_cuda, "_lib_path", emulated_libs.__getitem__)
     monkeypatch.setattr(dcn_cuda, "_DW_TARGET_BLOCKS", 8)
-    monkeypatch.setattr(dcn_cuda, "_FUSED_DW_TARGET_BLOCKS", 8)
     dcn_cuda.reset_launches()
     yield
     dcn_cuda.reset_launches()
@@ -366,20 +373,56 @@ SHAPES = [
     (1, 40, 72, 5, 13),
 ]
 
+# the tensor-core backward's tile edges (dcn_sample_bwd.cuh), shared by the
+# explicit-offset and fused layers: Cin not a multiple of 8 (padded) nor of
+# the 64-channel chunk; Cin split across data-kernel blocks (6 chunks of 64
+# for one tile); Cout above one 256-wide group (two groups, two g panels);
+# a map under one 8 x 8 tile with W < 8. A sixth entry "integer" rounds the
+# offsets to integers (zero but on the clamped rows): every sample sits on
+# an integer position, where the y0+1 corner still enters d(dy).
+EXPLICIT_EDGE_SHAPES = [
+    pytest.param((1, 20, 40, 9, 10), id="cin20-padded"),
+    pytest.param((1, 384, 16, 4, 8), id="cin-split"),
+    pytest.param((1, 24, 264, 3, 9), id="cout264"),
+    pytest.param((1, 24, 48, 5, 6), id="under-one-tile-w6"),
+    pytest.param((2, 16, 16, 12, 12, "integer"), id="integer-offsets"),
+]
 
-@pytest.mark.parametrize("shape", SHAPES)
-def test_emulated_f32_kernels_match_twin(emulated, shape):
-    x, off, m, wt, bias = make_inputs(0, *shape, "cpu")
+
+def explicit_inputs(seed, shape):
+    """make_inputs on ``shape``'s first five entries, and g; "integer"
+    keeps the clamped rows and zeroes every other offset."""
+    x, off, m, wt, bias = make_inputs(seed, *shape[:5], "cpu")
+    if shape[5:] == ("integer",):
+        off = torch.where(off.abs() >= PALLAS_MAX_SHIFT, off.round(),
+                          torch.zeros_like(off))
     g = torch.randn(shape[0], shape[2], shape[3], shape[4],
-                    generator=torch.Generator().manual_seed(1))
-    out = dcn_cuda._forward_launch(x, off, m, wt, bias, PALLAS_MAX_SHIFT, 0)
-    assert_close(out, dcn_cuda.dcn_v2_twin(x, off, m, wt, bias), "out")
-    got = dcn_cuda._backward_launch(x, off, m, wt, g, PALLAS_MAX_SHIFT, 0)
+                    generator=torch.Generator().manual_seed(seed + 1))
+    return x, off, m, wt, bias, g
+
+
+def check_explicit_backward(name, x, off, m, wt, g, dtype):
+    """One call of the explicit-offset backward ``name`` against autograd
+    through the twin: gradients in their dtypes and within tolerance, no dy
+    gradient where the clamp holds, and nonzero offset gradients."""
+    got = dcn_cuda._explicit_backward_launch(name, x, off, m, wt, g,
+                                             PALLAS_MAX_SHIFT, 0)
     want = dcn_cuda.dcn_backward_plain(x, off, m, wt, g)
-    for name, a, b in zip(("dx", "doff", "dmask", "dw"), got, want):
-        assert_close(a, b, name)
+    assert got[0].dtype == got[3].dtype == dtype
+    assert got[1].dtype == got[2].dtype == torch.float32
+    for grad, a, b in zip(("dx", "doff", "dmask", "dw"), got, want):
+        assert_close(a, b, grad)
     sat = off[:, 0::2].abs() >= PALLAS_MAX_SHIFT
     assert float(got[1][:, 0::2][sat].abs().max()) == 0.0
+    assert float(got[1].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("shape", SHAPES + EXPLICIT_EDGE_SHAPES)
+def test_emulated_f32_kernels_match_twin(emulated, shape):
+    x, off, m, wt, bias, g = explicit_inputs(0, shape)
+    out = dcn_cuda._forward_launch(x, off, m, wt, bias, PALLAS_MAX_SHIFT, 0)
+    assert_close(out, dcn_cuda.dcn_v2_twin(x, off, m, wt, bias), "out")
+    check_explicit_backward("dcn_bwd", x, off, m, wt, g, torch.float32)
     assert dcn_cuda.LAUNCHES["dcn_fwd"] == dcn_cuda.LAUNCHES["dcn_bwd"] == 1
 
 
@@ -433,25 +476,18 @@ def test_emulated_fused_kernels_match_twin(emulated, shape, mode):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(2, 8, 8, 12, 12), (1, 40, 72, 5, 6)])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 12, 12), (1, 40, 72, 5, 6)]
+                         + EXPLICIT_EDGE_SHAPES)
 def test_emulated_select_kernels_match_twin(emulated, shape, dtype):
     """Rows 6 and 7: x, out, g, dx and dW in ``dtype``; W < 8 in the second
     shape."""
-    x, off, m, wt, bias = make_inputs(3, *shape, "cpu")
-    x, wt = x.to(dtype), wt.to(dtype)
-    g = torch.randn(shape[0], shape[2], shape[3], shape[4],
-                    generator=torch.Generator().manual_seed(4)).to(dtype)
+    x, off, m, wt, bias, g = explicit_inputs(3, shape)
+    x, wt, g = x.to(dtype), wt.to(dtype), g.to(dtype)
     out = dcn_cuda._explicit_forward_launch("dcn_sel_fwd", x, off, m, wt,
                                             bias, PALLAS_MAX_SHIFT, 0)
     assert out.dtype == dtype
     assert_close(out, dcn_cuda.dcn_v2_twin(x, off, m, wt, bias), "out")
-    got = dcn_cuda._sel_backward_launch(x, off, m, wt, g, PALLAS_MAX_SHIFT, 0)
-    want = dcn_cuda.dcn_backward_plain(x, off, m, wt, g)
-    assert got[0].dtype == got[3].dtype == dtype
-    for name, a, b in zip(("dx", "doff", "dmask", "dw"), got, want):
-        assert_close(a, b, name)
-    sat = off[:, 0::2].abs() >= PALLAS_MAX_SHIFT
-    assert float(got[1][:, 0::2][sat].abs().max()) == 0.0
+    check_explicit_backward("dcn_sel_bwd", x, off, m, wt, g, dtype)
     assert dcn_cuda.LAUNCHES["dcn_sel_fwd"] == 1
     assert dcn_cuda.LAUNCHES["dcn_sel_bwd"] == 1
 

@@ -78,7 +78,13 @@ def test_forward_matches_twin(cuda, shape):
     assert_close(got, dcn_v2_twin(x, off, m, wt, bias), "out")
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+# the tensor-core backward's data kernel splits Cin across blocks where the
+# grid is short: 512 channels of 4 tiles, batch 2; MobileNetV2's 1280 -> 256
+# at the 800 px eval shape, batch 4
+BWD_SHAPES = SHAPES + [(2, 512, 256, 16, 16), (4, 1280, 256, 25, 25)]
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
 def test_backward_matches_twin(cuda, shape):
     x, off, m, wt, bias = make_inputs(1, *shape, cuda)
     g = torch.randn(shape[0], shape[2], shape[3], shape[4], device=cuda,
@@ -279,10 +285,13 @@ def test_fused_autograd_function_counts_and_bias(cuda):
 
 SEL_SHAPES = [
     # (b, cin, cout, h, w): Cin > 512 at MobileNetV2's 16 x 16, W < 8,
-    # W > 256
+    # W > 256; MobileNetV2's 800 px eval shape (Cin split across the data
+    # kernel's blocks); Cin split at one tile, Cout over one 256 group
     (2, 1280, 256, 16, 16),
     (2, 40, 72, 13, 5),
     (1, 16, 24, 6, 300),
+    (4, 1280, 256, 25, 25),
+    (1, 384, 264, 4, 8),
 ]
 DTYPES = [torch.float32, torch.bfloat16]
 

@@ -13,8 +13,10 @@ training steps). Variants, each a copy of ``centernet_uda_torch/csrc``
 built under ``build/ablation/``:
 
 - ``tree``: the sources as they are;
-- ``no_dx_reductions``: the backward's data kernel without its dx
-  reductions (dx comes out wrong; the time says what the reductions cost).
+- ``no_dx_reductions``: the backward's data kernel
+  (``dcn_sample_bwd.cuh``, shared with the explicit-offset backwards)
+  without its dx reductions (dx comes out wrong; the time says what the
+  reductions cost).
 
 The kernels' results are held against their twins by ``chip_smoke.py``, not
 here.
@@ -37,7 +39,7 @@ SHAPES = [  # ((cin, cout, h, w), batch): DLA-34 and MobileNetV2 path shapes
 VARIANTS = {
     "tree": [],
     "no_dx_reductions": [(
-        "dcn_fused_bwd.cu",
+        "dcn_sample_bwd.cuh",
         r"if \(w != 0\.f\) \{\s*red_add_v4\(dxb \+ at,.*?"
         r"red_add_v4\(dxb \+ at \+ 4,.*?\);\s*\}",
         "(void)w;")],
@@ -97,7 +99,7 @@ def per_launch(module, shape, batch, small_offsets, reps=3):
             ms = {}
             for ev in prof.events():
                 if (ev.device_type == torch.autograd.DeviceType.CUDA
-                        and "dcn_fused_" in ev.name):
+                        and "dcn_" in ev.name):
                     name = ev.name.split("(")[0].split("<")[0].split(" ")[-1]
                     ms[name] = (ms.get(name, 0.0)
                                 + ev.device_time_total / 1e3 / reps)
@@ -133,7 +135,7 @@ def main(argv=None) -> int:
                 print(f"{name:17s} B={batch} {shape} "
                       f"{'offsets<1px' if small else 'offsets~2px'}: " +
                       " | ".join(f"{d} " + ", ".join(
-                          f"{k.replace('dcn::dcn_fused_', '')} {v:.3f}"
+                          f"{k.replace('dcn::dcn_', '')} {v:.3f}"
                           for k, v in ms.items()) +
                           f" = {sum(ms.values()):.3f} ms"
                           for d, ms in r.items() if d in ("fwd", "bwd")),
