@@ -26,14 +26,6 @@ constexpr int kThreads = 256;  // every kernel: 256 threads
 constexpr int kTaps = 9;
 constexpr int kOm = 27;  // offset-conv channels: 18 offsets + 9 mask logits
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ float bf16_load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);

@@ -14,58 +14,51 @@
 // than by the lane width. None of that is a limit here: a Hopper block
 // gathers a corner as one contiguous run of channels (x is staged
 // channels-last), at any W and any Cin. So this source runs the shared
-// `dcn_fwd_kernel` body over the `OffsetMask` geometry (instantiated under
-// the `Select` tag, so profiles name it apart from dcn_fwd.cu's); what is
-// its own is the operand contract, x and out in f32 or in bf16 (the bf16
-// layer's explicit-offset route), chosen per call by `out_bf16`.
+// tensor-core forward of dcn_sample_fwd.cuh over the `OffsetMask` geometry
+// (instantiated under the `Select` tag, so profiles name it apart from
+// dcn_fwd.cu's); what is its own is the operand contract, x and out in f32
+// or in bf16 (the bf16 layer's explicit-offset route), chosen per call by
+// `out_bf16`. A map under one 8 x 8 tile (W < 8) leaves the tile's other
+// columns out of the tables and the stores.
 //
-// Bound on the H100: at MobileNetV2's 1280 -> 256 @16x16, batch 32, the
-// contraction (2*N*9*Cin*Cout = 48.3 GFLOP) over the bf16 tensor-core rate
-// (0.049 ms) is above the HBM time of x, offsets, mask and out. This
-// version runs it as f32 FMAs on the CUDA cores, so it is compute-bound
-// far above that bound; the Cin loop is 40 chunks of 32 channels, with the
-// sampling recomputed per Cout tile of 64.
-#include "dcn_kernels.cuh"
-
-namespace {
-
-template <typename OutT>
-int launch(const void* x, const void* offset, const void* mask,
-           const void* wt, const void* bias, void* out, int B, int H, int W,
-           int Cin, int Cout, float max_shift, cudaStream_t stream) {
-  using namespace dcn;
-  auto kernel = dcn_fwd_kernel<OffsetMask, OutT, false, Select>;
-  cudaError_t err = check_launch(kernel);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((H * W + kPix - 1) / kPix, (Cout + kCo - 1) / kCo, B);
-  if (grid.y > 65535 || grid.z > 65535)
-    return (int)cudaErrorInvalidConfiguration;
-  const OffsetMask geom{(const float*)offset, (const float*)mask, nullptr,
-                        nullptr};
-  kernel<<<grid, kThreads, 0, stream>>>(
-      (const __nv_bfloat16*)x, geom, (const __nv_bfloat16*)wt,
-      (const float*)bias, (OutT*)out, H, W, Cin, Cout, max_shift);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+// Bound on the H100 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py): at
+// MobileNetV2's 1280 -> 256 @16x16, batch 32, the contraction (2*N*9*Cin*
+// Cout = 48.3 GFLOP) over the bf16 tensor-core rate (0.049 ms) is above the
+// HBM time of x, offsets, mask and out. The grid is short there (4 tiles x
+// 32 images for 132 SMs; 16 x 4 at the 800 px eval): the design splits Cin
+// across blocks, so every sample is gathered once and the slices meet in an
+// f32 buffer by atomics, rather than narrow the channel group, which
+// gathers the tile once per group (0.54 against 0.79 ms there, 0.26
+// against 0.65 at the eval shape; tools/fwd_dcn_variants.py). The kernel
+// then takes 0.43 ms on the card (113 TFLOP/s), bound by the gather of
+// 1280 channels (four 16-byte corner loads per pixel, tap and 8 channels)
+// and the 9 x 10 chunk steps of a slice, each closed by a barrier.
+#include "dcn_sample_fwd.cuh"
 
 extern "C" {
 
+// Channels of Cin per block for this shape (a multiple of 8; less than Cp
+// where Cin is split across blocks), or minus a cudaError_t.
+int dcn_sel_fwd_cin_per_block(int B, int H, int W, int Cp, int Cout) {
+  return dcn::fwd_cin_per_block(B, H, W, Cp, Cout);
+}
+
 // Launches the forward on `stream`; returns the cudaError_t of the launch.
-// x is the bf16 channels-last staging of the layer's input; `out_bf16`
-// selects a bf16 (B, Cout, H, W) output, else f32.
+// Operands as dcn_fwd's; `out_bf16` selects a bf16 (B, Cout, H, W) output,
+// else f32. Where `cin_per_block` < Cp, the slices add into `sums` (f32,
+// zeroed) and the caller rounds it to the output.
 int dcn_sel_fwd(const void* x, const void* offset, const void* mask,
-                const void* wt, const void* bias, void* out, int B, int H,
-                int W, int Cin, int Cout, float max_shift, int out_bf16,
-                void* stream) {
-  if (B == 0 || H == 0 || W == 0 || Cout == 0) return (int)cudaSuccess;
-  const cudaStream_t s = (cudaStream_t)stream;
+                const void* wt, const void* bias, void* out, void* sums,
+                int B, int H, int W, int Cp, int Cout, int cin_per_block,
+                float max_shift, int out_bf16, void* stream) {
+  using namespace dcn;
   if (out_bf16)
-    return launch<__nv_bfloat16>(x, offset, mask, wt, bias, out, B, H, W,
-                                 Cin, Cout, max_shift, s);
-  return launch<float>(x, offset, mask, wt, bias, out, B, H, W, Cin, Cout,
-                       max_shift, s);
+    return launch_explicit_fwd<__nv_bfloat16, false, Select>(
+        x, offset, mask, wt, bias, out, sums, B, H, W, Cp, Cout,
+        cin_per_block, max_shift, stream);
+  return launch_explicit_fwd<float, false, Select>(
+      x, offset, mask, wt, bias, out, sums, B, H, W, Cp, Cout, cin_per_block,
+      max_shift, stream);
 }
 
 const char* dcn_sel_fwd_error_string(int err) {

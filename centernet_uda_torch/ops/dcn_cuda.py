@@ -1,40 +1,41 @@
 """Hand-written Hopper (sm_90a) kernels of the DCNv2 layer, and their build.
 
-Seven kernel sources, CUDA C++ in ``centernet_uda_torch/csrc/``. The
-explicit-offset forward body is shared through ``dcn_kernels.cuh``, the
-fused forward's offset-conv tile through ``dcn_fused.cuh``, and every
-backward runs the tensor-core sampling kernels of ``dcn_sample_bwd.cuh``
-(a data kernel for dx and the sampling gradients, a split-K weight kernel
-for dW), templates over the geometry: the explicit layer's offset and mask
-tensors, or the fused layer's offset-conv output. All the inline PTX
-(``ldmatrix``, ``mma.sync``, ``cp.async``, vector reductions) is in
-``dcn_mma.cuh``:
+Seven kernel sources, CUDA C++ in ``centernet_uda_torch/csrc/``. Every
+forward runs the tensor-core sampling forward of ``dcn_sample_fwd.cuh``
+(per 8 x 8 pixel tile: sampling tables, 16-byte corner gathers into a
+shared tile, ``mma.sync`` with W), a template over the geometry: the
+explicit layer's offset and mask tensors, or the fused layer's offset conv,
+computed per tile by ``dcn_fused.cuh``. Every backward runs the tensor-core
+sampling kernels of ``dcn_sample_bwd.cuh`` (a data kernel for dx and the
+sampling gradients, a split-K weight kernel for dW) over the same two
+geometries. All the inline PTX (``ldmatrix``, ``mma.sync``, ``cp.async``,
+vector reductions) is in ``dcn_mma.cuh``:
 
-- ``dcn_fwd`` (``csrc/dcn_fwd.cu``), the float32 layer's forward, replaces
-  the TPU kernel ``_dcn_kernel`` (``centernet_uda_tpu/ops/dcn_pallas.py``,
-  via ``dcn_v2_pallas_lanes``).
+- ``dcn_fwd`` (``csrc/dcn_fwd.cu``, one launch), the float32 layer's
+  forward, replaces the TPU kernel ``_dcn_kernel``
+  (``centernet_uda_tpu/ops/dcn_pallas.py``, via ``dcn_v2_pallas_lanes``).
 - ``dcn_bwd`` (``csrc/dcn_bwd.cu``, two launches: sampling gradients + dx,
   then dW, on the tensor cores; g rounded to bf16 once by the wrapper, as
   the TPU kernel rounds it) replaces ``_dcn_bwd_params_kernel`` (same file,
   via ``_bwd_params_call`` / ``dcn_v2_pallas_bwd_lanes``).
 - ``dcn_fused_fwd`` (``csrc/dcn_fused_fwd.cu``, one launch: the offset
-  conv, sampling and contraction of a pixel tile, all on the tensor cores),
-  the bfloat16 layer's forward with its offset conv inside, replaces
-  ``_dcn_fused_kernel`` (via ``dcn_v2_pallas_lanes_fused``).
+  conv, sampling and contraction of a pixel tile), the bfloat16 layer's
+  forward with its offset conv inside, replaces ``_dcn_fused_kernel`` (via
+  ``dcn_v2_pallas_lanes_fused``).
 - ``dcn_fused_bwd`` (``csrc/dcn_fused_bwd.cu``, four launches: om
   recompute, sampling data, dW with dW_om and db_om, dx from dz) replaces
   ``_dcn_fused_bwd_kernel`` (via ``dcn_v2_pallas_bwd_lanes_fused``).
-- ``dcn_sel_fwd`` (``csrc/dcn_sel_fwd.cu``), the forward at the "select"
-  shapes (Cin > 512, W > 256, W < 8), x and out in float32 or bfloat16,
-  replaces ``_sel_fwd_kernel`` (via ``dcn_v2_pallas_select``).
+- ``dcn_sel_fwd`` (``csrc/dcn_sel_fwd.cu``, one launch), the forward at the
+  "select" shapes (Cin > 512, W > 256, W < 8), x and out in float32 or
+  bfloat16, replaces ``_sel_fwd_kernel`` (via ``dcn_v2_pallas_select``).
 - ``dcn_sel_bwd`` (``csrc/dcn_sel_bwd.cu``, the same two launches as
   ``dcn_bwd``), its backward, g in x's dtype (rounded to bf16 for the
   kernels), dx rounded once to x's dtype, dW in the weight's dtype,
   replaces ``_sel_bwd_kernel`` (via ``dcn_v2_pallas_bwd_select``).
-- ``dcn_wide_fwd`` (``csrc/dcn_wide_fwd.cu``), the forward with dx clamped
-  too (forced "lanes" at W > 256), replaces ``_dcn_kernel`` in panel mode
-  (via ``_dcn_v2_pallas_wide``). Its backward is the exact op's on clipped
-  offsets, as in the JAX package.
+- ``dcn_wide_fwd`` (``csrc/dcn_wide_fwd.cu``, one launch), the forward with
+  dx clamped too (forced "lanes" at W > 256), replaces ``_dcn_kernel`` in
+  panel mode (via ``_dcn_v2_pallas_wide``). Its backward is the exact op's
+  on clipped offsets, as in the JAX package.
 
 Each source notes what bounds it on the H100 and what its design does about
 that. Their plain versions are ``ops.dcn.dcn_v2_twin`` and
@@ -77,8 +78,10 @@ SOURCES = {"dcn_fwd": "dcn_fwd.cu", "dcn_bwd": "dcn_bwd.cu",
            "dcn_fused_bwd": "dcn_fused_bwd.cu",
            "dcn_sel_fwd": "dcn_sel_fwd.cu", "dcn_sel_bwd": "dcn_sel_bwd.cu",
            "dcn_wide_fwd": "dcn_wide_fwd.cu"}
-_HEADERS = ("dcn_common.cuh", "dcn_kernels.cuh", "dcn_mma.cuh",
-            "dcn_fused.cuh", "dcn_sample_bwd.cuh")
+_HEADERS = ("dcn_common.cuh", "dcn_mma.cuh", "dcn_fused.cuh",
+            "dcn_sample_fwd.cuh", "dcn_sample_bwd.cuh")
+# the explicit-offset forwards, each with a ``<name>_cin_per_block`` query
+_EXPLICIT_FWD = ("dcn_fwd", "dcn_sel_fwd", "dcn_wide_fwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -158,15 +161,19 @@ def _lib(name: str) -> ctypes.CDLL:
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = getattr(lib, name)
     fn.argtypes = {
-        "dcn_fwd": [vp] * 6 + [i32] * 5 + [f32, vp],
+        "dcn_fwd": [vp] * 7 + [i32] * 6 + [f32, vp],
         "dcn_bwd": [vp] * 9 + [i32] * 5 + [f32, i32, vp],
         "dcn_fused_fwd": [vp] * 7 + [i32] * 5 + [f32, vp],
         "dcn_fused_bwd": [vp] * 11 + [i32] * 5 + [f32, i32, vp],
-        "dcn_sel_fwd": [vp] * 6 + [i32] * 5 + [f32, i32, vp],
+        "dcn_sel_fwd": [vp] * 7 + [i32] * 6 + [f32, i32, vp],
         "dcn_sel_bwd": [vp] * 9 + [i32] * 5 + [f32, i32, vp],
-        "dcn_wide_fwd": [vp] * 6 + [i32] * 5 + [f32, i32, vp],
+        "dcn_wide_fwd": [vp] * 7 + [i32] * 6 + [f32, i32, vp],
     }[name]
     fn.restype = i32
+    if name in _EXPLICIT_FWD:
+        query = getattr(lib, f"{name}_cin_per_block")
+        query.argtypes = [i32] * 5
+        query.restype = i32
     err_fn = getattr(lib, f"{name}_error_string")
     err_fn.argtypes = [i32]
     err_fn.restype = ctypes.c_char_p
@@ -227,13 +234,6 @@ def _stage_x(x: torch.Tensor) -> torch.Tensor:
     return xs
 
 
-def _stage_weight(weight: torch.Tensor) -> torch.Tensor:
-    """(Cout, Cin, 3, 3) -> (9, Cin, Cout) bf16, tap-major."""
-    cout, cin = weight.shape[:2]
-    return (weight.permute(2, 3, 1, 0).reshape(9, cin, cout)
-            .to(torch.bfloat16).contiguous())
-
-
 def dcn_forward(x, offset, mask, weight, bias,
                 max_shift: float = PALLAS_MAX_SHIFT) -> torch.Tensor:
     """DCNv2 forward, 3x3/s1/p1/d1. NCHW in and out; float32."""
@@ -242,31 +242,9 @@ def dcn_forward(x, offset, mask, weight, bias,
             return dcn_v2_twin(x, offset, mask, weight, bias, max_shift)
     _check(x, offset, mask, weight, bias)
     with torch.cuda.device(x.device):
-        return _forward_launch(x, offset, mask, weight, bias, max_shift,
-                               torch.cuda.current_stream().cuda_stream)
-
-
-def _forward_launch(x, offset, mask, weight, bias, max_shift, stream):
-    """The kernel path proper, on ``stream``, for checked operands. Each
-    wrapper has one (``_fused_forward_launch``, ``_fused_backward_launch``,
-    ``_explicit_forward_launch`` for the select and wide forwards and
-    ``_explicit_backward_launch`` for the float32 and select backwards);
-    ``tests/test_torch_emulated_kernels.py`` calls them on CPU tensors with
-    the sources built for the CPU."""
-    b, cin, h, w = x.shape
-    cout = weight.shape[0]
-    xs = _stage_x(x)
-    wt = _stage_weight(weight)
-    offset, mask, bias = (offset.contiguous(), mask.contiguous(),
-                          bias.contiguous())
-    out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
-    err = _lib("dcn_fwd").dcn_fwd(
-        xs.data_ptr(), offset.data_ptr(), mask.data_ptr(), wt.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
-        float(max_shift), stream)
-    _raise_on(err, "dcn_fwd")
-    LAUNCHES["dcn_fwd"] += 1
-    return out
+        return _explicit_forward_launch(
+            "dcn_fwd", x, offset, mask, weight, bias, max_shift,
+            torch.cuda.current_stream().cuda_stream)
 
 
 def dcn_backward_plain(x, offset, mask, weight, g,
@@ -571,20 +549,45 @@ def dcn_sel_forward(x, offset, mask, weight, bias,
 
 def _explicit_forward_launch(name, x, offset, mask, weight, bias,
                              max_shift, stream):
-    """One launch of ``dcn_sel_fwd`` or ``dcn_wide_fwd`` (same operands)."""
+    """One launch of ``dcn_fwd``, ``dcn_sel_fwd`` or ``dcn_wide_fwd`` (the
+    last two with x and out in float32 or bfloat16), on ``stream``, for
+    checked operands. Each wrapper has such a kernel path proper
+    (``_fused_forward_launch``, ``_fused_backward_launch`` and
+    ``_explicit_backward_launch`` for the float32 and select backwards);
+    ``tests/test_torch_emulated_kernels.py`` calls them on CPU tensors with
+    the sources built for the CPU.
+
+    Where the grid is short, the kernel splits Cin across blocks (the
+    library's ``<name>_cin_per_block`` says so): the slices then add into a
+    zeroed f32 buffer, ``out`` itself for a float32 output, else rounded
+    to bf16 once here."""
     b, cin, h, w = x.shape
     cout = weight.shape[0]
-    xs = _stage_x(x)
-    wt = _stage_weight(weight)
+    xs = _stage_x_padded(x)
+    cp = xs.shape[-1]
+    wt = _stage_weight_padded(weight, cp, -(-cout // 16) * 16)
     offset, mask, bias = (offset.contiguous(), mask.contiguous(),
                           bias.contiguous())
+    lib = _lib(name)
+    per_block = getattr(lib, f"{name}_cin_per_block")(b, h, w, cp, cout)
+    _raise_on(max(-per_block, 0), name)
+    f32 = x.dtype == torch.float32
     out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
-    err = getattr(_lib(name), name)(
+    sums = None
+    if per_block < cp:
+        sums = (out.zero_() if f32 else
+                torch.zeros((b, cout, h, w), dtype=torch.float32,
+                            device=x.device))
+    flag = [] if name == "dcn_fwd" else [int(not f32)]
+    err = getattr(lib, name)(
         xs.data_ptr(), offset.data_ptr(), mask.data_ptr(), wt.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
-        float(max_shift), int(x.dtype == torch.bfloat16), stream)
+        bias.data_ptr(), out.data_ptr(),
+        None if sums is None else sums.data_ptr(), b, h, w, cp, cout,
+        per_block, float(max_shift), *flag, stream)
     _raise_on(err, name)
     LAUNCHES[name] += 1
+    if sums is not None and not f32:
+        out.copy_(sums)
     return out
 
 

@@ -18,12 +18,12 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      and the fused pair at MobileNetV2's 256 -> 256 shapes (@32 and @64,
      batch 32); one call of the fused pair at the largest DLA-34 shape is
      profiled for its launches (1 forward, 4 backward) and each launch's
-     device time, and so is one call of the float32 backward there (2
-     launches);
+     device time, and so is one call of the float32 pair there (1 forward,
+     2 backward);
    - the "select" pair, in float32 and in bfloat16, at MobileNetV2's
      1280 -> 256 DCN shapes (512 px train, batch 32: 16 x 16; 800 px eval,
-     batch 4: 25 x 25) and at 2 x 300 x 300 x 64; one bfloat16 call of its
-     backward at the train shape is profiled (2 launches);
+     batch 4: 25 x 25) and at 2 x 300 x 300 x 64; one bfloat16 call of the
+     pair at the train shape is profiled (1 forward, 2 backward launches);
    - the wide forward (dx clamped too), in both dtypes, at 2 x 300 x 300 x
      64 and at DLA-34's 64 -> 64 @272, batch 4 (the 1088 px eval);
 4. DLA-34 train and eval: ``experiment=baseline`` (full width, ``dcn_impl:
@@ -55,7 +55,8 @@ more train steps of each model at each precision; ``--parent DIR`` (a
 checkout of another commit, e.g. ``git archive`` of the parent unpacked
 under ``build/``) builds that checkout's kernels too and times, in the same
 run and in turns (its, this, this, its), its fused pair at every fused
-shape and its float32 and select backwards at every shape of theirs.
+shape, its float32 and select pairs and its wide forward at every shape of
+theirs.
 """
 
 from __future__ import annotations
@@ -257,15 +258,16 @@ def check_kernels(shapes, batch, device, label, pair="f32",
     "select" (``dcn_sel_forward``/``dcn_sel_backward``, x, g, out, dx and
     the weight in ``dtype``). Returns per-shape records. The yardstick is
     cuDNN's convolution of the same shape in the same dtype. ``parent``,
-    another checkout's ``dcn_cuda`` module, has its backward timed beside
-    this one's, in turns."""
+    another checkout's ``dcn_cuda`` module, has its pair timed beside this
+    one's, in turns."""
     import torch
     import torch.nn.functional as F
 
     from centernet_uda_torch.ops import dcn_cuda
 
     fwd, bwd = (getattr(dcn_cuda, n) for n in EXPLICIT_PAIRS[pair])
-    parent_bwd = parent and getattr(parent, EXPLICIT_PAIRS[pair][1])
+    parent_fwd, parent_bwd = (parent and getattr(parent, n)
+                              for n in EXPLICIT_PAIRS[pair])
     dt = getattr(torch, dtype)
     elem = torch.finfo(dt).bits // 8
     records = []
@@ -304,11 +306,14 @@ def check_kernels(shapes, batch, device, label, pair="f32",
                      + 4.0 * cout)
         bwd_bytes = (elem * n * (2 * cin + cout) + 4.0 * n * 27 * 2
                      + 2 * weights + 4.0 * cout)
+        fwd_ms, parent_fwd_ms = time_in_turns(
+            lambda: fwd(x, off, m, wt, bias),
+            parent_fwd and (lambda: parent_fwd(x, off, m, wt, bias)))
         bwd_ms, parent_bwd_ms = time_in_turns(
             lambda: bwd(x, off, m, wt, g),
             parent_bwd and (lambda: parent_bwd(x, off, m, wt, g)))
         t = {
-            "fwd_ms": time_ms(lambda: fwd(x, off, m, wt, bias)),
+            "fwd_ms": fwd_ms,
             "twin_fwd_ms": time_ms(lambda: dcn_cuda.dcn_v2_twin(
                 x, off, m, wt, bias)),
             "conv_fwd_ms": time_ms(lambda: F.conv2d(x, wt, bias.to(dt),
@@ -321,7 +326,8 @@ def check_kernels(shapes, batch, device, label, pair="f32",
                     g, x, wt, [cout], [1, 1], [1, 1], [1, 1], False, [0, 0],
                     1, [True, True, True])),
         }
-        if parent_bwd_ms is not None:
+        if parent_fwd_ms is not None:
+            t["parent_fwd_ms"] = parent_fwd_ms
             t["parent_bwd_ms"] = parent_bwd_ms
         fb, fk = bound_ms(fwd_bytes, fwd_flops)
         bb, bk = bound_ms(bwd_bytes, 2 * fwd_flops)
@@ -339,11 +345,13 @@ def check_kernels(shapes, batch, device, label, pair="f32",
     return records
 
 
-def check_wide_kernel(shapes, batch, device, label, dtype="float32"):
+def check_wide_kernel(shapes, batch, device, label, dtype="float32",
+                      parent=None):
     """Phase 3 for the wide forward (both offsets clamped) in ``dtype``:
     against ``dcn_v2_twin(..., clamp_dx=True)``, with dx scaled to std 16
-    so many samples pass the clamp. Its backward is the exact op's, not a
-    kernel. Returns per-shape records."""
+    so many samples pass the clamp, and timed in turns beside ``parent``'s
+    where given. Its backward is the exact op's, not a kernel. Returns
+    per-shape records."""
     import torch
     import torch.nn.functional as F
 
@@ -368,14 +376,18 @@ def check_wide_kernel(shapes, batch, device, label, dtype="float32"):
         flops = 2.0 * n * cin * cout * 9
         nbytes = (elem * n * (cin + cout) + 4.0 * n * 27 + 4.0 * 9 * cin
                   * cout + 4.0 * cout)
+        fwd_ms, parent_fwd_ms = time_in_turns(
+            lambda: dcn_cuda.dcn_wide_forward(x, off, m, wt, bias),
+            parent and (lambda: parent.dcn_wide_forward(x, off, m, wt, bias)))
         t = {
-            "fwd_ms": time_ms(lambda: dcn_cuda.dcn_wide_forward(
-                x, off, m, wt, bias)),
+            "fwd_ms": fwd_ms,
             "twin_fwd_ms": time_ms(lambda: dcn_cuda.dcn_v2_twin(
                 x, off, m, wt, bias, clamp_dx=True)),
             "conv_fwd_ms": time_ms(lambda: F.conv2d(
                 x, wt.to(dt), bias.to(dt), padding=1)),
         }
+        if parent_fwd_ms is not None:
+            t["parent_fwd_ms"] = parent_fwd_ms
         fb, fk = bound_ms(nbytes, flops)
         records.append({
             "path": label, "dtype": dtype, "batch": batch, "cin": cin,
@@ -386,8 +398,9 @@ def check_wide_kernel(shapes, batch, device, label, dtype="float32"):
         print(f"wide {dtype} {label} B={batch} {cin}->{cout} @{h}x{w} "
               f"(x{layers}): err {errs['out'][0]:.3g}/{errs['out'][1]:.2g} "
               f"| fwd {t['fwd_ms']:.3f} ms (twin {t['twin_fwd_ms']:.3f}, "
-              f"conv {t['conv_fwd_ms']:.3f}, bound {fb:.4f} {fk})",
-              flush=True)
+              f"conv {t['conv_fwd_ms']:.3f}"
+              + (f", parent {parent_fwd_ms:.3f}" if parent else "")
+              + f", bound {fb:.4f} {fk})", flush=True)
         del x, off, m, wt, bias
         torch.cuda.empty_cache()
     return records
@@ -531,25 +544,28 @@ def profile_fused_call(shape, batch, device):
     return record
 
 
-def profile_explicit_backward(pair, dtype, shape, batch, device):
-    """One call of the explicit-offset backward of ``pair`` ("f32" or
-    "select") in ``dtype`` at ``shape`` under torch.profiler: it must
-    launch 2 kernels."""
+def profile_explicit_pair(pair, dtype, shape, batch, device):
+    """One call of each wrapper of the explicit-offset ``pair`` ("f32" or
+    "select") in ``dtype`` at ``shape`` under torch.profiler: the forward
+    must launch 1 kernel, the backward 2."""
     import torch
 
     from centernet_uda_torch.ops import dcn_cuda
 
     cin, cout, h, w = shape
-    x, off, m, wt, _, g = make_operands(8, batch, cin, cout, h, w, device)
+    x, off, m, wt, bias, g = make_operands(8, batch, cin, cout, h, w, device)
     dt = getattr(torch, dtype)
     x, wt, g = x.to(dt), wt.to(dt), g.to(dt)
-    bwd = getattr(dcn_cuda, EXPLICIT_PAIRS[pair][1])
-    launches = profile_launches(
-        f"{pair} {dtype} bwd B={batch} {cin}->{cout} @{h}x{w}",
-        lambda: bwd(x, off, m, wt, g), 2)
-    del x, off, m, wt, g
+    fwd, bwd = (getattr(dcn_cuda, n) for n in EXPLICIT_PAIRS[pair])
+    where = f"{pair} {dtype} B={batch} {cin}->{cout} @{h}x{w}"
+    record = {
+        "fwd": profile_launches(f"{where} fwd",
+                                lambda: fwd(x, off, m, wt, bias), 1),
+        "bwd": profile_launches(f"{where} bwd",
+                                lambda: bwd(x, off, m, wt, g), 2)}
+    del x, off, m, wt, bias, g
     torch.cuda.empty_cache()
-    return launches
+    return record
 
 
 def load_parent(path):
@@ -829,7 +845,7 @@ def main(argv=None) -> int:
                         help="after the checks, profile two train steps at "
                              "each precision with torch.profiler")
     parser.add_argument("--parent", help="a checkout of another commit whose "
-                        "fused pair is timed beside this one's")
+                        "kernels are timed beside this one's")
     args = parser.parse_args(argv)
 
     import torch
@@ -943,7 +959,7 @@ def main(argv=None) -> int:
     largest = max(train_shapes, key=lambda k: k[0] * (k[1] + 27) * k[2] * k[3])
     report["fused_call_launches"] = profile_fused_call(largest, TRAIN_BATCH,
                                                        device)
-    report["f32_bwd_call_launches"] = profile_explicit_backward(
+    report["f32_call_launches"] = profile_explicit_pair(
         "f32", "float32", largest, TRAIN_BATCH, device)
     phase("select kernels against their plain twin")
     select = []
@@ -955,16 +971,17 @@ def main(argv=None) -> int:
                                 parent)
         select += check_kernels(shape_300, b300, device, "w300", "select",
                                 dtype, parent)
-    del parent
     report["select_shapes"] = select
-    report["select_bwd_call_launches"] = profile_explicit_backward(
+    report["select_call_launches"] = profile_explicit_pair(
         "select", "bfloat16", max(sel_train), MNV2_TRAIN_BATCH, device)
     phase("wide forward against its plain twin")
     wide = []
     for dtype in ("float32", "bfloat16"):
         wide += check_wide_kernel(wide_shapes, WIDE_BATCH, device,
-                                  wide_label, dtype)
-        wide += check_wide_kernel(shape_300, b300, device, "w300", dtype)
+                                  wide_label, dtype, parent)
+        wide += check_wide_kernel(shape_300, b300, device, "w300", dtype,
+                                  parent)
+    del parent
     report["wide_shapes"] = wide
 
     rng = np.random.RandomState(int(cfg.seed))

@@ -389,6 +389,12 @@ EXPLICIT_EDGE_SHAPES = [
 ]
 
 
+def assert_not_bf16(out):
+    """A float32 output keeps its f32 sums: not every value is a bf16."""
+    assert out.dtype == torch.float32
+    assert bool((out != out.bfloat16().float()).any()), "rounded to bf16"
+
+
 def explicit_inputs(seed, shape):
     """make_inputs on ``shape``'s first five entries, and g; "integer"
     keeps the clamped rows and zeroes every other offset."""
@@ -420,8 +426,10 @@ def check_explicit_backward(name, x, off, m, wt, g, dtype):
 @pytest.mark.parametrize("shape", SHAPES + EXPLICIT_EDGE_SHAPES)
 def test_emulated_f32_kernels_match_twin(emulated, shape):
     x, off, m, wt, bias, g = explicit_inputs(0, shape)
-    out = dcn_cuda._forward_launch(x, off, m, wt, bias, PALLAS_MAX_SHIFT, 0)
+    out = dcn_cuda._explicit_forward_launch("dcn_fwd", x, off, m, wt, bias,
+                                            PALLAS_MAX_SHIFT, 0)
     assert_close(out, dcn_cuda.dcn_v2_twin(x, off, m, wt, bias), "out")
+    assert_not_bf16(out)
     check_explicit_backward("dcn_bwd", x, off, m, wt, g, torch.float32)
     assert dcn_cuda.LAUNCHES["dcn_fwd"] == dcn_cuda.LAUNCHES["dcn_bwd"] == 1
 
@@ -508,3 +516,52 @@ def test_emulated_wide_kernel_matches_clamp_dx_twin(emulated, dtype):
     unclamped = dcn_cuda.dcn_v2_twin(x, off, m, wt, bias)
     assert float((want.float() - unclamped.float()).abs().max()) > 0.5
     assert dcn_cuda.LAUNCHES["dcn_wide_fwd"] == 1
+
+
+# the tensor-core forward's edges (dcn_sample_fwd.cuh) on the emulated card
+# of 2 SMs, each with whether Cin is split across blocks: Cin padded and
+# under one chunk, Cout not a multiple of 16, ragged tiles (W = 13); Cout
+# 264 (two channel groups); one block, its channel group narrowed to 32; a
+# map under one tile with W < 8; Cin split in two slices, the last not a
+# whole chunk; Cin split and the channel group narrowed
+FWD_EDGE_SHAPES = [
+    pytest.param((1, 20, 40, 9, 13), False, id="cin20-cout40-w13"),
+    pytest.param((1, 24, 264, 3, 9), False, id="cout264"),
+    pytest.param((1, 8, 128, 4, 8), False, id="narrowed-group"),
+    pytest.param((1, 24, 48, 5, 6), False, id="under-one-tile-w6"),
+    pytest.param((1, 200, 24, 4, 13), True, id="cin-split"),
+    pytest.param((1, 128, 128, 4, 8), True, id="cin-split-narrowed"),
+]
+FWD_ROWS = [
+    pytest.param("dcn_fwd", torch.float32, id="row1-f32"),
+    pytest.param("dcn_sel_fwd", torch.float32, id="row6-f32"),
+    pytest.param("dcn_sel_fwd", torch.bfloat16, id="row6-bf16"),
+    pytest.param("dcn_wide_fwd", torch.float32, id="row2-f32"),
+    pytest.param("dcn_wide_fwd", torch.bfloat16, id="row2-bf16"),
+]
+
+
+@pytest.mark.parametrize("name,dtype", FWD_ROWS)
+@pytest.mark.parametrize("shape,split", FWD_EDGE_SHAPES)
+def test_emulated_forward_edges_match_twin(emulated, shape, split, name,
+                                           dtype):
+    """Rows 1, 6 and 2 at the forward's tile edges, out in x's dtype: a
+    float32 output not rounded to bf16; row 2 against the clamp-dx twin,
+    with dx past the clamp at many pixels."""
+    x, off, m, wt, bias = make_inputs(4, *shape, "cpu")
+    clamp_dx = name == "dcn_wide_fwd"
+    if clamp_dx:
+        off[:, 1::2] *= 8.0
+    x, wt = x.to(dtype), wt.to(dtype)
+    b, cin, h, w = x.shape
+    per_block = getattr(dcn_cuda._lib(name), f"{name}_cin_per_block")(
+        b, h, w, -(-cin // 8) * 8, shape[2])
+    assert (per_block < cin) == split
+    out = dcn_cuda._explicit_forward_launch(name, x, off, m, wt, bias,
+                                            PALLAS_MAX_SHIFT, 0)
+    assert out.dtype == dtype
+    assert_close(out, dcn_cuda.dcn_v2_twin(x, off, m, wt, bias,
+                                           clamp_dx=clamp_dx), "out")
+    if dtype == torch.float32:
+        assert_not_bf16(out)
+    assert dcn_cuda.LAUNCHES == {k: int(k == name) for k in dcn_cuda.LAUNCHES}

@@ -68,7 +68,13 @@ SHAPES = [
 ]
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+# the tensor-core forward's channel groups: Cout 264 in two groups, not a
+# multiple of 16; Cin split across blocks where the grid is short (512
+# channels of 4 tiles, batch 2)
+FWD_SHAPES = SHAPES + [(2, 24, 264, 13, 21), (2, 512, 256, 16, 16)]
+
+
+@pytest.mark.parametrize("shape", FWD_SHAPES)
 def test_forward_matches_twin(cuda, shape):
     x, off, m, wt, bias = make_inputs(0, *shape, cuda)
     dcn_cuda.reset_launches()
@@ -76,6 +82,8 @@ def test_forward_matches_twin(cuda, shape):
     torch.cuda.synchronize()
     assert dcn_cuda.LAUNCHES["dcn_fwd"] == 1
     assert_close(got, dcn_v2_twin(x, off, m, wt, bias), "out")
+    # f32 sums, not rounded to bf16
+    assert bool((got != got.bfloat16().float()).any())
 
 
 # the tensor-core backward's data kernel splits Cin across blocks where the
@@ -286,12 +294,14 @@ def test_fused_autograd_function_counts_and_bias(cuda):
 SEL_SHAPES = [
     # (b, cin, cout, h, w): Cin > 512 at MobileNetV2's 16 x 16, W < 8,
     # W > 256; MobileNetV2's 800 px eval shape (Cin split across the data
-    # kernel's blocks); Cin split at one tile, Cout over one 256 group
+    # kernel's blocks); Cin split at one tile, Cout over one 256 group;
+    # W = 300 at 64 channels
     (2, 1280, 256, 16, 16),
     (2, 40, 72, 13, 5),
     (1, 16, 24, 6, 300),
     (4, 1280, 256, 25, 25),
     (1, 384, 264, 4, 8),
+    (2, 64, 64, 300, 300),
 ]
 DTYPES = [torch.float32, torch.bfloat16]
 

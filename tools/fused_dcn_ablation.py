@@ -46,9 +46,10 @@ VARIANTS = {
 }
 
 
-def load_variant(name, edits):
+def load_variant(name, edits, only=None):
     """A module instance of ops/dcn_cuda.py whose kernel sources are a copy
-    of csrc/ with ``edits`` (file, pattern, replacement) applied."""
+    of csrc/ with ``edits`` (file, pattern, replacement) applied; ``only``
+    names the kernels to build (default: all)."""
     src = ROOT / "centernet_uda_torch" / "csrc"
     dst = ROOT / "build" / "ablation" / f"csrc_{name}"
     shutil.rmtree(dst, ignore_errors=True)
@@ -66,6 +67,8 @@ def load_variant(name, edits):
     spec.loader.exec_module(module)
     module.CSRC = dst
     module.BUILD_DIR = ROOT / "build" / "ablation" / f"kernels_{name}"
+    if only is not None:
+        module.SOURCES = {k: module.SOURCES[k] for k in only}
     module.build_kernels()
     return module
 
