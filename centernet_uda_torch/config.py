@@ -1,7 +1,7 @@
 """Configuration: the JAX package's hydra-compatible ``Config``/``compose``.
 
 A copy of ``centernet_uda_tpu/config.py`` (``Config``, ``compose``,
-``parse_overrides``), kept here so the port imports nothing of the JAX
+``parse_overrides``, ``setup_run_dir``), kept here so the port imports nothing of the JAX
 package. It composes the shared ``configs/`` tree unchanged:
 ``compose(["experiment=baseline"])`` merges ``configs/defaults.yaml``, the
 experiment overlay and dotted ``key=value`` overrides, in hydra's order.
@@ -194,3 +194,16 @@ def compose(
             cfg.set_dotted(key, value)
 
     return cfg
+
+
+def setup_run_dir(cfg: Config, base: str = ".") -> Path:
+    """Create ``outputs/<experiment>/`` and dump the composed config.
+
+    Matches hydra's run dir (configs/defaults.yaml:121) and the composed
+    ``config.yaml`` the JAX package's export.py reads back.
+    """
+    run_dir = Path(base) / "outputs" / str(cfg.get("experiment", "default"))
+    run_dir.mkdir(parents=True, exist_ok=True)
+    with open(run_dir / "config.yaml", "w") as f:
+        yaml.safe_dump(cfg.to_dict(), f, default_flow_style=False)
+    return run_dir

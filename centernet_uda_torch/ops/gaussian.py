@@ -69,15 +69,18 @@ def draw_gaussian(heatmap: np.ndarray, center, radius: int,
 
 
 def encode_targets(boxes: np.ndarray, classes, out_h: int, out_w: int,
-                   num_classes: int, max_detections: int) -> dict:
+                   num_classes: int, max_detections: int,
+                   areas=None) -> dict:
     """CenterNet targets of one image, as ``data/coco.py`` encodes them for
-    axis-aligned boxes without keypoints.
+    axis-aligned boxes.
 
     ``boxes`` (N, 4) are ``[x1, y1, x2, y2]`` already in output-map pixels
     (input pixels / down_ratio). Returns ``hm`` (C, out_h, out_w), ``wh`` and
     ``reg`` (K, 2), ``ind`` (K,) int64 ``y * out_w + x``, ``reg_mask`` (K,)
     uint8, ``gt_dets`` (K, 6) ``[x1, y1, x2, y2, 1, class]`` and ``gt_areas``
-    (K,), with K = ``max_detections``.
+    (K,), with K = ``max_detections``. ``gt_areas`` holds ``areas[k]`` (the
+    annotation's area) where given and not None, else the clipped box's
+    ``w * h``.
     """
     k_max = max_detections
     t = {
@@ -107,5 +110,6 @@ def encode_targets(boxes: np.ndarray, classes, out_h: int, out_w: int,
         t["reg_mask"][k] = 1
         t["gt_dets"][k] = (ct[0] - w / 2, ct[1] - h / 2, ct[0] + w / 2,
                            ct[1] + h / 2, 1, int(cls_id))
-        t["gt_areas"][k] = w * h
+        area = None if areas is None else areas[k]
+        t["gt_areas"][k] = w * h if area is None else area
     return t

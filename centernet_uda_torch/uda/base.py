@@ -1,11 +1,12 @@
 """Baseline (no-UDA) trainer.
 
 Counterpart of ``centernet_uda_tpu/uda/base.py`` (the reference's
-``uda/base.py``) with the lifecycle hooks the main path uses: ``init_done``,
-``step``, ``epoch_end``, ``get_detections``. The train step is forward,
+``uda/base.py``) with the lifecycle hooks the CLI drives: ``init_done``,
+``step``, ``epoch_end``, ``get_detections``, ``save_model`` and
+``load_model`` (the JAX package's ``epoch_start`` and ``set_phase`` do
+nothing a caller reads, and are left out). The train step is forward,
 ``DetectionLoss``, ``backward()`` and one optimizer step on train-mode
 BatchNorm; the eval step runs under ``no_grad`` with eval-mode BatchNorm.
-Checkpointing waits for ROADMAP A4.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from centernet_uda_torch import resolve_device
 from centernet_uda_torch.ops.dcn import DCN, PALLAS_MAX_SHIFT
 from centernet_uda_torch.ops.decode import decode_detections
+from centernet_uda_torch.utils import checkpoint as ckpt
 from centernet_uda_torch.utils import optim as optim_util
 
 log = logging.getLogger(__name__)
@@ -193,3 +195,18 @@ class Model:
             "gt_ids": gt_ids,
             "gt_areas": gt_areas,
         }
+
+    # ------------------------------------------------------------------
+    # checkpointing (utils/helper.py:83-147 semantics)
+    # ------------------------------------------------------------------
+    def load_model(self, path, resume: bool = False) -> int:
+        """Restore weights (and, with ``resume``, the optimizer and the
+        epoch); returns the first epoch to run."""
+        epoch = ckpt.load_checkpoint(path, self.backend.module,
+                                     self.optimizer, resume=resume)
+        self.epoch = epoch
+        return epoch + 1
+
+    def save_model(self, path, epoch: int, with_optimizer: bool = False):
+        ckpt.save_checkpoint(path, self.backend.module, epoch,
+                             self.optimizer if with_optimizer else None)

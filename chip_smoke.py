@@ -1,11 +1,11 @@
 """Smoke run of the PyTorch/CUDA port (``centernet_uda_torch``) on one card.
 
-    python3 chip_smoke.py [--json PATH] [--profile] [--parent DIR]
+    python3 chip_smoke.py [--json PATH] [--profile] [--parent DIR] [--seed N]
 
 Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
 
-1. probe: the card, its power limit, torch, CUDA, nvcc; the card must be
-   compute capability 9.0;
+1. probe: the card, its power limit, torch, CUDA, nvcc, the image and
+   logging libraries of the host; the card must be compute capability 9.0;
 2. build: compiles the seven DCN kernel sources from
    ``centernet_uda_torch/csrc/`` (one ``nvcc`` each, in parallel) and prints
    the compiler's register / shared-memory report;
@@ -40,14 +40,28 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
    kernels only;
 6. forced "lanes": DLA-34 at float32 evaluates 1088 px, batch 4, under
    ``set_kernel_version("lanes")``: the layers at W = 272 launch
-   ``dcn_wide_fwd`` and the rest ``dcn_fwd``.
+   ``dcn_wide_fwd`` and the rest ``dcn_fwd``;
+7. CLI on data: writes a COCO set of 32 training and 16 validation PPM
+   images of 640 x 480 (6 classes, 5-29 boxes each, from ``--seed``)
+   under ``build/cli/`` and runs the port's ``train.main`` for
+   ``experiment=baseline`` at full width: 2 epochs at float32 (512 px batch
+   16 with the defaults' augmentation, 800 px validation batch 16 with the
+   COCO evaluator, 4 loader threads), a resume from its ``model_last.ckpt``
+   to epoch 3 (which must restore the optimizer at epoch 2 and run epoch 3
+   only), then 1 epoch at bfloat16. Each train step must launch the 16
+   layers' forward and backward kernels of its precision, each eval step
+   the forward; losses and the COCO means finite; the checkpoints written.
+   It prints each epoch's train time and loader-wait share and the eval
+   time with the evaluator; with ``--profile`` the float32 run also traces
+   its first two steps (``profile_steps``) and prints the device time of
+   each kind of memory copy per step.
 
 Before each model trains, its heads on the kernel path are held against the
 exact DCN op on the same weights and a small input. Every phase drives the
 entry points a user calls (``build_trainer``, ``Model.step``,
 ``get_detections``) with the launch counters set to 0 just before and read
 just after. The last lines are a ``{"kernels": [...]}`` JSON line (one
-entry per kernel source, launches summed over phases 4-6), the card's
+entry per kernel source, launches summed over phases 4-7), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero. ``--json PATH`` also writes every measurement
 to PATH; ``--profile`` adds a torch.profiler breakdown by kernel of two
@@ -79,6 +93,10 @@ MNV2_TRAIN_BATCH = 32  # experiment=baseline_mobilenet_v2's batch_size
 WIDE_SIZE, WIDE_BATCH = 1088, 4
 # ROADMAP B5's W > 256 shape for the select pair and the wide forward
 SHAPE_300 = (2, 64, 64, 300, 300)  # (batch, cin, cout, h, w)
+# the CLI phase's dataset: 640 x 480 is neither input size, so the loader's
+# Resize does real work (to 512 px for training, 800 px for validation)
+CLI_TRAIN_IMAGES, CLI_VAL_IMAGES, CLI_IMAGE_WH = 32, 16, (640, 480)
+CLI_DIR = ROOT / "build" / "cli"
 # H100 SXM published peaks (dense): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -103,6 +121,22 @@ def nvidia_smi() -> str:
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
+
+
+def library_versions() -> str:
+    """The image and logging libraries the data path and the CLI may use,
+    as this host has them."""
+    import importlib
+
+    out = []
+    for name in ("cv2", "PIL", "tensorboardX", "tensorboard"):
+        try:
+            module = importlib.import_module(name)
+        except ImportError:
+            out.append(f"{name} missing")
+        else:
+            out.append(f"{name} {getattr(module, '__version__', '?')}")
+    return ", ".join(out)
 
 
 def time_ms(fn, budget_ms: float = 300.0) -> float:
@@ -838,6 +872,180 @@ def forced_lanes_eval(cfg, device):
             "shapes": {str(k): n for k, n in shapes.items()}}
 
 
+def write_coco_set(root, n_images, rng, num_classes):
+    """``n_images`` binary PPM images of ``CLI_IMAGE_WH`` in ``root/images``
+    and their COCO annotations in ``root/instances.json``: noise, and 5-29
+    boxes per image drawn as ``synthetic_batch`` draws them (in image
+    pixels, at least 8 px a side), each painted in its class's colour.
+    Returns (image folder, annotation file)."""
+    import numpy as np
+
+    from centernet_uda_torch.data.coco import write_ppm
+
+    w, h = CLI_IMAGE_WH
+    img_dir = root / "images"
+    img_dir.mkdir(parents=True, exist_ok=True)
+    images, anns = [], []
+    for image_id in range(1, n_images + 1):
+        img = rng.randint(0, 256, (h, w, 3), np.uint8)
+        n = rng.randint(5, 30)
+        xy = rng.rand(n, 2) * (w, h) * 0.85
+        x2y2 = np.minimum(xy + rng.rand(n, 2) * (w, h) * 0.25 + 8.0,
+                          (w - 1, h - 1))
+        for (x1, y1), (x2, y2), c in zip(xy, x2y2,
+                                         rng.randint(0, num_classes, n)):
+            img[int(y1):int(y2), int(x1):int(x2)] = (
+                60 * (c + 1) % 256, 40 * c, 200 - 30 * c)
+            anns.append({"id": len(anns) + 1, "image_id": image_id,
+                         "category_id": int(c) + 1,
+                         "bbox": [float(x1), float(y1), float(x2 - x1),
+                                  float(y2 - y1)],
+                         "area": float((x2 - x1) * (y2 - y1)), "iscrowd": 0})
+        name = f"{image_id:05d}.ppm"
+        write_ppm(img_dir / name, img)
+        images.append({"id": image_id, "file_name": name, "width": w,
+                       "height": h})
+    anno = root / "instances.json"
+    anno.write_text(json.dumps({
+        "images": images, "annotations": anns,
+        "categories": [{"id": c + 1, "name": f"class_{c + 1}"}
+                       for c in range(num_classes)]}))
+    return img_dir, anno
+
+
+def memcpy_ms(trace_path, steps):
+    """Device ms per step of each kind of memory copy in a torch.profiler
+    chrome trace."""
+    events = json.loads(Path(trace_path).read_text())["traceEvents"]
+    out = {}
+    for ev in events:
+        if ev.get("cat") == "gpu_memcpy":
+            out[ev["name"]] = out.get(ev["name"], 0.0) + ev["dur"] / 1e3
+    return {k: v / steps for k, v in out.items()}
+
+
+def run_cli(name, overrides, per_train, per_eval, profile_steps=0):
+    """Phase 7, one ``main()`` of the port's CLI on the card, run from
+    ``CLI_DIR / name``. Each training step must launch ``per_train``, each
+    eval step ``per_eval`` (counted from the CLI's phase records), every
+    phase's loss and every ``MSCOCO_Precision``/``MSCOCO_Recall`` mean be
+    finite. Returns the run's record."""
+    import logging
+    import os
+
+    import torch
+
+    from centernet_uda_torch import train
+    from centernet_uda_torch.ops import dcn_cuda
+
+    workdir = CLI_DIR / name
+    workdir.mkdir(parents=True, exist_ok=True)
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    ckpt_log = logging.getLogger("centernet_uda_torch.utils.checkpoint")
+    ckpt_log.setLevel(logging.INFO)
+    ckpt_log.addHandler(handler)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    phases = []
+    torch.cuda.synchronize()
+    dcn_cuda.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        scalars = train.main(overrides + [f"profile_steps={profile_steps}"],
+                             phases=phases)
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+        ckpt_log.removeHandler(handler)
+    wall_s = time.perf_counter() - t0
+    launches = dict(dcn_cuda.LAUNCHES)
+    steps = {tag: sum(p["steps"] for p in phases if p["tag"] == tag)
+             for tag in ("training", "validation")}
+    want = {k: per_train[k] * steps["training"]
+            + per_eval[k] * steps["validation"] for k in launches}
+    if launches != want:
+        raise AssertionError(f"CLI {name}: launches {launches} != {want} "
+                             f"for {steps} steps")
+    if not all(math.isfinite(p["total_loss"]) for p in phases):
+        raise AssertionError(f"CLI {name}: non-finite loss in {phases}")
+    coco = {k: v for k, v in scalars.items() if k.startswith("MSCOCO_")}
+    means = {k: v for k, v in coco.items()
+             if k.startswith(("MSCOCO_Precision/", "MSCOCO_Recall/"))}
+    if len(means) != 12 or not all(map(math.isfinite, means.values())):
+        raise AssertionError(f"CLI {name}: COCO means {means}")
+    for p in phases:
+        if p["tag"] == "training":
+            print(f"CLI {name} epoch {p['epoch']}: train {p['steps']} steps "
+                  f"in {p['seconds']:.2f} s, waiting for the loader "
+                  f"{p['loader_wait_s'] / p['seconds']:.1%}, loss "
+                  f"{p['total_loss']:.4f}", flush=True)
+        else:
+            print(f"CLI {name} epoch {p['epoch']}: eval {p['steps']} steps "
+                  f"in {p['seconds']:.2f} s + evaluator "
+                  f"{p['evaluate_s']:.2f} s (loader wait "
+                  f"{p['loader_wait_s'] / p['seconds']:.1%}), loss "
+                  f"{p['total_loss']:.4f}", flush=True)
+    print(f"CLI {name}: main() {wall_s:.1f} s, launches {launches}, mAP "
+          f"{means['MSCOCO_Precision/mAP']:.5f}, mAR@100 "
+          f"{means['MSCOCO_Recall/mAR100']:.5f}", flush=True)
+    run = {"wall_s": wall_s, "phases": phases, "launches": launches,
+           "coco": coco, "log": [r.getMessage() for r in records]}
+    if profile_steps:
+        run["memcpy_ms_per_step"] = memcpy_ms(
+            workdir / "outputs" / "baseline" / "profile" / "trace.json",
+            profile_steps)
+        print(f"CLI {name}: copies per train step (device ms) "
+              f"{run['memcpy_ms_per_step']}", flush=True)
+    return run
+
+
+def cli_on_data(n_dcn, seed, profile):
+    """Phase 7: the port's CLI, ``experiment=baseline`` at full width, on a
+    synthetic COCO set of PPM images: 2 epochs at float32, a resume to
+    epoch 3, 1 epoch at bfloat16. Returns the phase's record."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    t0 = time.perf_counter()
+    train_dir, train_anno = write_coco_set(CLI_DIR / "data" / "train",
+                                           CLI_TRAIN_IMAGES, rng, 6)
+    val_dir, val_anno = write_coco_set(CLI_DIR / "data" / "val",
+                                       CLI_VAL_IMAGES, rng, 6)
+    print(f"wrote {CLI_TRAIN_IMAGES} + {CLI_VAL_IMAGES} PPM images of "
+          f"{CLI_IMAGE_WH} in {time.perf_counter() - t0:.1f} s", flush=True)
+    common = ["experiment=baseline", f"seed={seed}", "batch_size=16",
+              "num_workers=4",
+              f"datasets.training.params.image_folder={train_dir}",
+              f"datasets.training.params.annotation_file={train_anno}",
+              f"datasets.validation.params.image_folder={val_dir}",
+              f"datasets.validation.params.annotation_file={val_anno}"]
+    f32 = (expect(dcn_fwd=n_dcn, dcn_bwd=n_dcn), expect(dcn_fwd=n_dcn))
+    out = {"cli_f32": run_cli("f32", common + ["epochs=2",
+                                               "precision=float32"],
+                              *f32, profile_steps=2 if profile else 0)}
+    run_dir = CLI_DIR / "f32" / "outputs" / "baseline"
+    written = sorted(p.name for p in run_dir.iterdir())
+    if not {"config.yaml", "model_last.ckpt", "model_best.ckpt"} <= set(
+            written):
+        raise AssertionError(f"CLI run dir holds {written}")
+    out["cli_resume"] = run_cli(
+        "f32", common + ["epochs=3", "precision=float32",
+                         f"resume={run_dir / 'model_last.ckpt'}"], *f32)
+    epochs = [(p["epoch"], p["tag"]) for p in out["cli_resume"]["phases"]]
+    if (epochs != [(3, "training"), (3, "validation")]
+            or "restore optimizer state at epoch 2"
+            not in out["cli_resume"]["log"]):
+        raise AssertionError(f"resume ran {epochs}, logged "
+                             f"{out['cli_resume']['log']}")
+    out["cli_bf16"] = run_cli(
+        "bf16", common + ["epochs=1", "precision=bfloat16"],
+        expect(dcn_fused_fwd=n_dcn, dcn_fused_bwd=n_dcn),
+        expect(dcn_fused_fwd=n_dcn))
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every measurement here")
@@ -846,6 +1054,8 @@ def main(argv=None) -> int:
                              "each precision with torch.profiler")
     parser.add_argument("--parent", help="a checkout of another commit whose "
                         "kernels are timed beside this one's")
+    parser.add_argument("--seed", type=int, default=42,
+                        help="seed of the CLI phase's dataset and config")
     args = parser.parse_args(argv)
 
     import torch
@@ -879,6 +1089,7 @@ def main(argv=None) -> int:
     print(nvcc.stdout.strip().splitlines()[-1])
     cap = torch.cuda.get_device_capability(0)
     print(f"device {torch.cuda.get_device_name(0)} capability {cap}")
+    print(f"host libraries: {library_versions()}")
     if cap != (9, 0):
         raise RuntimeError(f"the kernels are built for sm_90a; this card is "
                            f"capability {cap}")
@@ -1053,10 +1264,15 @@ def main(argv=None) -> int:
     cfg_w = compose(["experiment=baseline", f"batch_size={WIDE_BATCH}"],
                     config_dir=str(ROOT / "configs"))
     report["lanes_eval"] = forced_lanes_eval(cfg_w, device)
+    torch.cuda.empty_cache()
+
+    phase("CLI on data: DLA-34 trains, evaluates and resumes through main()")
+    report.update(cli_on_data(n_dcn, args.seed, args.profile))
 
     runs = [report[k]["launches"] for k in (
         "train", "eval", "bf16_train", "bf16_eval", "mnv2_train",
-        "mnv2_eval", "mnv2_bf16_train", "mnv2_bf16_eval", "lanes_eval")]
+        "mnv2_eval", "mnv2_bf16_train", "mnv2_bf16_eval", "lanes_eval",
+        "cli_f32", "cli_resume", "cli_bf16")]
 
     def launches(name):
         return sum(run[name] for run in runs)

@@ -67,3 +67,47 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                              text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_cli_and_data_need_no_image_or_logging_library(tmp_path):
+    """With OpenCV, PIL, tensorboardX and JAX blocked, the CLI, the data
+    pipeline, the evaluator and the checkpoints import; a dataset of PPM
+    images at the input size, without augmentation, gives samples (reading
+    and resizing any other image needs OpenCV), and the TensorBoard logger
+    has no writer."""
+    code = "\n".join([
+        "import sys",
+        f"for name in {FORBIDDEN + ('cv2', 'PIL', 'tensorboardX')!r}:",
+        "    sys.modules[name] = None",
+        "import json",
+        "import numpy as np",
+        "import centernet_uda_torch.train",
+        "import centernet_uda_torch.evaluation",
+        "import centernet_uda_torch.utils.checkpoint",
+        "from centernet_uda_torch import data",
+        "from centernet_uda_torch.data.coco import write_ppm",
+        "from centernet_uda_torch.utils.tensorboard import TensorboardLogger",
+        f"root = {str(tmp_path)!r}",
+        "rng = np.random.RandomState(0)",
+        "write_ppm(root + '/a.ppm', rng.randint(0, 256, (64, 64, 3), np.uint8))",
+        "json.dump({'images': [{'id': 1, 'file_name': 'a.ppm'}],",
+        "           'annotations': [{'id': 1, 'image_id': 1, 'category_id': 2,",
+        "                            'bbox': [4, 6, 20, 16], 'area': 320}],",
+        "           'categories': [{'id': 1}, {'id': 2}]},",
+        "          open(root + '/a.json', 'w'))",
+        "ds = data.build('coco', image_folder=root, annotation_file=root +",
+        "                '/a.json', input_size=[64, 64], num_classes=2,",
+        "                max_detections=4, augmentation=None)",
+        "s = ds[0]",
+        "assert s['input'].shape == (3, 64, 64) and s['hm'].shape == (2, 16, 16)",
+        "assert s['reg_mask'].tolist() == [1, 0, 0, 0]",
+        "assert TensorboardLogger(None).writer is None",
+        f"assert not any(sys.modules.get(n) for n in {FORBIDDEN!r})",
+        "print('ok')",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         env={**__import__("os").environ,
+                              "PYTHONPATH": str(ROOT)},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
