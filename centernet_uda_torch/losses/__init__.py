@@ -1,14 +1,22 @@
 """Loss registry: ``build`` resolves the reference-style dotted names of the
-experiment YAMLs, e.g. ``centernet.DetectionLoss``. The UDA losses are not
-ported yet (ROADMAP A8)."""
+experiment YAMLs, e.g. ``centernet.DetectionLoss``; the UDA losses are
+registered as ``centernet_uda_tpu/losses/__init__.py`` registers them."""
 
+from centernet_uda_torch.losses.advent import AdventLoss
 from centernet_uda_torch.losses.centernet import (
     DetectionLoss,
     focal_loss,
     reg_l1_loss,
 )
+from centernet_uda_torch.losses.entropy import EntropyLoss
+from centernet_uda_torch.losses.max_square import MaxSquareLoss
 
-_REGISTRY = {"centernet.DetectionLoss": DetectionLoss}
+_REGISTRY = {
+    "centernet.DetectionLoss": DetectionLoss,
+    "entropy.EntropyLoss": EntropyLoss,
+    "advent.AdventLoss": AdventLoss,
+    "max_square.MaxSquareLoss": MaxSquareLoss,
+}
 
 
 def build(name: str, **params):
@@ -19,4 +27,5 @@ def build(name: str, **params):
     return _REGISTRY[name](**params)
 
 
-__all__ = ["build", "DetectionLoss", "focal_loss", "reg_l1_loss"]
+__all__ = ["build", "DetectionLoss", "EntropyLoss", "AdventLoss",
+           "MaxSquareLoss", "focal_loss", "reg_l1_loss"]

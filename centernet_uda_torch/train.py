@@ -3,8 +3,9 @@
     python -m centernet_uda_torch.train experiment=baseline [key=value ...]
         [--device cuda|cpu]
 
-Counterpart of ``centernet_uda_tpu/train.py`` for the no-UDA, single-device
-case. ``build_trainer`` assembles backend, loss, optimizer and schedule
+Counterpart of ``centernet_uda_tpu/train.py`` for one device.
+``build_trainer`` assembles backend, loss, trainer (the baseline, or the
+UDA method named by the first key of ``model.uda``), optimizer and schedule
 through the registries, on ``device``, at ``precision`` float32 or bfloat16.
 ``main`` composes the config from the checkout's ``configs/`` tree
 (defaults, the ``experiment=<name>`` overlay, then ``key=value``
@@ -37,6 +38,7 @@ from centernet_uda_torch import evaluation as eval_registry
 from centernet_uda_torch import losses as loss_registry
 from centernet_uda_torch import models as model_registry
 from centernet_uda_torch import resolve_device
+from centernet_uda_torch import uda as uda_registry
 from centernet_uda_torch.data.loader import DataLoader
 from centernet_uda_torch.ops.dcn import PALLAS_MAX_SHIFT
 from centernet_uda_torch.uda.base import _HOST_KEYS, Model
@@ -71,9 +73,6 @@ def build_trainer(cfg, device="cuda") -> Model:
     # loss and optimizer in float32): no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if cfg.model.get("uda"):
-        raise NotImplementedError("UDA trainers are not ported yet "
-                                  "(ROADMAP A8)")
     if cfg.get("mesh") or isinstance(cfg.get("gpu"), (list, tuple)):
         raise NotImplementedError("multi-device training is not ported yet "
                                   "(ROADMAP A11)")
@@ -85,7 +84,17 @@ def build_trainer(cfg, device="cuda") -> Model:
                                    seed=int(cfg.get("seed", 42)),
                                    device=device)
 
-    trainer = Model(device=device)
+    uda_cfg = cfg.model.get("uda")
+    if uda_cfg:
+        # the first key names the method, its mapping holds the parameters
+        method = list(uda_cfg.keys())[0]
+        uda_params = uda_cfg[method]
+        if hasattr(uda_params, "to_dict"):
+            uda_params = uda_params.to_dict()
+        trainer = uda_registry.build(method, device=device,
+                                     **(uda_params or {}))
+    else:
+        trainer = Model(device=device)
     loss_cfg = cfg.model.backend.loss
     loss_params = loss_cfg.get("params")
     trainer.centernet_loss = loss_registry.build(

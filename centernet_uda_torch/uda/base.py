@@ -1,4 +1,4 @@
-"""Baseline (no-UDA) trainer.
+"""Baseline (no-UDA) trainer and the base of the UDA trainers.
 
 Counterpart of ``centernet_uda_tpu/uda/base.py`` (the reference's
 ``uda/base.py``) with the lifecycle hooks the CLI drives: ``init_done``,
@@ -7,6 +7,11 @@ Counterpart of ``centernet_uda_tpu/uda/base.py`` (the reference's
 nothing a caller reads, and are left out). The train step is forward,
 ``DetectionLoss``, ``backward()`` and one optimizer step on train-mode
 BatchNorm; the eval step runs under ``no_grad`` with eval-mode BatchNorm.
+A UDA trainer overrides ``loss_terms`` and sets ``requires_target_domain``;
+its two forwards (source, then target) each update BatchNorm's running
+statistics, in that order, as the JAX package threads ``batch_stats``
+through them, and one backward of the summed loss gives the reference's
+two backwards' gradient.
 """
 
 from __future__ import annotations
@@ -113,6 +118,13 @@ class Model:
         loss, stats = self.centernet_loss(outputs_src, batch)
         return loss, ({"source_domain": outputs_src}, stats)
 
+    def _forward_domains(self, source: torch.Tensor, batch, train: bool):
+        """The UDA trainers' two forwards: ``source``, then the batch's
+        target domain; returns their head dicts."""
+        outputs_src = self._apply_backend(source, train)
+        outputs_tgt = self._apply_backend(batch["target_domain_input"], train)
+        return outputs_src, outputs_tgt
+
     @staticmethod
     def _fold_clamp_stats(outputs, stats):
         """Move the DCN clamp monitor out of the head dicts into the
@@ -146,7 +158,17 @@ class Model:
                 if isinstance(v, (np.ndarray, torch.Tensor))
                 and k not in _HOST_KEYS}
 
+    #: UDA trainers forward the target domain in every phase
+    #: (centernet_uda_tpu/uda/base.py:325-337)
+    requires_target_domain = False
+
     def step(self, data, is_training: bool = True):
+        if self.requires_target_domain and "target_domain_input" not in data:
+            raise ValueError(
+                f"{type(self).__name__} needs a target domain in every "
+                "phase; set datasets.<phase>.params.target_domain_glob to a "
+                "glob that matches images (the reference configures it for "
+                "training, validation and test alike)")
         batch = self._device_batch(data)
         if is_training:
             return {"stats": self.train_step(batch)}

@@ -18,7 +18,8 @@ package's ``import_state_dict`` selects its shims (digits ignored, so
 
 The result loads with ``module.load_state_dict(sd)`` and, saved with
 ``torch.save``, imports back into the JAX package through its own
-``import_state_dict``.
+``import_state_dict``. ``disc_state_dict_from_jax(params)`` does the same
+for the ADVENT discriminator's ``conv0..conv4``.
 """
 
 from __future__ import annotations
@@ -192,4 +193,18 @@ def state_dict_from_jax(variables, backend: str = "dla"
             if key.endswith(".running_mean"):
                 sd[key[: -len("running_mean")] + "num_batches_tracked"] = (
                     torch.tensor(0, dtype=torch.long))
+    return sd
+
+
+def disc_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The port's ``FCDiscriminator`` state dict from the JAX
+    discriminator's ``params``: flax ``conv<i>`` (kernel (4, 4, Cin, Cout),
+    bias) -> ``<2i>.weight`` (Cout, Cin, 4, 4) and ``<2i>.bias``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, leaves in dict(params).items():
+        idx = 2 * int(name[len("conv"):])
+        sd[f"{idx}.weight"] = torch.tensor(
+            _conv(np.asarray(leaves["kernel"], np.float32)))
+        sd[f"{idx}.bias"] = torch.tensor(np.asarray(leaves["bias"],
+                                                    np.float32))
     return sd

@@ -14,9 +14,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
    kernels' own tests; max |dy| to 1e-5 relative), timed beside its twin
    and a cuDNN yardstick:
    - the float32 pair and the fused bfloat16 pair at every DCN shape of
-     DLA-34's 512 px train path (batch 16) and 800 px eval path (batch 4),
-     and the fused pair at MobileNetV2's 256 -> 256 shapes (@32 and @64,
-     batch 32); one call of the fused pair at the largest DLA-34 shape is
+     DLA-34's 512 px train path (batch 16, and batch 8, the UDA configs'
+     batch) and 800 px eval path (batch 4), and the fused pair at
+     MobileNetV2's 256 -> 256 shapes (@32 and @64, batch 32); one call of
+     the fused pair at the largest DLA-34 shape is
      profiled for its launches (1 forward, 4 backward) and each launch's
      device time, and so is one call of the float32 pair there (1 forward,
      2 backward);
@@ -48,24 +49,42 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
    16 with the defaults' augmentation, 800 px validation batch 16 with the
    COCO evaluator, 4 loader threads), a resume from its ``model_last.ckpt``
    to epoch 3 (which must restore the optimizer at epoch 2 and run epoch 3
-   only), then 1 epoch at bfloat16. Each train step must launch the 16
-   layers' forward and backward kernels of its precision, each eval step
-   the forward; losses and the COCO means finite; the checkpoints written.
+   only), then 1 epoch at bfloat16; then
+   ``experiment=adversarial_entropy_minimization`` (batch 8, the validation
+   images as the target domain of both phases) for 1 epoch at float32,
+   which writes ``discriminator.ckpt`` beside ``model_last.ckpt``, and a
+   resume to epoch 2 that restores both optimizers. Each train step must
+   launch the 16 layers' forward and backward kernels of its precision
+   (twice for ADVENT: source and target), each eval step the forwards;
+   losses and the COCO means finite; the checkpoints written.
    It prints each epoch's train time and loader-wait share and the eval
    time with the evaluator; with ``--profile`` the float32 run also traces
    its first two steps (``profile_steps``) and prints the device time of
-   each kind of memory copy per step.
+   each kind of memory copy per step;
+8. UDA trainers: ``experiment=entropy_minimization``,
+   ``max_squares_minimization``, ``fda`` and
+   ``adversarial_entropy_minimization`` at full width and their own batch
+   (8, 16, 8, 8), on a seeded synthetic batch with a target domain of
+   another mean and contrast, each take 3 train steps at 512 px and one
+   eval step at 800 px with decode, at float32, and entropy minimization
+   and ADVENT at bfloat16 too. Each train step must launch 2 x 16 forward and 2 x 16
+   backward kernels of its precision, each eval step 2 x 16 forwards;
+   losses, UDA stats and detections finite; ADVENT's discriminator must
+   move in every step; FDA's mix on the card must agree with the CPU's
+   within 1e-4 of the image scale. It prints steps 2-3 and the peak
+   memory of each.
 
 Before each model trains, its heads on the kernel path are held against the
 exact DCN op on the same weights and a small input. Every phase drives the
 entry points a user calls (``build_trainer``, ``Model.step``,
 ``get_detections``) with the launch counters set to 0 just before and read
 just after. The last lines are a ``{"kernels": [...]}`` JSON line (one
-entry per kernel source, launches summed over phases 4-7), the card's
+entry per kernel source, launches summed over phases 4-8), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero. ``--json PATH`` also writes every measurement
 to PATH; ``--profile`` adds a torch.profiler breakdown by kernel of two
-more train steps of each model at each precision; ``--parent DIR`` (a
+more train steps of each model (and UDA trainer) at each precision;
+``--parent DIR`` (a
 checkout of another commit, e.g. ``git archive`` of the parent unpacked
 under ``build/``) builds that checkout's kernels too and times, in the same
 run and in turns (its, this, this, its), its fused pair at every fused
@@ -97,6 +116,13 @@ SHAPE_300 = (2, 64, 64, 300, 300)  # (batch, cin, cout, h, w)
 # Resize does real work (to 512 px for training, 800 px for validation)
 CLI_TRAIN_IMAGES, CLI_VAL_IMAGES, CLI_IMAGE_WH = 32, 16, (640, 480)
 CLI_DIR = ROOT / "build" / "cli"
+# the UDA trainers (phase 8), each at its experiment's own batch: 8 for
+# three of them (configs/experiment/*.yaml), the defaults' 16 for max
+# squares; 3 train steps, then one eval step
+UDA_EXPERIMENTS = ("entropy_minimization", "max_squares_minimization", "fda",
+                   "adversarial_entropy_minimization")
+UDA_BF16 = ("entropy_minimization", "adversarial_entropy_minimization")
+UDA_BATCH, UDA_STEPS = 8, 3
 # H100 SXM published peaks (dense): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -690,11 +716,13 @@ def expect(**counts):
     return {name: counts.get(name, 0) for name in dcn_cuda.LAUNCHES}
 
 
-def train_and_eval(trainer, cfg, data, eval_data, per_step, per_eval):
-    """Phases 4 and 5 for one trainer: TRAIN_STEPS train steps, then one
+def train_and_eval(trainer, cfg, data, eval_data, per_step, per_eval,
+                   steps=TRAIN_STEPS, after_step=None):
+    """Phases 4, 5 and 8 for one trainer: ``steps`` train steps, then one
     eval step with decode. ``per_step``/``per_eval`` are the launches each
     kernel must make in one train step / the eval step; every other kernel
-    must not launch."""
+    must not launch. ``after_step(trainer)``, if given, runs after each
+    train step (outside the timed region)."""
     import numpy as np
     import torch
 
@@ -704,11 +732,13 @@ def train_and_eval(trainer, cfg, data, eval_data, per_step, per_eval):
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
     dcn_cuda.reset_launches()
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         t0 = time.perf_counter()
         stats = trainer.step(data, is_training=True)["stats"]
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        if after_step is not None:
+            after_step(trainer)
         vals = {k: float(v) for k, v in stats.items()}
         if trainer.maybe_degrade_dcn(vals["dcn_max_abs_dy"]):
             raise AssertionError("the DCN offsets reached the clamp")
@@ -718,7 +748,7 @@ def train_and_eval(trainer, cfg, data, eval_data, per_step, per_eval):
         print(f"step {i}: {step_ms[-1]:.1f} ms " + " ".join(
             f"{k}={v:.5f}" for k, v in vals.items()), flush=True)
     train_launches = dict(dcn_cuda.LAUNCHES)
-    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    want = {k: v * steps for k, v in per_step.items()}
     if train_launches != want:
         raise AssertionError(f"launches {train_launches} != {want}")
     peak = torch.cuda.max_memory_allocated()
@@ -1004,7 +1034,10 @@ def run_cli(name, overrides, per_train, per_eval, profile_steps=0):
 def cli_on_data(n_dcn, seed, profile):
     """Phase 7: the port's CLI, ``experiment=baseline`` at full width, on a
     synthetic COCO set of PPM images: 2 epochs at float32, a resume to
-    epoch 3, 1 epoch at bfloat16. Returns the phase's record."""
+    epoch 3, 1 epoch at bfloat16; then
+    ``experiment=adversarial_entropy_minimization`` at float32 for 1 epoch
+    and a resume to epoch 2 (both optimizers). Returns the phase's
+    record."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
@@ -1015,12 +1048,12 @@ def cli_on_data(n_dcn, seed, profile):
                                        CLI_VAL_IMAGES, rng, 6)
     print(f"wrote {CLI_TRAIN_IMAGES} + {CLI_VAL_IMAGES} PPM images of "
           f"{CLI_IMAGE_WH} in {time.perf_counter() - t0:.1f} s", flush=True)
-    common = ["experiment=baseline", f"seed={seed}", "batch_size=16",
-              "num_workers=4",
-              f"datasets.training.params.image_folder={train_dir}",
-              f"datasets.training.params.annotation_file={train_anno}",
-              f"datasets.validation.params.image_folder={val_dir}",
-              f"datasets.validation.params.annotation_file={val_anno}"]
+    sets = [f"seed={seed}", "num_workers=4",
+            f"datasets.training.params.image_folder={train_dir}",
+            f"datasets.training.params.annotation_file={train_anno}",
+            f"datasets.validation.params.image_folder={val_dir}",
+            f"datasets.validation.params.annotation_file={val_anno}"]
+    common = ["experiment=baseline", "batch_size=16"] + sets
     f32 = (expect(dcn_fwd=n_dcn, dcn_bwd=n_dcn), expect(dcn_fwd=n_dcn))
     out = {"cli_f32": run_cli("f32", common + ["epochs=2",
                                                "precision=float32"],
@@ -1043,6 +1076,142 @@ def cli_on_data(n_dcn, seed, profile):
         "bf16", common + ["epochs=1", "precision=bfloat16"],
         expect(dcn_fused_fwd=n_dcn, dcn_fused_bwd=n_dcn),
         expect(dcn_fused_fwd=n_dcn))
+
+    # ADVENT at its own batch (8), the validation images as the target
+    # domain of both phases: an epoch, then a resume of both optimizers
+    target = [f"datasets.{p}.params.target_domain_glob={val_dir}/*.ppm"
+              for p in ("training", "validation")]
+    advent = ["experiment=adversarial_entropy_minimization",
+              "precision=float32"] + sets + target
+    per_step = (expect(dcn_fwd=2 * n_dcn, dcn_bwd=2 * n_dcn),
+                expect(dcn_fwd=2 * n_dcn))
+    out["cli_advent"] = run_cli("advent", advent + ["epochs=1"], *per_step)
+    adv_dir = CLI_DIR / "advent" / "outputs" / \
+        "adversarial_entropy_minimization"
+    written = {p.name for p in adv_dir.iterdir()}
+    if not {"model_last.ckpt", "discriminator.ckpt"} <= written:
+        raise AssertionError(f"ADVENT run dir holds {sorted(written)}")
+    out["cli_advent_resume"] = run_cli(
+        "advent", advent + ["epochs=2",
+                            f"resume={adv_dir / 'model_last.ckpt'}"],
+        *per_step)
+    epochs = [(p["epoch"], p["tag"])
+              for p in out["cli_advent_resume"]["phases"]]
+    restored = out["cli_advent_resume"]["log"].count(
+        "restore optimizer state at epoch 1")
+    if epochs != [(2, "training"), (2, "validation")] or restored != 2:
+        raise AssertionError(f"ADVENT resume ran {epochs}, restored "
+                             f"{restored} optimizers")
+    return out
+
+
+def with_target_domain(data, rng):
+    """``data`` with a ``target_domain_input`` drawn with another mean and
+    contrast than its source images."""
+    return {**data, "target_domain_input": (
+        rng.randn(*data["input"].shape) * 0.6 + 0.5).astype("float32")}
+
+
+def check_fda_mix(trainer, data):
+    """The trainer's FDA mix on the card against the same function on the
+    CPU, within 1e-4 of the image scale; the mix must move the image."""
+    import torch
+
+    from centernet_uda_torch.ops.fda import fda_source_to_target
+
+    src = torch.from_numpy(data["input"])
+    tgt = torch.from_numpy(data["target_domain_input"])
+    want = fda_source_to_target(src, tgt, trainer.beta, trainer.use_circular)
+    got = fda_source_to_target(src.cuda(), tgt.cuda(), trainer.beta,
+                               trainer.use_circular).cpu()
+    scale = float(src.abs().max())
+    err = float((got - want).abs().max())
+    moved = float((want - src).abs().max())
+    if not (err <= 1e-4 * scale and moved > 1e-2 * scale):
+        raise AssertionError(f"FDA mix: card vs CPU {err}, moved {moved}, "
+                             f"scale {scale}")
+    print(f"FDA mix (beta {trainer.beta}, circular {trainer.use_circular}): "
+          f"card vs CPU max |err| {err:.3g} of scale {scale:.3g}, moves the "
+          f"image by {moved:.3g}", flush=True)
+    return err
+
+
+def disc_moved_each_step(trainer):
+    """An ``after_step`` for ADVENT that fails unless every train step
+    changes every discriminator parameter tensor."""
+    import torch
+
+    def snapshot():
+        return [p.detach().clone() for p in trainer.discriminator.parameters()]
+
+    last = snapshot()
+
+    def check(_):
+        now = snapshot()
+        if any(torch.equal(a, b) for a, b in zip(now, last)):
+            raise AssertionError("a discriminator parameter did not move in "
+                                 "a train step")
+        last[:] = now
+
+    return check
+
+
+def uda_trainers(n_dcn, seed, profile):
+    """Phase 8: each UDA experiment at full width and its own batch takes
+    UDA_STEPS train steps at TRAIN_SIZE on a seeded synthetic batch with a
+    target domain, then one eval step at EVAL_SIZE with decode, at float32
+    and, for UDA_BF16, at bfloat16. Each train step runs DLA-34 on both
+    domains: 2 x 16 forward and 2 x 16 backward launches of its precision;
+    an eval step 2 x 16 forwards. Returns {run name: record}."""
+    import numpy as np
+    import torch
+
+    from centernet_uda_torch.config import compose
+    from centernet_uda_torch.train import build_trainer
+
+    out, batches = {}, {}
+    for precision, fwd, bwd in (("float32", "dcn_fwd", "dcn_bwd"),
+                                ("bfloat16", "dcn_fused_fwd",
+                                 "dcn_fused_bwd")):
+        for name in UDA_EXPERIMENTS:
+            if precision == "bfloat16" and name not in UDA_BF16:
+                continue
+            phase(f"UDA {name} {precision}")
+            cfg = compose([f"experiment={name}", f"seed={seed}",
+                           f"precision={precision}"],
+                          config_dir=str(ROOT / "configs"))
+            batch = int(cfg.batch_size)
+            if batch not in batches:
+                rng = np.random.RandomState(seed + batch)
+                batches[batch] = [with_target_domain(synthetic_batch(
+                    rng, batch, size, int(cfg.model.backend.params
+                                          .num_classes),
+                    int(cfg.max_detections)), rng)
+                    for size in (TRAIN_SIZE, EVAL_SIZE)]
+            data, eval_data = batches[batch]
+            trainer = build_trainer(cfg, device="cuda")
+            trainer.init_done()
+            key = f"uda_{name}" + ("_bf16" if precision == "bfloat16"
+                                   else "")
+            record = {"batch": batch}
+            if name == "fda":
+                record["fda_mix_max_abs_err"] = check_fda_mix(trainer, data)
+            record["train"], record["eval"] = train_and_eval(
+                trainer, cfg, data, eval_data,
+                expect(**{fwd: 2 * n_dcn, bwd: 2 * n_dcn}),
+                expect(**{fwd: 2 * n_dcn}), steps=UDA_STEPS,
+                after_step=(disc_moved_each_step(trainer)
+                            if name.startswith("adversarial") else None))
+            later = record["train"]["step_ms"][1:]
+            print(f"UDA {name} {precision} B={batch}: steps 2-{UDA_STEPS} "
+                  f"{' '.join(f'{ms:.1f}' for ms in later)} ms, peak "
+                  f"{record['train']['max_memory_allocated'] / 2**30:.2f} "
+                  f"GiB", flush=True)
+            if profile:
+                record["profile"] = profile_train_steps(trainer, data)
+            out[key] = record
+            del trainer
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1151,6 +1320,7 @@ def main(argv=None) -> int:
           f"{wide_shapes}", flush=True)
     train_label = f"train{TRAIN_SIZE}"
     m_label, wide_label = f"mnv2_train{TRAIN_SIZE}", f"lanes{WIDE_SIZE}"
+    uda_label = f"uda_train{TRAIN_SIZE}"
 
     phase("kernels against their plain twin")
     parent = load_parent(args.parent) if args.parent else None
@@ -1158,6 +1328,8 @@ def main(argv=None) -> int:
                             parent=parent)
     records += check_kernels(eval_shapes, EVAL_BATCH_KERNELS, device,
                              f"eval{EVAL_SIZE}", parent=parent)
+    records += check_kernels(train_shapes, UDA_BATCH, device, uda_label,
+                             parent=parent)
     report["shapes"] = records
     phase("fused bf16 kernels against their plain twin")
     fused = check_fused_kernels(train_shapes, TRAIN_BATCH, device,
@@ -1166,7 +1338,18 @@ def main(argv=None) -> int:
                                  f"eval{EVAL_SIZE}", parent)
     fused += check_fused_kernels(m_fused, MNV2_TRAIN_BATCH, device, m_label,
                                  parent)
+    fused += check_fused_kernels(train_shapes, UDA_BATCH, device, uda_label,
+                                 parent)
     report["fused_shapes"] = fused
+    for name, outs, recs in (("dcn_fwd", ("out",), records),
+                             ("dcn_bwd", ("dx",), records),
+                             ("dcn_fused_fwd", ("out",), fused),
+                             ("dcn_fused_bwd", ("dx",), fused)):
+        line = kernel_line(name, "", "", outs, recs, uda_label, 0)
+        print(f"{name} at B={UDA_BATCH}, one pass over the {n_dcn} layers: "
+              f"{line['ms']:.3f} ms (twin {line['plain_ms']:.3f}, library "
+              f"{line['library_ms']:.3f}, bound {line['bound_ms']:.4f} "
+              f"{line['bound_by']})", flush=True)
     largest = max(train_shapes, key=lambda k: k[0] * (k[1] + 27) * k[2] * k[3])
     report["fused_call_launches"] = profile_fused_call(largest, TRAIN_BATCH,
                                                        device)
@@ -1269,10 +1452,16 @@ def main(argv=None) -> int:
     phase("CLI on data: DLA-34 trains, evaluates and resumes through main()")
     report.update(cli_on_data(n_dcn, args.seed, args.profile))
 
+    uda = uda_trainers(n_dcn, args.seed, args.profile)
+    report.update(uda)
+
     runs = [report[k]["launches"] for k in (
         "train", "eval", "bf16_train", "bf16_eval", "mnv2_train",
         "mnv2_eval", "mnv2_bf16_train", "mnv2_bf16_eval", "lanes_eval",
-        "cli_f32", "cli_resume", "cli_bf16")]
+        "cli_f32", "cli_resume", "cli_bf16", "cli_advent",
+        "cli_advent_resume")]
+    runs += [r[part]["launches"] for r in uda.values()
+             for part in ("train", "eval")]
 
     def launches(name):
         return sum(run[name] for run in runs)

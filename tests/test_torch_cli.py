@@ -114,7 +114,7 @@ def test_profile_steps_writes_a_trace(tiny, tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra,error,match", [
     (["model.backend.params.rotated_boxes=true"], NotImplementedError,
      "rotated"),
-    (["model.uda={entropy_minimization: {}}"], NotImplementedError, "UDA"),
+    (["gpu=[0,1]"], NotImplementedError, "multi-device"),
 ])
 def test_unported_configs_raise(tiny, tmp_path, monkeypatch, extra, error,
                                 match):

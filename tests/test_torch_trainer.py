@@ -61,7 +61,7 @@ def test_degrade_to_exact_op_at_the_clamp(caplog):
 
 @pytest.mark.parametrize("override,match", [
     ("precision=float16", "precision"),
-    ("model.uda={entropy_minimization: {}}", "UDA"),
+    ("model.backend.params.freeze_base=true", "freeze_base"),
     ("mesh={data: 2}", "multi-device"),
     ("model.backend.params.pretrained=w.pth", "pretrained"),
 ])
