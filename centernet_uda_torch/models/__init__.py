@@ -1,8 +1,8 @@
 """Backend registry: ``build(name, **params)`` resolves the config's
 ``model.backend.name`` and passes ``params`` (the config's backend params
 plus ``dcn_impl``, ``dtype``, ``seed`` and ``device``) to the backend's
-``build``. ``dla`` and ``mobilenetv2`` are ported (ROADMAP A9 holds the
-other backbones)."""
+``build``: ``dla``, ``mobilenetv2``, ``resnet`` and ``efficientnet``, each
+imported when first built."""
 
 from typing import Callable, Dict
 
@@ -21,8 +21,21 @@ def _mobilenetv2_build(**params) -> Backend:
     return mobilenetv2.build(**params)
 
 
+def _resnet_build(**params) -> Backend:
+    from centernet_uda_torch.models import resnet
+
+    return resnet.build(**params)
+
+
+def _efficientnet_build(**params) -> Backend:
+    from centernet_uda_torch.models import efficientnet
+
+    return efficientnet.build(**params)
+
+
 _REGISTRY: Dict[str, Callable[..., Backend]] = {
-    "dla": _dla_build, "mobilenetv2": _mobilenetv2_build}
+    "dla": _dla_build, "mobilenetv2": _mobilenetv2_build,
+    "resnet": _resnet_build, "efficientnet": _efficientnet_build}
 
 
 def build(name: str, **params) -> Backend:

@@ -1,4 +1,5 @@
-"""Shared model building blocks: BatchNorm, heads, backend wrapper, init.
+"""Shared model building blocks: BatchNorm, convs, necks, heads, backend
+wrapper, init, ``freeze_base``.
 
 Counterparts of ``centernet_uda_tpu/models/common.py`` in NCHW. The heads
 run per head (Conv3x3 -> ReLU -> Conv1x1), as the reference does; the JAX
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -36,12 +37,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     the running variance is updated with the biased variance too (flax
     ``nn.BatchNorm`` and ``centernet_uda_tpu/models/common.py``), where
     torch's own update uses the unbiased one. Statistics and normalisation
-    run in float32 whatever the input's dtype; the output is in ``dtype``.
+    run in float32 whatever the input's dtype (float64 for a float64
+    input); the output is in ``dtype``.
     """
 
     def __init__(self, num_features: int,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
+                 dtype: torch.dtype = torch.float32, eps: float = BN_EPS,
+                 momentum: float = BN_MOMENTUM):
+        super().__init__(num_features, eps=eps, momentum=momentum)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -50,8 +53,8 @@ class BatchNorm2d(nn.BatchNorm2d):
                                 self.weight, self.bias, False, 0.0,
                                 self.eps).to(self.compute_dtype)
         with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
-                                       correction=0)
+            wide = x if x.dtype == torch.float64 else x.float()
+            var, mean = torch.var_mean(wide, dim=(0, 2, 3), correction=0)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked += 1
@@ -73,6 +76,94 @@ class Conv2d(nn.Conv2d):
         if self.bias is not None:
             y = y + self.bias.to(dt).view(1, -1, 1, 1)
         return y
+
+
+def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """XLA's ``"SAME"`` padding of one spatial dim: ``ceil(size / stride)``
+    outputs, the total pad split with the smaller half first (so (0, 1)
+    for a 3x3 stride-2 conv on an even map, (1, 1) on an odd one)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv2d(Conv2d):
+    """``Conv2d`` with XLA's ``"SAME"`` padding computed from each input's
+    size (flax ``nn.Conv(padding="SAME")``; the "dynamic same" conv of
+    EfficientNet-PyTorch). A symmetric pad goes to the conv itself, an
+    uneven one through ``F.pad`` first."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, padding=0, **kwargs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (kh, kw), (sh, sw) = self.kernel_size, self.stride
+        top, bottom = same_padding(x.shape[-2], kh, sh)
+        left, right = same_padding(x.shape[-1], kw, sw)
+        dt = self.compute_dtype
+        x = x.to(dt)
+        if top == bottom and left == right:
+            pad = (top, left)
+        else:
+            x = F.pad(x, (left, right, top, bottom))
+            pad = (0, 0)
+        y = F.conv2d(x, self.weight.to(dt), None, self.stride, pad,
+                     self.dilation, self.groups)
+        if self.bias is not None:
+            y = y + self.bias.to(dt).view(1, -1, 1, 1)
+        return y
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` computing in ``dtype`` (no bias). With k=4,
+    stride 2, padding 1 it is flax's ``ConvTranspose(4, 2, "SAME")``, which
+    pads the dilated input by 2 on each side, with the kernel the other way
+    round spatially; the weight bridge flips it (``utils/weights.py``)."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), None,
+                                  self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
+
+
+def deconv_neck(in_channels: int, num_filters: Sequence[int] = (256,) * 3,
+                dtype: torch.dtype = torch.float32,
+                bn_eps: float = BN_EPS,
+                bn_momentum: float = BN_MOMENTUM) -> nn.Sequential:
+    """The deconv neck (JAX ``DeconvNeck``; the reference's
+    ``_make_deconv_layer``): per stage a 4x4 stride-2 transposed conv
+    without bias, BatchNorm and ReLU, flat (``deconv_layers.{3s}`` is the
+    transposed conv, ``{3s + 1}`` its BatchNorm)."""
+    layers: List[nn.Module] = []
+    for planes in num_filters:
+        layers += [ConvTranspose2d(in_channels, planes, 4, stride=2,
+                                   padding=1, bias=False, dtype=dtype),
+                   BatchNorm2d(planes, dtype, bn_eps, bn_momentum),
+                   nn.ReLU(inplace=True)]
+        in_channels = planes
+    return nn.Sequential(*layers)
+
+
+def upsample_conv_neck(in_channels: int,
+                       num_filters: Sequence[int] = (256,) * 3,
+                       dtype: torch.dtype = torch.float32) -> nn.Sequential:
+    """JAX ``UpsampleConvNeck``: per stage a nearest 2x upsample, a 3x3
+    conv without bias, BatchNorm and ReLU, flat (``{4s + 1}`` the conv,
+    ``{4s + 2}`` its BatchNorm)."""
+    layers: List[nn.Module] = []
+    for planes in num_filters:
+        layers += [nn.Upsample(scale_factor=2, mode="nearest"),
+                   Conv2d(in_channels, planes, 3, padding=1, bias=False,
+                          dtype=dtype),
+                   BatchNorm2d(planes, dtype), nn.ReLU(inplace=True)]
+        in_channels = planes
+    return nn.Sequential(*layers)
 
 
 def lecun_normal_(param: torch.Tensor,
@@ -109,6 +200,55 @@ def reset_head(seq: nn.Sequential, bias_value: float = 0.0,
         lecun_normal_(conv.weight, generator)
         nn.init.zeros_(conv.bias)
     nn.init.constant_(seq[2].bias, bias_value)
+
+
+def add_heads(parent: nn.Module, heads: Dict[str, int], in_channels: int,
+              head_conv: int, dtype: torch.dtype = torch.float32) -> None:
+    """The JAX ``CenterNetHeads``: one ``head`` per entry of ``heads``,
+    registered on ``parent`` under its name (the reference's ``hm.0``,
+    ``hm.2``, ...); run them with ``apply_heads``."""
+    for name in sorted(heads):
+        parent.add_module(name, head(in_channels, head_conv, heads[name],
+                                     dtype=dtype))
+
+
+def apply_heads(parent: nn.Module, heads: Dict[str, int],
+                x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The head dict of ``parent``'s heads on ``x``, in float32."""
+    return {name: getattr(parent, name)(x).float() for name in heads}
+
+
+def init_like_flax(module: nn.Module, heads: Dict[str, int],
+                   generator: Optional[torch.Generator] = None) -> None:
+    """flax's initialisation of a model without DCN, drawn from
+    ``generator`` in module order: convs and transposed convs lecun-normal
+    over their fan-in (16 in for a (in, out, 4, 4) transposed kernel),
+    biases and BatchNorm shifts zero, BatchNorm scales one; then the heads
+    (no heatmap bias)."""
+    in_heads = {id(m) for h in heads for m in getattr(module, h)}
+    for mod in module.modules():
+        if id(mod) in in_heads:
+            continue
+        if isinstance(mod, BatchNorm2d):
+            mod.reset_parameters()
+        elif isinstance(mod, nn.ConvTranspose2d):
+            lecun_normal_(mod.weight, generator,
+                          fan_in=mod.weight[:, 0].numel())
+        elif isinstance(mod, nn.Conv2d):
+            lecun_normal_(mod.weight, generator)
+            if mod.bias is not None:
+                nn.init.zeros_(mod.bias)
+    for name in sorted(heads):
+        reset_head(getattr(module, name), 0.0, generator)
+
+
+def freeze_trunk(module: nn.Module) -> None:
+    """``freeze_base``: no gradient for the trunk's parameters
+    (``module.base``), as the reference sets ``requires_grad = False``
+    (``backends/resnet.py:32-34``); the trainer's optimizer takes only the
+    parameters that require one."""
+    for p in module.base.parameters():
+        p.requires_grad_(False)
 
 
 def make_heads_dict(num_classes: int, num_keypoints: int,

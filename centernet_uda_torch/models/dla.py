@@ -37,12 +37,15 @@ from centernet_uda_torch.models.common import (
     Backend,
     BatchNorm2d,
     Conv2d,
+    apply_heads,
+    freeze_trunk,
     head,
     lecun_normal_,
     make_heads_dict,
     reset_head,
 )
 from centernet_uda_torch.ops.dcn import DCN
+from centernet_uda_torch.utils.checkpoint import load_backbone_pretrained
 
 DLA34_LEVELS = (1, 1, 1, 2, 2, 1)
 DLA34_CHANNELS = (16, 32, 64, 128, 256, 512)
@@ -344,8 +347,7 @@ class DLASeg(nn.Module):
         feats = self.dla_up(self.base(x))
         y = list(feats[: self.last_level - self.first_level])
         self.ida_up(y, 0, len(y))
-        return {name: getattr(self, name)(y[-1]).float()
-                for name in self.heads}
+        return apply_heads(self, self.heads, y[-1])
 
 
 def build(num_classes: int, num_keypoints: int = 0, head_conv: int = 256,
@@ -358,13 +360,10 @@ def build(num_classes: int, num_keypoints: int = 0, head_conv: int = 256,
 
     Parameters are drawn on the CPU from ``torch.Generator().manual_seed(
     seed)`` and the module is then moved to ``device``; ``dtype`` is the
-    compute dtype (the parameters stay float32).
+    compute dtype (the parameters stay float32). ``pretrained`` (a path, or
+    ``True`` for the torch hub cache) loads the DLA zoo's trunk weights;
+    ``freeze_base`` leaves the trunk out of the optimizer.
     """
-    if pretrained:
-        raise NotImplementedError(
-            "pretrained weights load with checkpointing (ROADMAP A4)")
-    if freeze_base:
-        raise NotImplementedError("freeze_base comes with ROADMAP A4")
     device = resolve_device(device)
     heads = make_heads_dict(num_classes, num_keypoints, rotated_boxes)
     module = DLASeg(heads, down_ratio=down_ratio, final_kernel=1,
@@ -372,6 +371,9 @@ def build(num_classes: int, num_keypoints: int = 0, head_conv: int = 256,
                     channels=channels, dcn_impl=dcn_impl,
                     generator=torch.Generator().manual_seed(seed),
                     dtype=dtype)
+    load_backbone_pretrained(module, "dla", "dla34", pretrained)
+    if freeze_base:
+        freeze_trunk(module)
     return Backend(module=module.to(device), down_ratio=down_ratio,
                    rotated_boxes=rotated_boxes, num_classes=num_classes,
                    num_keypoints=num_keypoints, heads=heads, name="dla34")

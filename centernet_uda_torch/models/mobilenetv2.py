@@ -34,19 +34,22 @@ from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from centernet_uda_torch import resolve_device
 from centernet_uda_torch.models.common import (
     Backend,
     BatchNorm2d,
     Conv2d,
+    ConvTranspose2d,
+    apply_heads,
+    freeze_trunk,
     head,
     lecun_normal_,
     make_heads_dict,
     reset_head,
 )
 from centernet_uda_torch.ops.dcn import DCN
+from centernet_uda_torch.utils.checkpoint import load_backbone_pretrained
 
 # torchvision mobilenet_v2 inverted-residual config: (expand, channels,
 # repeats, stride)
@@ -125,21 +128,6 @@ def mobilenetv2_features(dtype=torch.float32) -> nn.Sequential:
     return nn.Sequential(*layers)
 
 
-class ConvTranspose2d(nn.ConvTranspose2d):
-    """``nn.ConvTranspose2d`` computing in ``dtype`` (no bias)."""
-
-    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.compute_dtype = dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), None,
-                                  self.stride, self.padding,
-                                  self.output_padding, self.groups,
-                                  self.dilation)
-
-
 class CenterMobileNetV2(nn.Module):
     def __init__(self, heads: Dict[str, int], use_dcn: bool = False,
                  use_skip: bool = False, dcn_impl: str = "auto",
@@ -216,7 +204,7 @@ class CenterMobileNetV2(nn.Module):
                 skip = getattr(self, f"skip_{3 * stage}")
                 x = skip(feats[SKIP_MAPPING[stage]]) + x
             x = relu(bn(x))
-        return {name: getattr(self, name)(x).float() for name in self.heads}
+        return apply_heads(self, self.heads, x)
 
 
 def build(num_classes: int, num_keypoints: int = 0, pretrained=None,
@@ -226,17 +214,18 @@ def build(num_classes: int, num_keypoints: int = 0, pretrained=None,
           dtype=torch.float32) -> Backend:
     """Factory matching the reference signature (backends/mobilenetv2.py:
     169-186). Parameters are drawn on the CPU from ``torch.Generator().
-    manual_seed(seed)`` and the module is then moved to ``device``."""
-    if pretrained:
-        raise NotImplementedError(
-            "pretrained weights load with checkpointing (ROADMAP A4)")
-    if freeze_base:
-        raise NotImplementedError("freeze_base comes with ROADMAP A4")
+    manual_seed(seed)`` and the module is then moved to ``device``;
+    ``pretrained`` (a path, or ``True`` for the torch hub cache) loads
+    torchvision's trunk weights; ``freeze_base`` leaves the trunk out of
+    the optimizer."""
     device = resolve_device(device)
     heads = make_heads_dict(num_classes, num_keypoints, rotated_boxes)
     module = CenterMobileNetV2(
         heads, use_dcn=use_dcn, use_skip=use_skip, dcn_impl=dcn_impl,
         generator=torch.Generator().manual_seed(seed), dtype=dtype)
+    load_backbone_pretrained(module, "mobilenetv2", "mobilenetv2", pretrained)
+    if freeze_base:
+        freeze_trunk(module)
     return Backend(module=module.to(device), down_ratio=4,
                    rotated_boxes=rotated_boxes, num_classes=num_classes,
                    num_keypoints=num_keypoints, heads=heads,

@@ -1,14 +1,14 @@
 """CenterNet detection decode (NCHW heads).
 
 Counterpart of ``centernet_uda_tpu/ops/decode.py`` (the reference's
-``backends/decode.py``: ``_nms``, ``_topk``, ``decode_detection``) for
-axis-aligned boxes without keypoints: 3x3 peak suppression, the two-stage
-per-class-then-global top-k, and the box assembly.
+``backends/decode.py``: ``_nms``, ``_topk``, ``decode_detection``): 3x3 peak
+suppression, the two-stage per-class-then-global top-k, and the assembly of
+axis-aligned or rotated boxes, with the keypoints at the peaks.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -50,12 +50,20 @@ def top_k_peaks(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, ...]:
 
 
 def decode_detections(hm: torch.Tensor, wh: torch.Tensor,
-                      reg: Optional[torch.Tensor] = None, k: int = 100,
-                      nms_size: int = 3,
-                      apply_sigmoid: bool = False) -> torch.Tensor:
-    """Top-k detections (B, k, 6) ``[x1, y1, x2, y2, score, class]`` in
-    heatmap coordinates from ``hm`` (B, C, H, W), ``wh`` and ``reg``
-    (B, 2, H, W). ``hm`` must be sigmoided unless ``apply_sigmoid``."""
+                      reg: Optional[torch.Tensor] = None,
+                      kps: Optional[torch.Tensor] = None, k: int = 100,
+                      rotated: bool = False, nms_size: int = 3,
+                      apply_sigmoid: bool = False
+                      ) -> Union[torch.Tensor,
+                                 Tuple[torch.Tensor, torch.Tensor]]:
+    """Top-k detections in heatmap coordinates from ``hm`` (B, C, H, W),
+    ``wh`` (B, 2 or 3, H, W) and ``reg`` (B, 2, H, W): (B, k, 6) rows
+    ``[x1, y1, x2, y2, score, class]``, or with ``rotated`` (B, k, 7) rows
+    ``[cx, cy, w, h, angle, score, class]`` with the angle
+    ``sigmoid(raw) * 360 - 180`` degrees. With ``kps`` (B, 2P, H, W) it
+    returns ``(detections, keypoints)``, the keypoints (B, k, P, 2) being
+    the center-relative offsets at the peaks shifted by the centers.
+    ``hm`` must be sigmoided unless ``apply_sigmoid``."""
     if apply_sigmoid:
         hm = sigmoid_clamped(hm)
     heat = nms_peaks(hm, nms_size)
@@ -74,8 +82,19 @@ def decode_detections(hm: torch.Tensor, wh: torch.Tensor,
         xs = xs.unsqueeze(-1) + 0.5
         ys = ys.unsqueeze(-1) + 0.5
     wh_k = at_peaks(wh)
-    bboxes = torch.cat([xs - wh_k[..., 0:1] / 2.0, ys - wh_k[..., 1:2] / 2.0,
-                        xs + wh_k[..., 0:1] / 2.0, ys + wh_k[..., 1:2] / 2.0],
-                       dim=2)
-    return torch.cat([bboxes, scores.unsqueeze(-1),
-                      classes.unsqueeze(-1).float()], dim=2)
+    if rotated:
+        angle = sigmoid_clamped(wh_k[..., 2:3]) * 360.0 - 180.0
+        bboxes = torch.cat([xs, ys, wh_k[..., 0:1], wh_k[..., 1:2], angle],
+                           dim=2)
+    else:
+        bboxes = torch.cat([xs - wh_k[..., 0:1] / 2.0,
+                            ys - wh_k[..., 1:2] / 2.0,
+                            xs + wh_k[..., 0:1] / 2.0,
+                            ys + wh_k[..., 1:2] / 2.0], dim=2)
+    detections = torch.cat([bboxes, scores.unsqueeze(-1),
+                            classes.unsqueeze(-1).float()], dim=2)
+    if kps is None:
+        return detections
+    kps_k = at_peaks(kps).reshape(b, k, -1, 2)
+    kps_k = kps_k + torch.stack([xs, ys], dim=-1)
+    return detections, kps_k

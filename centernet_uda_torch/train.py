@@ -76,6 +76,12 @@ def build_trainer(cfg, device="cuda") -> Model:
     if cfg.get("mesh") or isinstance(cfg.get("gpu"), (list, tuple)):
         raise NotImplementedError("multi-device training is not ported yet "
                                   "(ROADMAP A11)")
+    bn_sync = cfg.get("bn_sync", "global")
+    if str(bn_sync) not in ("global", "replica", "1"):
+        # one device: "replica" is the whole batch, as "global" is
+        raise NotImplementedError(
+            f"bn_sync={bn_sync!r}: BatchNorm statistics over batch groups "
+            "are not ported yet (ROADMAP A11)")
 
     backend_params = cfg.model.backend.params.to_dict()
     backend_params.setdefault("dcn_impl", str(cfg.get("dcn_impl", "auto")))
@@ -317,9 +323,6 @@ def main(argv=None, device: str = "cuda",
     args = parser.parse_intermixed_args(
         sys.argv[1:] if argv is None else list(argv))
     cfg = config_lib.compose(args.overrides, config_dir=str(CONFIG_DIR))
-    if cfg.model.backend.params.get("rotated_boxes"):
-        raise NotImplementedError("rotated boxes are not ported yet: their "
-                                  "loss and decode (ROADMAP A3/A5)")
 
     run_dir = config_lib.setup_run_dir(cfg)
     # anchor user-supplied paths before entering the run dir (hydra leaves

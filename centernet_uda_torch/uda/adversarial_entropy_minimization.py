@@ -139,7 +139,8 @@ class AdversarialEntropyMinimization(Model):
         self.disc_optimizer.zero_grad(set_to_none=True)
         loss, (outputs, stats) = self.loss_terms(batch, True)
         disc_loss = self._disc_loss(outputs, stats)
-        loss.backward(inputs=list(self.backend.module.parameters()))
+        loss.backward(inputs=[p for p in self.backend.module.parameters()
+                              if p.requires_grad])
         disc_loss.backward(inputs=list(self.discriminator.parameters()))
         self.optimizer.step()
         self.disc_optimizer.step()

@@ -12,6 +12,20 @@ its two forwards (source, then target) each update BatchNorm's running
 statistics, in that order, as the JAX package threads ``batch_stats``
 through them, and one backward of the summed loss gives the reference's
 two backwards' gradient.
+
+``freeze_base``: a backend built with it has its trunk's parameters
+(``base.*``) set to ``requires_grad=False``, and the optimizer takes only
+the parameters that require a gradient, as the reference does
+(``train.py:89``, ``backends/resnet.py:32-34``): the trunk gets no update,
+no weight decay and no moments, while its BatchNorm statistics still move
+in train mode. (The JAX package zeroes the trunk's gradient before the
+optimizer, so a non-zero weight decay still moves it there.)
+
+Stochastic depth (EfficientNet): the trainer holds a ``torch.Generator`` on
+its device and reseeds it before each train step from ``seed + 7919`` and
+the step count, as the JAX package folds the step into its dropout key;
+a backend that has a ``drop_generator`` attribute draws its masks from it
+in train mode. The masks' bits differ from JAX's.
 """
 
 from __future__ import annotations
@@ -50,6 +64,8 @@ class Model:
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.base_lr: float = 0.0
         self.epoch: int = 0
+        self.global_step: int = 0
+        self.drop_generator: Optional[torch.Generator] = None
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -58,11 +74,25 @@ class Model:
         net = self.backend.module.to(self.device)
         opt_name, opt_params = self._optimizer_config()
         self.base_lr = float(opt_params.get("lr", 1e-3))
-        self.optimizer = optim_util.make_optimizer(opt_name, opt_params,
-                                                   net.parameters())
+        self.optimizer = optim_util.make_optimizer(
+            opt_name, opt_params,
+            [p for p in net.parameters() if p.requires_grad])
+        if hasattr(net, "drop_generator"):
+            self.drop_generator = torch.Generator(
+                next(net.parameters()).device)
+            net.drop_generator = self.drop_generator
         n_params = sum(p.numel() for p in net.parameters())
         log.info("initialized %s: %.2fM params on %s", self.backend.name,
                  n_params / 1e6, self.device)
+
+    def _seed_drop_generator(self) -> None:
+        """Reseed the stochastic-depth generator from the seed and the step
+        count, so a step's masks do not depend on what ran before it."""
+        if self.drop_generator is None:
+            return
+        seed = int(self.cfg.get("seed", 42)) if self.cfg else 42
+        self.drop_generator.manual_seed(
+            ((seed + 7919) * 1_000_003 + self.global_step) % (2 ** 63))
 
     def _optimizer_config(self) -> Tuple[str, Dict[str, Any]]:
         if self.optimizer_cfg is None:
@@ -171,25 +201,38 @@ class Model:
                 "training, validation and test alike)")
         batch = self._device_batch(data)
         if is_training:
-            return {"stats": self.train_step(batch)}
+            self._seed_drop_generator()
+            stats = self.train_step(batch)
+            self.global_step += 1
+            return {"stats": stats}
         outputs, stats = self.eval_step(batch)
         outputs = dict(outputs)
         outputs["stats"] = stats
         return outputs
 
-    def decode(self, outputs: Dict[str, torch.Tensor]) -> torch.Tensor:
-        if self.backend.rotated_boxes or "kps" in outputs:
-            raise NotImplementedError(
-                "rotated and keypoint decode are not ported yet (ROADMAP A5)")
+    def decode(self, outputs: Dict[str, torch.Tensor]):
+        """Detections of one domain's heads; ``(detections, keypoints)``
+        where the heads have ``kps``."""
         k = int(self.cfg.get("max_detections", 150)) if self.cfg else 100
         return decode_detections(outputs["hm"], outputs["wh"],
-                                 outputs.get("reg"), k=k, apply_sigmoid=True)
+                                 outputs.get("reg"), kps=outputs.get("kps"),
+                                 k=k, rotated=self.backend.rotated_boxes,
+                                 apply_sigmoid=True)
 
     @torch.no_grad()
     def get_detections(self, outputs, batch) -> Dict[str, Any]:
-        """Decode + unpack detections for the evaluator."""
+        """Decode + unpack detections for the evaluator. Rotated rows keep
+        the box in columns 0-4 (cx, cy, w, h, angle), score and class in 5
+        and 6; the keypoints (predicted and ground truth) come scaled by
+        ``down_ratio``."""
         down_ratio = self.backend.down_ratio
-        dets = self.decode(outputs["source_domain"]).cpu().numpy().copy()
+        rotated = self.backend.rotated_boxes
+        dets = self.decode(outputs["source_domain"])
+        has_kps = isinstance(dets, tuple)
+        if has_kps:
+            dets, kps = dets
+            kps = kps.cpu().numpy() * down_ratio
+        dets = dets.cpu().numpy().copy()
         dets[:, :, :4] *= down_ratio
 
         def host(v):
@@ -201,22 +244,31 @@ class Model:
         dets_gt = host(batch["gt_dets"]).copy()
         areas_gt = host(batch["gt_areas"])
         dets_gt[:, :, :4] *= down_ratio
-        gt_boxes, gt_clss, gt_ids, gt_areas = [], [], [], []
+        if has_kps:
+            kps_gt = host(batch["gt_kps"]) * down_ratio
+        box_idx, cls_idx = (5, 6) if rotated else (4, 5)
+        gt_boxes, gt_clss, gt_ids, gt_areas, gt_kps = [], [], [], [], []
         for i in range(dets_gt.shape[0]):
             det_gt = dets_gt[i, mask[i]]
-            gt_boxes.append(det_gt[:, :4])
-            gt_clss.append(det_gt[:, 5].astype(np.int32))
+            gt_boxes.append(det_gt[:, :box_idx])
+            gt_clss.append(det_gt[:, cls_idx].astype(np.int32))
             gt_ids.append(ids[i])
             gt_areas.append(areas_gt[i, mask[i]])
-        return {
-            "pred_boxes": dets[:, :, :4],
-            "pred_classes": dets[:, :, 5].astype(np.int32),
-            "pred_scores": dets[:, :, 4],
+            if has_kps:
+                gt_kps.append(kps_gt[i, mask[i]])
+        out = {
+            "pred_boxes": dets[:, :, :box_idx],
+            "pred_classes": dets[:, :, cls_idx].astype(np.int32),
+            "pred_scores": dets[:, :, box_idx],
             "gt_boxes": gt_boxes,
             "gt_classes": gt_clss,
             "gt_ids": gt_ids,
             "gt_areas": gt_areas,
         }
+        if has_kps:
+            out["gt_kps"] = gt_kps
+            out["pred_kps"] = kps
+        return out
 
     # ------------------------------------------------------------------
     # checkpointing (utils/helper.py:83-147 semantics)

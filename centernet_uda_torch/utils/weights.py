@@ -4,10 +4,11 @@
 "batch_stats"}`` trees of a ``centernet_uda_tpu`` backend (nested dicts of
 arrays) into the port's state dict of the same backend, with the key maps
 of ``centernet_uda_tpu/utils/torch_import.py`` run backwards: ``dla``
-(``_dla_path_to_torch``) and ``mobilenetv2``
-(``_mobilenetv2_path_to_torch``), selected by backend name as the JAX
+(``_dla_path_to_torch``), ``mobilenetv2`` (``_mobilenetv2_path_to_torch``),
+``resnet`` (``_resnet_path_to_torch``) and ``efficientnet``
+(``_efficientnet_path_to_torch``), selected by backend name as the JAX
 package's ``import_state_dict`` selects its shims (digits ignored, so
-``dla34`` is ``dla``):
+``dla34`` is ``dla`` and ``efficientnet-b0`` is ``efficientnet``):
 
 - conv kernels HWIO -> OIHW (a depthwise (k, k, 1, c) kernel -> (c, 1, k,
   k));
@@ -157,21 +158,117 @@ def _mobilenetv2_key(path: Tuple[str, ...], use_dcn: bool
         return ((f"{key}.weight", _conv) if leaf == "kernel"
                 else (f"{key}.bias", _same))
     if top == "heads":
-        name, kind = parts[1].rsplit("_", 1)
-        idx = 0 if kind == "conv" else 2
-        if leaf == "kernel":
-            return f"{name}.{idx}.weight", _conv
-        return f"{name}.{idx}.bias", _same
+        return _heads_key(parts, leaf)
+    return None
+
+
+def _heads_key(parts, leaf):
+    name, kind = parts[1].rsplit("_", 1)
+    idx = 0 if kind == "conv" else 2
+    if leaf == "kernel":
+        return f"{name}.{idx}.weight", _conv
+    return f"{name}.{idx}.bias", _same
+
+
+def _resnet_key(path: Tuple[str, ...]) -> Optional[Tuple[str, object]]:
+    """(torch key, transform) of one JAX ResNet leaf, or None."""
+    parts = list(path)
+    leaf, top = parts[-1], parts[0]
+    if top == "base":
+        sub = parts[1]
+        if sub == "conv1":
+            return "base.0.weight", _conv
+        if sub == "bn1":
+            return _bn("base.1", leaf)
+        stage, blk = sub.split("_")  # layer<i>, <block>
+        prefix = f"base.{int(stage[len('layer'):]) + 3}.{blk}"
+        mod = parts[2]
+        if mod == "downsample_conv":
+            return f"{prefix}.downsample.0.weight", _conv
+        if mod == "downsample_bn":
+            return _bn(f"{prefix}.downsample.1", leaf)
+        if mod.startswith("conv"):
+            return f"{prefix}.{mod}.weight", _conv
+        return _bn(f"{prefix}.{mod}", leaf)
+    if top == "neck":
+        idx = int(parts[1][-1])
+        if parts[1].startswith("deconv"):
+            return f"deconv_layers.{3 * idx}.weight", _conv_transpose
+        return _bn(f"deconv_layers.{3 * idx + 1}", leaf)
+    if top == "heads":
+        return _heads_key(parts, leaf)
+    return None
+
+
+# MBConv leaves: JAX module -> EfficientNet-PyTorch module
+_EFFNET_BLOCK = {"expand_conv": "_expand_conv",
+                 "depthwise_conv": "_depthwise_conv",
+                 "project_conv": "_project_conv", "se_reduce": "_se_reduce",
+                 "se_expand": "_se_expand", "bn0": "_bn0", "bn1": "_bn1",
+                 "bn2": "_bn2"}
+_EFFNET_SKIP = {"0": "skip_2", "1": "skip_5"}
+
+
+def _efficientnet_key(path: Tuple[str, ...], use_upsample: bool
+                      ) -> Optional[Tuple[str, object]]:
+    """(torch key, transform) of one JAX EfficientNet leaf, or None."""
+    parts = list(path)
+    leaf, top = parts[-1], parts[0]
+
+    def conv_or_bias(key):
+        return (f"{key}.weight", _conv) if leaf == "kernel" else \
+            (f"{key}.bias", _same)
+
+    if top == "base":
+        sub = parts[1]
+        fixed = {"stem_conv": "base._conv_stem", "stem_bn": "base._bn0",
+                 "head_conv": "base._conv_head", "head_bn": "base._bn1"}
+        if sub in fixed:
+            if sub.endswith("conv"):
+                return f"{fixed[sub]}.weight", _conv
+            return _bn(fixed[sub], leaf)
+        mod = _EFFNET_BLOCK.get(parts[2])
+        if mod is None:
+            return None
+        key = f"base._blocks.{int(sub[len('block'):])}.{mod}"
+        if mod.startswith("_bn"):
+            return _bn(key, leaf)
+        return conv_or_bias(key)
+    if top.startswith("neck_deconv"):
+        return (f"deconv_layers.{3 * int(top[len('neck_deconv'):])}.weight",
+                _conv_transpose)
+    if top.startswith("neck_conv"):
+        return (f"deconv_layers.{4 * int(top[len('neck_conv'):]) + 1}"
+                ".weight", _conv)
+    if top.startswith("neck_bn"):
+        stage = int(top[len("neck_bn"):])
+        idx = 4 * stage + 2 if use_upsample else 3 * stage + 1
+        return _bn(f"deconv_layers.{idx}", leaf)
+    if top.startswith("skip_"):
+        stage, kind = top[len("skip_"):].split("_", 1)
+        if kind == "conv":
+            return conv_or_bias(f"{_EFFNET_SKIP[stage]}.0")
+        return _bn(f"{_EFFNET_SKIP[stage]}.1", leaf)
+    if top == "heads":
+        return _heads_key(parts, leaf)
     return None
 
 
 def state_dict_from_jax(variables, backend: str = "dla"
                         ) -> Dict[str, torch.Tensor]:
-    """The port's state dict of ``backend`` ("dla", "dla34", "mobilenetv2")
-    from that JAX backend's ``variables``."""
+    """The port's state dict of ``backend`` ("dla", "dla34", "mobilenetv2",
+    "resnet", "resnet18", "efficientnet", "efficientnet-b0", ...) from that
+    JAX backend's ``variables``."""
     kind = "".join(c for c in backend if not c.isdigit())
     if kind == "dla":
         key_of = _dla_key
+    elif kind == "resnet":
+        key_of = _resnet_key
+    elif kind in ("efficientnet", "efficientnet-b"):
+        use_upsample = any(top.startswith("neck_conv")
+                           for top in variables.get("params", {}))
+        key_of = lambda path: _efficientnet_key(  # noqa: E731
+            path, use_upsample)
     elif kind == "mobilenetv":
         # a DCN neck has neck_dcn* params and neck_dcn_bn* statistics
         use_dcn = any(top.startswith("neck_dcn")

@@ -53,10 +53,16 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
    ``experiment=adversarial_entropy_minimization`` (batch 8, the validation
    images as the target domain of both phases) for 1 epoch at float32,
    which writes ``discriminator.ckpt`` beside ``model_last.ckpt``, and a
-   resume to epoch 2 that restores both optimizers. Each train step must
+   resume to epoch 2 that restores both optimizers; then
+   ``experiment=coco_merged`` (EfficientNet-b3 with skips, rotated boxes
+   and 5 keypoints, ``coco_merger`` over two source folders of 16 images
+   each, with rotated boxes and keypoints in their annotations and the
+   experiment's augmentation, batch 8 at 512 px, validation at 800 px with
+   the rotated evaluator) for 1 epoch at float32. Each train step must
    launch the 16 layers' forward and backward kernels of its precision
-   (twice for ADVENT: source and target), each eval step the forwards;
-   losses and the COCO means finite; the checkpoints written.
+   (twice for ADVENT: source and target; none for EfficientNet), each eval
+   step the forwards; losses and the COCO means finite; the checkpoints
+   written.
    It prints each epoch's train time and loader-wait share and the eval
    time with the evaluator; with ``--profile`` the float32 run also traces
    its first two steps (``profile_steps``) and prints the device time of
@@ -72,14 +78,39 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
    losses, UDA stats and detections finite; ADVENT's discriminator must
    move in every step; FDA's mix on the card must agree with the CPU's
    within 1e-4 of the image scale. It prints steps 2-3 and the peak
-   memory of each.
+   memory of each;
+9. backbones, rotated boxes, keypoints: on seeded synthetic batches with
+   rotated boxes and keypoints where the config has them, each run takes
+   3 train steps at 512 px and one eval step at 800 px with decode, with
+   its step times, peak memory and DCN launches per step:
+   a. ``experiment=rotated`` (ResNet-101, rotated boxes, the periodic angle
+      loss, batch 16) at float32 and bfloat16: 0 DCN launches;
+   b. ``experiment=baseline_resnet18`` (batch 16) and ``baseline_resnet50``
+      (batch 8) at float32: 0 launches;
+   c. ``experiment=keypoints`` with ``gpu=null`` (EfficientNet-b0 with
+      skips, 5 keypoints, entropy minimization with a target batch, batch
+      16) at float32 and bfloat16: 0 launches (its two-device data
+      parallelism is cut);
+   d. DLA-34 ``experiment=baseline`` with ``rotated_boxes=true``,
+      ``num_keypoints=5`` and ``coco_merged``'s loss params (periodic,
+      ``kp_weight`` 2.0, ``kp_indices``, ``kp_distance_weight`` 10) at
+      float32 and bfloat16: 16 launches of the precision's forward and
+      backward kernels per train step, 16 forwards per eval; the clamp
+      monitor printed;
+   e. the same DLA-34 at float32 with ``freeze_base=true``: launches as in
+      d; after the steps every trunk parameter is bitwise unchanged and
+      every head parameter has moved.
+   The new backbones' f32 heads on the card are held against the same
+   module on the CPU, run there in float64 (same weights and input,
+   train-mode BatchNorm, TF32 off), within 1e-3 of each head's scale;
+   DLA-34's against the exact DCN op as in phase 4.
 
 Before each model trains, its heads on the kernel path are held against the
 exact DCN op on the same weights and a small input. Every phase drives the
 entry points a user calls (``build_trainer``, ``Model.step``,
 ``get_detections``) with the launch counters set to 0 just before and read
 just after. The last lines are a ``{"kernels": [...]}`` JSON line (one
-entry per kernel source, launches summed over phases 4-8), the card's
+entry per kernel source, launches summed over phases 4-9), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero. ``--json PATH`` also writes every measurement
 to PATH; ``--profile`` adds a torch.profiler breakdown by kernel of two
@@ -123,6 +154,21 @@ UDA_EXPERIMENTS = ("entropy_minimization", "max_squares_minimization", "fda",
                    "adversarial_entropy_minimization")
 UDA_BF16 = ("entropy_minimization", "adversarial_entropy_minimization")
 UDA_BATCH, UDA_STEPS = 8, 3
+# phase 9: 3 train steps a run; coco_merged's keypoint pairs and loss params
+# (configs/experiment/coco_merged.yaml), put on DLA-34 in run d
+P9_STEPS = 3
+NUM_KPS = 5
+KP_INDICES = [[0, 1], [0, 4], [1, 4], [2, 3], [1, 2], [4, 3]]
+COCO_MERGED_LOSS = [
+    "model.backend.loss.params.periodic=true",
+    "model.backend.loss.params.kp_weight=2.0",
+    f"model.backend.loss.params.kp_indices={KP_INDICES}",
+    "model.backend.loss.params.kp_distance_weight=10.0"]
+# the new backbones' f32 heads on the card against the same module on the
+# CPU (run there in float64): 1e-3 of scale
+CARD_VS_CPU = 1e-3
+# phase 7's coco_merged run: two source folders of this many images
+MERGED_IMAGES = 16
 # H100 SXM published peaks (dense): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -644,9 +690,12 @@ def load_parent(path):
     return module
 
 
-def synthetic_batch(rng, batch, size, num_classes, max_det, down_ratio=4):
+def synthetic_batch(rng, batch, size, num_classes, max_det, down_ratio=4,
+                    rotated=False, num_kps=0):
     """A seeded detection batch, targets encoded as the data pipeline
-    does."""
+    does; with ``rotated`` the ``wh`` target carries an angle in degrees
+    and ``gt_dets`` is (cx, cy, w, h, angle, 1, class); with ``num_kps``
+    keypoint offsets, their mask and ``gt_kps``."""
     import numpy as np
 
     from centernet_uda_torch.ops.gaussian import encode_targets
@@ -658,8 +707,25 @@ def synthetic_batch(rng, batch, size, num_classes, max_det, down_ratio=4):
         xy = rng.rand(n, 2) * out * 0.85
         wh = rng.rand(n, 2) * out * 0.25 + 2.0
         boxes = np.concatenate([xy, np.minimum(xy + wh, out - 1)], 1)
-        per_image.append(encode_targets(boxes, rng.randint(0, num_classes, n),
-                                        out, out, num_classes, max_det))
+        t = encode_targets(boxes, rng.randint(0, num_classes, n), out, out,
+                           num_classes, max_det)
+        valid = t["reg_mask"][:, None].astype(np.float32)
+        if rotated:
+            angle = rng.uniform(-90, 90, (max_det, 1)).astype(np.float32)
+            t["wh"] = np.concatenate([t["wh"], angle * valid], 1)
+            d = t["gt_dets"]
+            t["gt_dets"] = np.concatenate(
+                [(d[:, 0:2] + d[:, 2:4]) / 2, d[:, 2:4] - d[:, 0:2], angle,
+                 d[:, 4:6]], 1) * valid
+        if num_kps:
+            t["kps"] = (rng.randn(max_det, 2 * num_kps) * 3).astype(
+                np.float32) * valid
+            t["kp_reg_mask"] = np.repeat(
+                (rng.rand(max_det, num_kps) > 0.2) & (valid > 0), 2,
+                1).astype(np.uint8)
+            t["gt_kps"] = (rng.rand(max_det, num_kps, 2) * out).astype(
+                np.float32)
+        per_image.append(t)
     data = {k: np.stack([t[k] for t in per_image]) for k in per_image[0]}
     data["input"] = rng.randn(batch, 3, size, size).astype(np.float32)
     data["id"] = np.arange(batch)
@@ -740,7 +806,7 @@ def train_and_eval(trainer, cfg, data, eval_data, per_step, per_eval,
         if after_step is not None:
             after_step(trainer)
         vals = {k: float(v) for k, v in stats.items()}
-        if trainer.maybe_degrade_dcn(vals["dcn_max_abs_dy"]):
+        if trainer.maybe_degrade_dcn(vals.get("dcn_max_abs_dy", 0.0)):
             raise AssertionError("the DCN offsets reached the clamp")
         if not all(math.isfinite(v) for v in vals.values()):
             raise AssertionError(f"non-finite train stats {vals}")
@@ -770,12 +836,20 @@ def train_and_eval(trainer, cfg, data, eval_data, per_step, per_eval,
     vals = {k: float(v) for k, v in outputs["stats"].items()}
     boxes = dets["pred_boxes"]
     max_det = int(cfg.max_detections)
-    if boxes.shape != (int(cfg.batch_size), max_det, 4):
+    backend = trainer.backend
+    batch = int(cfg.batch_size)
+    if boxes.shape != (batch, max_det, 5 if backend.rotated_boxes else 4):
         raise AssertionError(f"pred_boxes shape {boxes.shape}")
+    kps = dets.get("pred_kps")
+    if backend.num_keypoints and (
+            kps is None or kps.shape != (batch, max_det,
+                                         backend.num_keypoints, 2)
+            or not np.isfinite(kps).all()):
+        raise AssertionError(f"pred_kps {None if kps is None else kps.shape}")
     if not (np.isfinite(boxes).all() and np.isfinite(dets["pred_scores"]).all()
             and all(math.isfinite(v) for v in vals.values())):
         raise AssertionError("non-finite eval outputs")
-    if trainer.maybe_degrade_dcn(vals["dcn_max_abs_dy"]):
+    if trainer.maybe_degrade_dcn(vals.get("dcn_max_abs_dy", 0.0)):
         raise AssertionError("the DCN offsets reached the clamp in eval")
     print(f"eval {eval_data['input'].shape[-1]}px B={cfg.batch_size}: "
           f"{eval_ms:.1f} ms, "
@@ -902,12 +976,15 @@ def forced_lanes_eval(cfg, device):
             "shapes": {str(k): n for k, n in shapes.items()}}
 
 
-def write_coco_set(root, n_images, rng, num_classes):
+def write_coco_set(root, n_images, rng, num_classes, rotated=False,
+                   num_kps=0):
     """``n_images`` binary PPM images of ``CLI_IMAGE_WH`` in ``root/images``
     and their COCO annotations in ``root/instances.json``: noise, and 5-29
     boxes per image drawn as ``synthetic_batch`` draws them (in image
-    pixels, at least 8 px a side), each painted in its class's colour.
-    Returns (image folder, annotation file)."""
+    pixels, at least 8 px a side), each painted in its class's colour;
+    with ``rotated`` each box also has an ``rbbox`` (its center and size
+    and an angle in [-80, 80] degrees), with ``num_kps`` that many visible
+    keypoints inside it. Returns (image folder, annotation file)."""
     import numpy as np
 
     from centernet_uda_torch.data.coco import write_ppm
@@ -926,11 +1003,21 @@ def write_coco_set(root, n_images, rng, num_classes):
                                          rng.randint(0, num_classes, n)):
             img[int(y1):int(y2), int(x1):int(x2)] = (
                 60 * (c + 1) % 256, 40 * c, 200 - 30 * c)
-            anns.append({"id": len(anns) + 1, "image_id": image_id,
-                         "category_id": int(c) + 1,
-                         "bbox": [float(x1), float(y1), float(x2 - x1),
-                                  float(y2 - y1)],
-                         "area": float((x2 - x1) * (y2 - y1)), "iscrowd": 0})
+            ann = {"id": len(anns) + 1, "image_id": image_id,
+                   "category_id": int(c) + 1,
+                   "bbox": [float(x1), float(y1), float(x2 - x1),
+                            float(y2 - y1)],
+                   "area": float((x2 - x1) * (y2 - y1)), "iscrowd": 0}
+            if rotated:
+                ann["rbbox"] = [float(x1 + x2) / 2, float(y1 + y2) / 2,
+                                float(x2 - x1), float(y2 - y1),
+                                float(rng.uniform(-80, 80))]
+            if num_kps:
+                pts = rng.rand(num_kps, 2) * (x2 - x1, y2 - y1) + (x1, y1)
+                ann["keypoints"] = [float(v) for x, y in pts
+                                    for v in (x, y, 2)]
+                ann["num_keypoints"] = num_kps
+            anns.append(ann)
         name = f"{image_id:05d}.ppm"
         write_ppm(img_dir / name, img)
         images.append({"id": image_id, "file_name": name, "width": w,
@@ -1102,7 +1189,52 @@ def cli_on_data(n_dcn, seed, profile):
     if epochs != [(2, "training"), (2, "validation")] or restored != 2:
         raise AssertionError(f"ADVENT resume ran {epochs}, restored "
                              f"{restored} optimizers")
+    out["cli_coco_merged"] = coco_merged_on_data(rng, sets[:2])
     return out
+
+
+def coco_merged_on_data(rng, sets):
+    """Phase 7's last run: ``experiment=coco_merged`` (EfficientNet-b3,
+    rotated boxes, 5 keypoints) through ``main()`` for one float32 epoch on
+    two source folders and a validation folder whose annotations have
+    rotated boxes and keypoints. The training datasets are given as one
+    YAML list (a dotted override cannot index into a list), each with the
+    experiment's own augmentation. EfficientNet has no DCN layer: no
+    launch."""
+    import yaml
+
+    root = CLI_DIR / "data" / "merged"
+    sources = [write_coco_set(root / name, MERGED_IMAGES, rng, 6, True,
+                              NUM_KPS) for name in ("source_a", "source_b")]
+    val_dir, val_anno = write_coco_set(root / "target", MERGED_IMAGES, rng,
+                                       6, True, NUM_KPS)
+    exp = yaml.safe_load((ROOT / "configs" / "experiment" /
+                          "coco_merged.yaml").read_text())
+    augmentation = exp["datasets"]["training"]["params"]["datasets"][0][
+        "params"]["augmentation"]
+    merged = [{"name": "coco", "params": {
+        "image_folder": str(img_dir), "annotation_file": str(anno),
+        "augmentation": augmentation}} for img_dir, anno in sources]
+    overrides = ["experiment=coco_merged", "precision=float32", "epochs=1",
+                 *sets, "datasets.training.params.datasets="
+                 + yaml.safe_dump(merged, default_flow_style=True,
+                                  width=1 << 20).strip(),
+                 f"datasets.validation.params.image_folder={val_dir}",
+                 f"datasets.validation.params.annotation_file={val_anno}"]
+    run = run_cli("coco_merged", overrides, expect(), expect())
+    state = torch_load(CLI_DIR / "coco_merged" / "outputs" / "coco_merged"
+                       / "model_last.ckpt")["state_dict"]
+    if (state["wh.2.weight"].shape[0] != 3
+            or state["kps.2.weight"].shape[0] != 2 * NUM_KPS):
+        raise AssertionError("coco_merged checkpoint without rotated and "
+                             "keypoint heads")
+    return run
+
+
+def torch_load(path):
+    import torch
+
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def with_target_domain(data, rng):
@@ -1212,6 +1344,143 @@ def uda_trainers(n_dcn, seed, profile):
             out[key] = record
             del trainer
             torch.cuda.empty_cache()
+    return out
+
+
+def check_heads_card_vs_cpu(trainer):
+    """The backend's f32 heads on the card against the same module on the
+    CPU: same weights, a 2 x 3 x 256 x 256 input, train-mode BatchNorm on
+    copies (the trainer's statistics stay as they are), TF32 off. The CPU
+    runs the module in float64, so the check reads the card's f32 rounding
+    alone: within CARD_VS_CPU of each head's scale. The CPU's own f32 run
+    against its float64 one is printed beside it. Returns {head: (max
+    |err|, relative, the CPU f32's relative)}."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    net = trainer.backend.module
+    generator = getattr(net, "drop_generator", None)
+    if generator is not None:
+        net.drop_generator = None  # no stochastic depth in the comparison
+    try:
+        card = copy.deepcopy(net).train()
+        cpu = copy.deepcopy(net).cpu().train()
+    finally:
+        if generator is not None:
+            net.drop_generator = generator
+    x = torch.from_numpy(np.random.RandomState(7).randn(
+        2, 3, 256, 256).astype(np.float32))
+    with torch.no_grad():
+        got = {k: v.cpu() for k, v in card(x.cuda()).items()}
+        del card
+        cpu_f32 = cpu(x)
+        for mod in cpu.double().modules():
+            if hasattr(mod, "compute_dtype"):
+                mod.compute_dtype = torch.float64
+        want = cpu(x.double())
+    errs = {}
+    for k, w in want.items():
+        scale = float(w.abs().max())
+        err = float((got[k].double() - w).abs().max())
+        cpu_err = float((cpu_f32[k].double() - w).abs().max())
+        if not (bool(torch.isfinite(got[k]).all())
+                and err <= CARD_VS_CPU * scale):
+            raise AssertionError(f"head {k} on the card vs the CPU: max "
+                                 f"|err| {err}, scale {scale}")
+        errs[k] = (err, err / scale, cpu_err / scale)
+    del cpu
+    print(f"{trainer.backend.name} f32 heads on the card vs the CPU in "
+          f"float64 (the CPU's f32 beside): " + " ".join(
+              f"{k}={v[0]:.3g}/{v[1]:.2g} ({v[2]:.2g})"
+              for k, v in errs.items()), flush=True)
+    return errs
+
+
+def backbones_rotated_keypoints(n_dcn, seed):
+    """Phase 9: ResNet, EfficientNet, rotated boxes and keypoints, and
+    ``freeze_base`` (runs a-e of the module docstring). Returns {run name:
+    record}."""
+    import numpy as np
+    import torch
+
+    from centernet_uda_torch.config import compose
+    from centernet_uda_torch.train import build_trainer
+
+    none = expect()
+    f32_dcn = (expect(dcn_fwd=n_dcn, dcn_bwd=n_dcn), expect(dcn_fwd=n_dcn))
+    bf16_dcn = (expect(dcn_fused_fwd=n_dcn, dcn_fused_bwd=n_dcn),
+                expect(dcn_fused_fwd=n_dcn))
+    dla_rk = ["experiment=baseline", "model.backend.params.rotated_boxes=true",
+              f"model.backend.params.num_keypoints={NUM_KPS}",
+              *COCO_MERGED_LOSS]
+    runs = [
+        ("rotated", ["experiment=rotated"], "float32", (none, none)),
+        ("rotated_bf16", ["experiment=rotated"], "bfloat16", (none, none)),
+        ("resnet18", ["experiment=baseline_resnet18"], "float32",
+         (none, none)),
+        ("resnet50", ["experiment=baseline_resnet50"], "float32",
+         (none, none)),
+        ("keypoints", ["experiment=keypoints", "gpu=null"], "float32",
+         (none, none)),
+        ("keypoints_bf16", ["experiment=keypoints", "gpu=null"], "bfloat16",
+         (none, none)),
+        ("dla_rotated_kps", dla_rk, "float32", f32_dcn),
+        ("dla_rotated_kps_bf16", dla_rk, "bfloat16", bf16_dcn),
+        ("dla_freeze_base", dla_rk + ["model.backend.params.freeze_base=true"],
+         "float32", f32_dcn),
+    ]
+    out = {}
+    for name, overrides, precision, (per_step, per_eval) in runs:
+        phase(f"backbones, rotated boxes, keypoints: {name}")
+        cfg = compose(overrides + [f"seed={seed}", f"precision={precision}"],
+                      config_dir=str(ROOT / "configs"))
+        trainer = build_trainer(cfg, device="cuda")
+        trainer.init_done()
+        backend = trainer.backend
+        rng = np.random.RandomState(seed + len(out))
+        batch = int(cfg.batch_size)
+        data, eval_data = [synthetic_batch(
+            rng, batch, size, backend.num_classes, int(cfg.max_detections),
+            rotated=backend.rotated_boxes, num_kps=backend.num_keypoints)
+            for size in (TRAIN_SIZE, EVAL_SIZE)]
+        if trainer.requires_target_domain:
+            data = with_target_domain(data, rng)
+            eval_data = with_target_domain(eval_data, rng)
+        record = {"batch": batch, "backend": backend.name,
+                  "precision": precision}
+        if name.startswith("dla"):
+            record["heads_vs_exact_max_abs_err"] = check_heads_against_exact(
+                trainer, torch.device("cuda"), bf16=precision == "bfloat16")
+        elif precision == "float32":
+            record["heads_card_vs_cpu"] = check_heads_card_vs_cpu(trainer)
+        net = backend.module
+        before = {k: p.detach().clone() for k, p in net.named_parameters()}
+        record["train"], record["eval"] = train_and_eval(
+            trainer, cfg, data, eval_data, per_step, per_eval,
+            steps=P9_STEPS)
+        if name == "dla_freeze_base":
+            for k, p in net.named_parameters():
+                trunk = k.startswith("base.")
+                if trunk != (not p.requires_grad):
+                    raise AssertionError(f"{k}: requires_grad "
+                                         f"{p.requires_grad}")
+                if trunk and not torch.equal(p, before[k]):
+                    raise AssertionError(f"frozen {k} moved")
+                if (k.split(".")[0] in backend.heads
+                        and torch.equal(p, before[k])):
+                    raise AssertionError(f"head parameter {k} did not move")
+            print("freeze_base: every trunk parameter bitwise unchanged, "
+                  "every head parameter moved", flush=True)
+        later = record["train"]["step_ms"][1:]
+        print(f"{name} {backend.name} {precision} B={batch}: steps "
+              f"2-{P9_STEPS} {' '.join(f'{ms:.1f}' for ms in later)} ms, "
+              f"peak {record['train']['max_memory_allocated'] / 2**30:.2f} "
+              f"GiB, eval {record['eval']['ms']:.1f} ms", flush=True)
+        out[f"p9_{name}"] = record
+        del trainer, net, before
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1455,12 +1724,15 @@ def main(argv=None) -> int:
     uda = uda_trainers(n_dcn, args.seed, args.profile)
     report.update(uda)
 
+    p9 = backbones_rotated_keypoints(n_dcn, args.seed)
+    report.update(p9)
+
     runs = [report[k]["launches"] for k in (
         "train", "eval", "bf16_train", "bf16_eval", "mnv2_train",
         "mnv2_eval", "mnv2_bf16_train", "mnv2_bf16_eval", "lanes_eval",
         "cli_f32", "cli_resume", "cli_bf16", "cli_advent",
-        "cli_advent_resume")]
-    runs += [r[part]["launches"] for r in uda.values()
+        "cli_advent_resume", "cli_coco_merged")]
+    runs += [r[part]["launches"] for r in (*uda.values(), *p9.values())
              for part in ("train", "eval")]
 
     def launches(name):

@@ -112,13 +112,15 @@ def test_profile_steps_writes_a_trace(tiny, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["model.backend.params.rotated_boxes=true"], NotImplementedError,
-     "rotated"),
+    # ImageNet trunk weights need the torch hub cache; nothing is downloaded
+    (["model.backend.params.pretrained=true"], FileNotFoundError,
+     "no cached weights"),
     (["gpu=[0,1]"], NotImplementedError, "multi-device"),
 ])
 def test_unported_configs_raise(tiny, tmp_path, monkeypatch, extra, error,
                                 match):
     monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("TORCH_HOME", str(tmp_path / "torch_home"))
     with pytest.raises(error, match=match):
         train.main(overrides(tiny, *extra), device="cpu")
 

@@ -365,3 +365,62 @@ def test_select_and_wide_autograd_functions(cuda):
                                       2 * out.detach())
     for t, w in zip(leaves, want):
         assert_close(t.grad, w, "wide grad")
+
+
+# --- backbones without a DCN layer, freeze_base ---------------------------------
+
+
+@pytest.mark.parametrize("name,params", [
+    ("resnet", dict(num_layers=18)),
+    ("efficientnet", dict(variant="b0", use_skip=True))],
+    ids=["resnet18", "efficientnet-b0"])
+def test_backbone_heads_on_the_card_match_the_cpu(cuda, name, params):
+    """The same f32 module and input on the card (TF32 off) and on the
+    CPU: heads within 1e-3 of their scale, in eval and train mode, and no
+    DCN launch."""
+    from centernet_uda_torch import models
+
+    net = models.build(name, num_classes=3, seed=3, device="cpu",
+                       **params).module
+    card = models.build(name, num_classes=3, seed=3, device="cuda",
+                        **params).module
+    x = torch.tensor(np.random.RandomState(0).randn(2, 3, 128, 128).astype(
+        np.float32))
+    dcn_cuda.reset_launches()
+    for train in (False, True):
+        with torch.no_grad():
+            want = net.train(train)(x)
+            got = card.train(train)(x.to(cuda))
+        for k, w in want.items():
+            scale = float(w.abs().max())
+            err = float((got[k].cpu() - w).abs().max())
+            assert err <= 1e-3 * scale, (k, train, err / scale)
+    assert dcn_cuda.LAUNCHES == only()
+
+
+def test_freeze_base_keeps_the_trunk_on_the_card(cuda):
+    """ResNet-18 with ``freeze_base`` and weight decay: after 3 steps on the
+    card every trunk parameter is bitwise unchanged and every other one has
+    moved."""
+    from centernet_uda_torch.config import compose
+    from centernet_uda_torch.ops.gaussian import encode_targets
+    from centernet_uda_torch.train import build_trainer
+
+    trainer = build_trainer(compose([
+        "experiment=baseline_resnet18", "model.backend.params.num_classes=3",
+        "model.backend.params.freeze_base=true", "batch_size=2",
+        "optimizer.params.weight_decay=0.0001"]), device="cuda")
+    trainer.init_done()
+    net = trainer.backend.module
+    before = {k: p.detach().clone() for k, p in net.named_parameters()}
+    rng = np.random.RandomState(0)
+    t = encode_targets(np.array([[4.0, 4.0, 20.0, 18.0]]), [1], 32, 32, 3, 8)
+    data = {k: np.stack([v, v]) for k, v in t.items()}
+    for _ in range(3):
+        data["input"] = rng.randn(2, 3, 128, 128).astype(np.float32)
+        trainer.step(dict(data), is_training=True)
+    for k, p in net.named_parameters():
+        if k.startswith("base."):
+            assert torch.equal(p, before[k]), k
+        else:
+            assert not torch.equal(p, before[k]), k

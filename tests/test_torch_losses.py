@@ -105,11 +105,65 @@ def test_detection_loss_values_and_grads():
             np.asarray(jgrads[key]), **TOL, err_msg=key)
 
 
-@pytest.mark.parametrize("params", [dict(periodic=True), dict(kp_weight=1.0),
-                                    dict(kp_indices=[[0, 1]])])
-def test_unported_variants_raise(params):
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        tl.DetectionLoss(**params)
+# the experiments' loss params (configs/experiment/coco_merged.yaml,
+# keypoints.yaml)
+COCO_MERGED_LOSS = dict(periodic=True, angle_weight=1.0, kp_weight=2.0,
+                        kp_indices=[[0, 1], [0, 4], [1, 4], [2, 3], [1, 2],
+                                    [4, 3]], kp_distance_weight=10.0)
+KEYPOINTS_LOSS = dict(kp_weight=1.0, kp_indices=COCO_MERGED_LOSS["kp_indices"],
+                      kp_distance_weight=0.5)
+
+
+@pytest.mark.parametrize("params", [
+    dict(periodic=True), dict(kp_weight=1.0), dict(kp_indices=[[0, 1]]),
+    COCO_MERGED_LOSS, KEYPOINTS_LOSS,
+    dict(kp_indices=[[0, 1], [2, 4]], kp_distance_weight_l1=True),
+    dict(kp_indices=[[3, 1]], legacy_sqrt_bias=False, periodic=True)],
+    ids=["periodic", "kp_weight", "kp_indices", "coco_merged", "keypoints",
+         "l1_distance", "sqrt_bias_1e-4"])
+def test_rotated_and_keypoint_variants_match_jax(params):
+    """``DetectionLoss`` with the periodic angle loss (rotated ``wh`` of 3
+    channels, target angles in degrees) and the keypoint loss (5
+    keypoints, a per-coordinate ``kp_reg_mask``): the loss, every stat
+    (``kp_loss`` among them) and d(loss)/d(outputs) against JAX's."""
+    rng = np.random.RandomState(4)
+    b, h, w, c, k, p = 2, 16, 16, 3, 10, 5
+    periodic = params.get("periodic", False)
+    with_kps = "kp_weight" in params or "kp_indices" in params
+    d_wh = 3 if periodic else 2
+    outputs = {"hm": rng.randn(b, h, w, c).astype(np.float32),
+               "wh": (rng.randn(b, h, w, d_wh) * 3).astype(np.float32),
+               "reg": rng.rand(b, h, w, 2).astype(np.float32)}
+    wh = (rng.rand(b, k, d_wh) * 5).astype(np.float32)
+    if periodic:
+        wh[..., 2] = rng.uniform(-180, 180, (b, k))
+    batch = {"hm": heatmap(rng, b, h, w, c),
+             "ind": rng.randint(0, h * w, (b, k)).astype(np.int64),
+             "reg_mask": (rng.rand(b, k) > 0.4).astype(np.uint8),
+             "wh": wh, "reg": rng.rand(b, k, 2).astype(np.float32)}
+    if with_kps:
+        outputs["kps"] = (rng.randn(b, h, w, 2 * p) * 4).astype(np.float32)
+        batch["kps"] = (rng.randn(b, k, 2 * p) * 4).astype(np.float32)
+        batch["kp_reg_mask"] = np.repeat(rng.rand(b, k, p) > 0.3, 2,
+                                         -1).astype(np.uint8)
+    jloss = jl.DetectionLoss(**params)
+    (want, jstats), jgrads = jax.value_and_grad(
+        lambda outs: jloss(outs, batch), has_aux=True)(outputs)
+    touts = {key: nchw(v).requires_grad_(True) for key, v in outputs.items()}
+    tbatch = {key: (nchw(v) if key == "hm" else torch.tensor(v))
+              for key, v in batch.items()}
+    loss, stats = build("centernet.DetectionLoss", **params)(touts, tbatch)
+    loss.backward()
+    assert set(stats) == set(jstats)
+    assert ("kp_loss" in stats) == with_kps
+    np.testing.assert_allclose(float(loss.detach()), float(want), **TOL)
+    for key in jstats:
+        np.testing.assert_allclose(float(stats[key].detach()),
+                                   float(jstats[key]), **TOL, err_msg=key)
+    for key in outputs:
+        np.testing.assert_allclose(
+            np.moveaxis(touts[key].grad.numpy(), 1, -1),
+            np.asarray(jgrads[key]), **TOL, err_msg=key)
 
 
 def test_sigmoid_clamped_bounds():

@@ -202,7 +202,12 @@ def test_build_and_unported_options():
     for (k, a), b in zip(backend.module.state_dict().items(),
                          again.module.state_dict().values()):
         assert torch.equal(a, b), k
-    with pytest.raises(NotImplementedError, match="pretrained"):
+    # a trunk weight file that is not there; freeze_base: no gradient for
+    # the trunk (tests/test_torch_freeze.py, test_torch_pretrained.py)
+    with pytest.raises(FileNotFoundError, match="not found"):
         build(6, pretrained="w.pth", device="cpu")
-    with pytest.raises(NotImplementedError, match="freeze_base"):
-        build(6, freeze_base=True, device="cpu")
+    frozen = build(6, freeze_base=True, device="cpu").module
+    assert {k.startswith("base.") for k, p in frozen.named_parameters()
+            if not p.requires_grad} == {True}
+    assert all(p.requires_grad for k, p in frozen.named_parameters()
+               if not k.startswith("base."))

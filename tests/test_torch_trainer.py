@@ -61,9 +61,9 @@ def test_degrade_to_exact_op_at_the_clamp(caplog):
 
 @pytest.mark.parametrize("override,match", [
     ("precision=float16", "precision"),
-    ("model.backend.params.freeze_base=true", "freeze_base"),
+    ("gpu=[0,1]", "multi-device"),
     ("mesh={data: 2}", "multi-device"),
-    ("model.backend.params.pretrained=w.pth", "pretrained"),
+    ("bn_sync=2", "bn_sync"),
 ])
 def test_unported_settings_raise(override, match):
     cfg = compose(["experiment=baseline", override] + NARROW)
