@@ -33,6 +33,12 @@ tensors; ``cuda`` runs the kernel path (on a CPU tensor, its plain twin);
 ``xla`` runs the exact op; ``pallas`` is read as ``cuda``. The kernels clamp
 the vertical offset to +-14 px; once a monitored layer reaches the clamp the
 trainer switches to the exact op, loudly (``Model.maybe_degrade_dcn``).
+
+Serving: ``export.py`` writes ``torch.export`` artifacts whose DCN layers
+are the custom ops ``centernet_uda::*`` of ``ops/dcn_cuda.py``. Data
+parallelism: ``parallel/ddp.py``, one process per device (``torchrun``, or
+``train.main`` for ``mesh: {data: N}`` / ``gpu: [...]``), NCCL on cards and
+gloo on the CPU.
 """
 
 import torch

@@ -196,14 +196,23 @@ def compose(
     return cfg
 
 
-def setup_run_dir(cfg: Config, base: str = ".") -> Path:
-    """Create ``outputs/<experiment>/`` and dump the composed config.
+def setup_run_dir(cfg: Config, base: str = ".", dump: bool = True) -> Path:
+    """Create ``outputs/<experiment>/`` and, with ``dump``, dump the
+    composed config there (the other ranks of a data-parallel run leave it
+    to rank 0).
 
     Matches hydra's run dir (configs/defaults.yaml:121) and the composed
     ``config.yaml`` the JAX package's export.py reads back.
     """
     run_dir = Path(base) / "outputs" / str(cfg.get("experiment", "default"))
     run_dir.mkdir(parents=True, exist_ok=True)
-    with open(run_dir / "config.yaml", "w") as f:
-        yaml.safe_dump(cfg.to_dict(), f, default_flow_style=False)
+    if dump:
+        with open(run_dir / "config.yaml", "w") as f:
+            yaml.safe_dump(cfg.to_dict(), f, default_flow_style=False)
     return run_dir
+
+
+def load_composed(path: str) -> Config:
+    """Load a previously dumped composed config (the export CLI's input)."""
+    with open(path) as f:
+        return Config(yaml.safe_load(f) or {})

@@ -13,7 +13,9 @@ device boundary:
   ``host_keys`` the trainer keeps on the host, into a pinned CPU tensor, so
   the trainer's ``.to(device, non_blocking=True)`` is an asynchronous copy,
 - an output queue prefetches ``prefetch`` batches ahead of the consumer,
-  overlapping host work with device steps.
+  overlapping host work with device steps,
+- a training shard (``num_shards`` > 1) is its rank's rows of each global
+  batch, where the JAX package gives each host a slice of the epoch.
 """
 
 from __future__ import annotations
@@ -75,7 +77,11 @@ class DataLoader:
         """``batch_size`` is the PER-PROCESS batch. For multi-process
         training pass the process's rank as ``shard_id`` and the world size
         as ``num_shards``: every process then iterates a disjoint,
-        same-length slice of each (identically shuffled) epoch permutation.
+        same-length part of each (identically shuffled) epoch permutation,
+        rank r rows ``r * batch_size .. (r + 1) * batch_size`` of each
+        global batch of ``num_shards * batch_size`` samples, so the ranks
+        together iterate the batches one process would with the global
+        batch.
 
         ``worker_mode``: "thread" (default; cv2/numpy release the GIL for
         the heavy work) or "process" (forked worker pool — the reference's
@@ -129,9 +135,11 @@ class DataLoader:
                 # covers every sample exactly once (full-split eval)
                 indices = indices[self.shard_id::self.num_shards]
             else:
-                per_shard = len(indices) // self.num_shards
-                indices = indices[self.shard_id * per_shard:
-                                  (self.shard_id + 1) * per_shard]
+                per_batch = self.batch_size * self.num_shards
+                usable = len(indices) // per_batch * per_batch
+                indices = indices[:usable].reshape(
+                    -1, self.num_shards, self.batch_size)[:, self.shard_id]
+                indices = indices.reshape(-1)
         return indices
 
     def _shard_batches(self) -> int:

@@ -4,7 +4,9 @@ Counterpart of ``centernet_uda_tpu/losses/centernet.py`` (the reference's
 ``losses/centernet.py``): the CornerNet focal loss on the heatmap and the
 masked L1 regression of size and offset at the ``ind`` centers, with
 the periodic (RAPiD) angle loss for rotated boxes and the keypoint offset
-loss with its pairwise-distance term.
+loss with its pairwise-distance term. Under data parallelism
+(``parallel/ddp.py``) each normalizer counts over the global batch, so a
+rank's loss is its share of the global batch's.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from centernet_uda_torch.ops.tensor import (
     gather_features_nchw,
     sigmoid_clamped,
 )
+from centernet_uda_torch.parallel.ddp import global_sum
 
 
 def focal_loss(pred: torch.Tensor, gt: torch.Tensor,
@@ -27,7 +30,8 @@ def focal_loss(pred: torch.Tensor, gt: torch.Tensor,
 
     Positives are pixels with ``gt == 1``; negatives are weighted by
     ``(1 - gt)^4``. Normalized by the positive count; without positives the
-    loss is the raw negative sum.
+    loss is the raw negative sum. Across ranks the count is the global
+    batch's and the loss this rank's share (``parallel/ddp.py``).
     """
     pred = pred.float()
     gt = gt.float()
@@ -37,17 +41,23 @@ def focal_loss(pred: torch.Tensor, gt: torch.Tensor,
     pos_sum = (torch.log(pred) * torch.pow(1.0 - pred, 2) * pos).sum()
     neg_sum = (torch.log(1.0 - pred) * torch.pow(pred, 2) * neg_weights
                * neg).sum()
-    num_pos = pos.sum()
+    num_pos = global_sum(pos.sum())
     loss = torch.where(num_pos == 0, -neg_sum,
                        -(pos_sum + neg_sum) / torch.clamp(num_pos, min=1.0))
     return loss * weight
 
 
+def _mask_norm(mask: torch.Tensor) -> torch.Tensor:
+    """The L1 terms' normalizer, ``mask.sum() + 1e-4`` (the mask counts
+    elements, objects x channels, as in the reference), the mask summed
+    over the ranks."""
+    return global_sum(mask.sum()) + 1e-4
+
+
 def _masked_l1(pred: torch.Tensor, target: torch.Tensor,
                mask: torch.Tensor) -> torch.Tensor:
-    """Sum of |pred*mask - target*mask| over ``mask.sum() + 1e-4`` (the mask
-    counts elements, objects x channels, as in the reference)."""
-    return (pred * mask - target * mask).abs().sum() / (mask.sum() + 1e-4)
+    """Sum of |pred*mask - target*mask| over ``_mask_norm(mask)``."""
+    return (pred * mask - target * mask).abs().sum() / _mask_norm(mask)
 
 
 def reg_l1_loss(output: torch.Tensor, mask: torch.Tensor, ind: torch.Tensor,
@@ -63,7 +73,7 @@ def reg_l1_loss(output: torch.Tensor, mask: torch.Tensor, ind: torch.Tensor,
     m = mask.unsqueeze(-1).float().expand_as(pred)
     target = target.float()
     if pred.shape[-1] == 3:
-        norm = m.sum() + 1e-4
+        norm = _mask_norm(m)
         wh_loss = (pred[..., 0:2] * m[..., 0:2]
                    - target[..., 0:2] * m[..., 0:2]).abs().sum() / norm
         a_pred = sigmoid_clamped(pred[..., 2:3] * m[..., 2:3])
@@ -87,7 +97,7 @@ def periodic_reg_l1_loss(output: torch.Tensor, mask: torch.Tensor,
     m = mask.unsqueeze(-1).float().expand_as(pred)
     pred = pred * m
     target = target.float() * m
-    norm = m.sum() + 1e-4
+    norm = _mask_norm(m)
     wh_loss = (pred[..., 0:2] - target[..., 0:2]).abs().sum() / norm
     pred_angle = sigmoid_clamped(pred[..., 2:3]) * 2.0 * math.pi - math.pi
     target_angle = torch.deg2rad(target[..., 2:3])
@@ -112,7 +122,7 @@ def kps_l1_loss(output: torch.Tensor, mask: torch.Tensor, ind: torch.Tensor,
     m = mask.float()
     pred = pred * m
     target = target.float() * m
-    norm = m.sum() + 1e-4
+    norm = _mask_norm(m)
     loss = (pred - target).abs().sum() / norm * weight
     if kp_indices is not None:
         idx = torch.as_tensor(kp_indices, dtype=torch.long,

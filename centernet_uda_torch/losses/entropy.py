@@ -5,7 +5,8 @@ Counterpart of ``centernet_uda_tpu/losses/entropy.py`` (the reference's
 of the raw heatmap logits, in float32. With ``eta`` set (FDA) it is the
 per-pixel normalised entropy, squared, plus 1e-30, raised to ``eta``, then
 the mean; without it, the Shannon entropy summed over everything and
-divided by ``n * h * w * log2(C)``.
+divided by ``n * h * w * log2(C)``. Across ranks each mean (and ``n``) is
+the global batch's, and the loss this rank's share (``parallel/ddp.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from centernet_uda_torch.parallel.ddp import rank_share
 
 
 @dataclass
@@ -28,7 +31,7 @@ class EntropyLoss:
         plogp = v * torch.log2(v + 1e-30)
         if self.eta is not None:
             ent = -plogp.sum(dim=1) / math.log2(c)  # (N, H, W)
-            loss = (ent ** 2.0 + 1e-30).pow(self.eta).mean()
+            loss = rank_share((ent ** 2.0 + 1e-30).pow(self.eta).mean())
         else:
-            loss = -plogp.sum() / (n * h * w * math.log2(c))
+            loss = rank_share(-plogp.sum() / (n * h * w * math.log2(c)))
         return loss, {"entropy_loss": loss}

@@ -25,9 +25,34 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from centernet_uda_torch.parallel import ddp
+
 # torch BatchNorm2d(momentum=0.1) is flax BatchNorm(momentum=0.9)
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
+
+
+def bn_group_count(bn_sync, world: int) -> int:
+    """The BatchNorm statistics groups over the global batch for the
+    config's ``bn_sync`` (``centernet_uda_tpu/models/common.py:
+    set_bn_groups``): ``global`` 1, ``replica`` one per rank, an int N."""
+    if isinstance(bn_sync, str) and not bn_sync.isdigit():
+        value = bn_sync.lower()
+        if value == "global":
+            return 1
+        if value == "replica":
+            return max(int(world), 1)
+        raise ValueError(f"bn_sync must be 'global', 'replica' or an int, "
+                         f"got {bn_sync!r}")
+    return max(int(bn_sync), 1)
+
+
+def set_bn_groups(module: nn.Module, groups: int) -> None:
+    """Give every ``BatchNorm2d`` of ``module`` ``groups`` statistics
+    groups."""
+    for mod in module.modules():
+        if isinstance(mod, BatchNorm2d):
+            mod.groups = int(groups)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -39,6 +64,20 @@ class BatchNorm2d(nn.BatchNorm2d):
     torch's own update uses the unbiased one. Statistics and normalisation
     run in float32 whatever the input's dtype (float64 for a float64
     input); the output is in ``dtype``.
+
+    ``groups`` (``bn_sync``, set by ``set_bn_groups``) is the JAX package's
+    ``GroupedBatchNorm``: training normalises each of ``groups`` contiguous
+    slices of the global batch with its own moments, where ``groups``
+    divides the global batch (else the whole batch is one group), and
+    updates the running statistics with the pooled moments of the whole
+    batch, E[var_g] + Var[mean_g]. Across ranks (``parallel/ddp.py``) the
+    per-sample moments are gathered, so one group may span ranks and
+    ``global`` is the moments of the global batch. Each group's variance is
+    the mean of its samples' variances plus the variance of their means
+    (each taken in two passes), which equals the group's biased variance
+    without the one-pass E[x^2] - E[x]^2 of the JAX module. With one group
+    on one device the layer is torch's own batch norm (cuDNN on the card).
+    The state dict is ``nn.BatchNorm2d``'s in every case.
     """
 
     def __init__(self, num_features: int,
@@ -46,12 +85,15 @@ class BatchNorm2d(nn.BatchNorm2d):
                  momentum: float = BN_MOMENTUM):
         super().__init__(num_features, eps=eps, momentum=momentum)
         self.compute_dtype = dtype
+        self.groups = 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.eps).to(self.compute_dtype)
+        if self.groups > 1 or ddp.world_size() > 1:
+            return self._grouped(x)
         with torch.no_grad():
             wide = x if x.dtype == torch.float64 else x.float()
             var, mean = torch.var_mean(wide, dim=(0, 2, 3), correction=0)
@@ -60,6 +102,33 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.num_batches_tracked += 1
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps).to(self.compute_dtype)
+
+    def _grouped(self, x: torch.Tensor) -> torch.Tensor:
+        wide = x if x.dtype == torch.float64 else x.float()
+        var, mean = torch.var_mean(wide, dim=(2, 3), correction=0)
+        # (B, 2, C): every rank's per-sample moments, in global batch order
+        moments = ddp.gather_rows(torch.stack((mean, var), 1))
+        total = moments.shape[0]
+        g = self.groups if total % self.groups == 0 else 1
+        moments = moments.reshape(g, total // g, 2, -1)
+        gmean = moments[:, :, 0].mean(1)  # (G, C)
+        gvar = (moments[:, :, 1].mean(1)
+                + (moments[:, :, 0] - gmean[:, None]).square().mean(1))
+        with torch.no_grad():
+            pooled_mean = gmean.mean(0)
+            pooled_var = (gvar.mean(0)
+                          + (gmean - pooled_mean).square().mean(0))
+            dt = self.running_mean.dtype
+            self.running_mean.lerp_(pooled_mean.to(dt), self.momentum)
+            self.running_var.lerp_(pooled_var.to(dt), self.momentum)
+            self.num_batches_tracked += 1
+        first = ddp.rank() * x.shape[0]
+        group = torch.arange(first, first + x.shape[0],
+                             device=x.device) // (total // g)
+        inv = torch.rsqrt(gvar[group] + self.eps) * self.weight  # (b, C)
+        shift = self.bias - gmean[group] * inv
+        return (wide * inv[:, :, None, None]
+                + shift[:, :, None, None]).to(self.compute_dtype)
 
 
 class Conv2d(nn.Conv2d):

@@ -20,7 +20,8 @@ even map), the stride-1 depthwise convs (k - 1) / 2 on each side.
 Stochastic depth draws one Bernoulli(keep) per sample and residual block
 from ``drop_generator`` (set by the trainer, ``uda/base.py``) in train
 mode, and is off without one and in eval mode, as the JAX model is off
-without a ``dropout`` rng.
+without a ``dropout`` rng. Across ranks each draws the global batch's masks
+and keeps its own rows.
 
 Module names reproduce the reference state dict: the trunk under ``base``
 in EfficientNet-PyTorch's names (``base._conv_stem``, ``base._bn0``,
@@ -52,6 +53,7 @@ from centernet_uda_torch.models.common import (
     init_like_flax,
     make_heads_dict,
 )
+from centernet_uda_torch.parallel import ddp
 from centernet_uda_torch.utils.checkpoint import load_backbone_pretrained
 
 # neck stage -> block whose output feeds its skip (stage 0 is the
@@ -166,8 +168,12 @@ class MBConv(nn.Module):
             return x
         if self.training and self.drop_rate > 0 and generator is not None:
             keep = 1.0 - self.drop_rate
-            mask = torch.rand((x.shape[0], 1, 1, 1), generator=generator,
-                              device=x.device) < keep
+            # the masks of the global batch, drawn alike on every rank
+            # (one seed), and this rank's rows of them
+            b, first = x.shape[0], ddp.rank() * x.shape[0]
+            mask = torch.rand((b * ddp.world_size(), 1, 1, 1),
+                              generator=generator, device=x.device)
+            mask = mask[first:first + b] < keep
             x = drop_connect(x, keep, mask)
         return x + inputs
 

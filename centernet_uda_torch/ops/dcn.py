@@ -369,7 +369,8 @@ class DCN(nn.Module):
     ``bias``, ``conv_offset_mask.weight``, ``conv_offset_mask.bias``.
     ``max_abs_dy`` holds, after a forward on the kernel path, max |dy| over
     the even offset channels (a 0-dim tensor, no gradient), else None; the
-    trainer reads it to catch saturation of the clamp. ``dtype`` is the
+    trainer reads it to catch saturation of the clamp; ``torch.export``
+    leaves it out of a serving graph. ``dtype`` is the
     compute dtype (float32 or bfloat16); the parameters stay float32.
     """
 
@@ -415,8 +416,10 @@ class DCN(nn.Module):
             from centernet_uda_torch.ops.dcn_cuda import dcn_v2_fused_kernel
 
             om_conv = self.conv_offset_mask
-            out, self.max_abs_dy = dcn_v2_fused_kernel(
+            out, max_abs_dy = dcn_v2_fused_kernel(
                 x, om_conv.weight, om_conv.bias, self.weight, self.bias)
+            if not torch.compiler.is_exporting():
+                self.max_abs_dy = max_abs_dy
             return out
         offset, mask = self._offset_mask(x)
         weight = self.weight.to(x.dtype)
@@ -424,7 +427,8 @@ class DCN(nn.Module):
             return self._exact(x, offset, mask, weight)
         from centernet_uda_torch.ops import dcn_cuda
 
-        self.max_abs_dy = offset[:, 0::2].detach().abs().amax()
+        if not torch.compiler.is_exporting():
+            self.max_abs_dy = offset[:, 0::2].detach().abs().amax()
         kernel = {"select": dcn_cuda.dcn_v2_select_kernel,
                   "lanes": dcn_cuda.dcn_v2_kernel,
                   "wide": dcn_cuda.dcn_v2_wide_kernel}[route]

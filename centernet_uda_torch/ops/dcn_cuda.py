@@ -43,13 +43,23 @@ that. Their plain versions are ``ops.dcn.dcn_v2_twin`` and
 (backward): a wrapper takes them only for a tensor that lies on the CPU.
 For a CUDA tensor it launches the kernel or raises.
 
+The four forwards are custom ops of the namespace ``centernet_uda``
+(``dcn_fwd``, ``dcn_fused_fwd``, ``dcn_sel_fwd``, ``dcn_wide_fwd``), each with
+its kernel as the CUDA implementation, its plain twin as the CPU one and a
+fake implementation that gives the output's shape and dtype, so that
+``torch.export`` records the op in the graph of a model (``export.py``) and a
+reloaded artifact launches the kernel. Importing this module registers them.
+The ``autograd.Function`` of each route calls its op in ``forward``.
+
 The sources are compiled at first use with ``nvcc`` (one process per source,
 all started together) into ``build/kernels/`` at the root of the checkout,
 under a name that carries a hash of the sources, and loaded with ``ctypes``.
 Nothing is compiled or loaded at import.
 
-``LAUNCHES`` counts, per kernel source, the launches made by the wrappers; a
-run resets it with ``reset_launches()`` and reads it to show which path ran.
+``LAUNCHES`` counts, per kernel source, the launches made by the wrappers
+(for a forward, inside the op's CUDA implementation, so an exported
+artifact's calls count too); a run resets it with ``reset_launches()`` and
+reads it to show which path ran.
 """
 
 from __future__ import annotations
@@ -236,15 +246,35 @@ def _stage_x(x: torch.Tensor) -> torch.Tensor:
 
 def dcn_forward(x, offset, mask, weight, bias,
                 max_shift: float = PALLAS_MAX_SHIFT) -> torch.Tensor:
-    """DCNv2 forward, 3x3/s1/p1/d1. NCHW in and out; float32."""
-    if not x.is_cuda:
-        with torch.no_grad():
-            return dcn_v2_twin(x, offset, mask, weight, bias, max_shift)
+    """DCNv2 forward, 3x3/s1/p1/d1. NCHW in and out; float32. The op
+    ``centernet_uda::dcn_fwd``: ``dcn_fwd`` on a CUDA tensor, the plain twin
+    on a CPU tensor."""
+    return torch.ops.centernet_uda.dcn_fwd(x, offset, mask, weight, bias,
+                                           float(max_shift))
+
+
+@torch.library.custom_op("centernet_uda::dcn_fwd", mutates_args=(),
+                         device_types="cuda")
+def _dcn_fwd_op(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                weight: torch.Tensor, bias: torch.Tensor,
+                max_shift: float) -> torch.Tensor:
     _check(x, offset, mask, weight, bias)
     with torch.cuda.device(x.device):
         return _explicit_forward_launch(
             "dcn_fwd", x, offset, mask, weight, bias, max_shift,
             torch.cuda.current_stream().cuda_stream)
+
+
+@_dcn_fwd_op.register_kernel("cpu")
+def _dcn_fwd_cpu(x, offset, mask, weight, bias, max_shift):
+    # contiguous NCHW, as the kernel's output and the fake's
+    return dcn_v2_twin(x, offset, mask, weight, bias, max_shift).contiguous()
+
+
+@_dcn_fwd_op.register_fake
+def _dcn_fwd_fake(x, offset, mask, weight, bias, max_shift):
+    b, _, h, w, cout = _check(x, offset, mask, weight, bias)
+    return x.new_empty((b, cout, h, w))
 
 
 def dcn_backward_plain(x, offset, mask, weight, g,
@@ -419,16 +449,38 @@ def dcn_fused_forward(x, om_weight, om_bias, weight, bias,
     """The bf16 DCNv2 layer with its offset conv, 3x3/s1/p1/d1: ``(out,
     max_abs_dy)``. x (B, Cin, H, W) bf16; the offset conv's (27, Cin, 3, 3)
     weight and (27,) bias, the layer's (Cout, Cin, 3, 3) weight and (Cout,)
-    bias f32. out (B, Cout, H, W) bf16; max_abs_dy an f32 0-dim tensor."""
-    if not x.is_cuda:
-        with torch.no_grad():
-            return dcn_v2_fused_twin(x, om_weight, om_bias, weight, bias,
-                                     max_shift)
+    bias f32. out (B, Cout, H, W) bf16; max_abs_dy an f32 0-dim tensor. The
+    op ``centernet_uda::dcn_fused_fwd``: ``dcn_fused_fwd`` on a CUDA tensor,
+    the fused twin on a CPU tensor."""
+    return torch.ops.centernet_uda.dcn_fused_fwd(
+        x, om_weight, om_bias, weight, bias, float(max_shift))
+
+
+@torch.library.custom_op("centernet_uda::dcn_fused_fwd", mutates_args=(),
+                         device_types="cuda")
+def _dcn_fused_fwd_op(x: torch.Tensor, om_weight: torch.Tensor,
+                      om_bias: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor, max_shift: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_fused(x, om_weight, om_bias, weight, bias)
     with torch.cuda.device(x.device):
         return _fused_forward_launch(x, om_weight, om_bias, weight, bias,
                                      max_shift,
                                      torch.cuda.current_stream().cuda_stream)
+
+
+@_dcn_fused_fwd_op.register_kernel("cpu")
+def _dcn_fused_fwd_cpu(x, om_weight, om_bias, weight, bias, max_shift):
+    out, stat = dcn_v2_fused_twin(x, om_weight, om_bias, weight, bias,
+                                  max_shift)
+    return out.contiguous(), stat
+
+
+@_dcn_fused_fwd_op.register_fake
+def _dcn_fused_fwd_fake(x, om_weight, om_bias, weight, bias, max_shift):
+    b, _, h, w, cout = _check_fused(x, om_weight, om_bias, weight, bias)
+    return (x.new_empty((b, cout, h, w)),
+            x.new_empty((), dtype=torch.float32))
 
 
 def _fused_forward_launch(x, om_weight, om_bias, weight, bias, max_shift,
@@ -535,16 +587,36 @@ def dcn_sel_forward(x, offset, mask, weight, bias,
                     max_shift: float = PALLAS_MAX_SHIFT) -> torch.Tensor:
     """DCNv2 forward at the "select" shapes, 3x3/s1/p1/d1. x (B, Cin, H, W)
     float32 or bfloat16, offset and mask float32, the weight float32 or
-    bfloat16, bias float32; out (B, Cout, H, W) in x's dtype."""
-    if not x.is_cuda:
-        with torch.no_grad():
-            return dcn_v2_twin(x, offset, mask, weight, bias, max_shift)
+    bfloat16, bias float32; out (B, Cout, H, W) in x's dtype. The op
+    ``centernet_uda::dcn_sel_fwd``: ``dcn_sel_fwd`` on a CUDA tensor, the
+    plain twin on a CPU tensor."""
+    return torch.ops.centernet_uda.dcn_sel_fwd(x, offset, mask, weight, bias,
+                                               float(max_shift))
+
+
+@torch.library.custom_op("centernet_uda::dcn_sel_fwd", mutates_args=(),
+                         device_types="cuda")
+def _dcn_sel_fwd_op(x: torch.Tensor, offset: torch.Tensor,
+                    mask: torch.Tensor, weight: torch.Tensor,
+                    bias: torch.Tensor, max_shift: float) -> torch.Tensor:
     _check(x, offset, mask, weight, bias, x_dtypes=_F32_BF16,
            weight_dtypes=_F32_BF16)
     with torch.cuda.device(x.device):
         return _explicit_forward_launch(
             "dcn_sel_fwd", x, offset, mask, weight, bias, max_shift,
             torch.cuda.current_stream().cuda_stream)
+
+
+@_dcn_sel_fwd_op.register_kernel("cpu")
+def _dcn_sel_fwd_cpu(x, offset, mask, weight, bias, max_shift):
+    return dcn_v2_twin(x, offset, mask, weight, bias, max_shift).contiguous()
+
+
+@_dcn_sel_fwd_op.register_fake
+def _dcn_sel_fwd_fake(x, offset, mask, weight, bias, max_shift):
+    b, _, h, w, cout = _check(x, offset, mask, weight, bias,
+                              x_dtypes=_F32_BF16, weight_dtypes=_F32_BF16)
+    return x.new_empty((b, cout, h, w))
 
 
 def _explicit_forward_launch(name, x, offset, mask, weight, bias,
@@ -630,17 +702,37 @@ def dcn_v2_select_kernel(x, offset, mask, weight, bias) -> torch.Tensor:
 def dcn_wide_forward(x, offset, mask, weight, bias,
                      max_shift: float = PALLAS_MAX_SHIFT) -> torch.Tensor:
     """DCNv2 forward with both offsets clamped to +-max_shift (forced
-    "lanes" at W > 256), 3x3/s1/p1/d1; operands as ``dcn_sel_forward``'s."""
-    if not x.is_cuda:
-        with torch.no_grad():
-            return dcn_v2_twin(x, offset, mask, weight, bias, max_shift,
-                               clamp_dx=True)
+    "lanes" at W > 256), 3x3/s1/p1/d1; operands as ``dcn_sel_forward``'s.
+    The op ``centernet_uda::dcn_wide_fwd``: ``dcn_wide_fwd`` on a CUDA
+    tensor, the clamp-dx twin on a CPU tensor."""
+    return torch.ops.centernet_uda.dcn_wide_fwd(x, offset, mask, weight,
+                                                bias, float(max_shift))
+
+
+@torch.library.custom_op("centernet_uda::dcn_wide_fwd", mutates_args=(),
+                         device_types="cuda")
+def _dcn_wide_fwd_op(x: torch.Tensor, offset: torch.Tensor,
+                     mask: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, max_shift: float) -> torch.Tensor:
     _check(x, offset, mask, weight, bias, x_dtypes=_F32_BF16,
            weight_dtypes=_F32_BF16)
     with torch.cuda.device(x.device):
         return _explicit_forward_launch(
             "dcn_wide_fwd", x, offset, mask, weight, bias, max_shift,
             torch.cuda.current_stream().cuda_stream)
+
+
+@_dcn_wide_fwd_op.register_kernel("cpu")
+def _dcn_wide_fwd_cpu(x, offset, mask, weight, bias, max_shift):
+    return dcn_v2_twin(x, offset, mask, weight, bias, max_shift,
+                       clamp_dx=True).contiguous()
+
+
+@_dcn_wide_fwd_op.register_fake
+def _dcn_wide_fwd_fake(x, offset, mask, weight, bias, max_shift):
+    b, _, h, w, cout = _check(x, offset, mask, weight, bias,
+                              x_dtypes=_F32_BF16, weight_dtypes=_F32_BF16)
+    return x.new_empty((b, cout, h, w))
 
 
 def dcn_wide_backward(x, offset, mask, weight, bias, g,

@@ -3,9 +3,9 @@
     python -m centernet_uda_torch.train experiment=baseline [key=value ...]
         [--device cuda|cpu]
 
-Counterpart of ``centernet_uda_tpu/train.py`` for one device.
-``build_trainer`` assembles backend, loss, trainer (the baseline, or the
-UDA method named by the first key of ``model.uda``), optimizer and schedule
+Counterpart of ``centernet_uda_tpu/train.py``. ``build_trainer`` assembles
+backend, loss, trainer (the baseline, or the UDA method named by the first
+key of ``model.uda``), optimizer and schedule
 through the registries, on ``device``, at ``precision`` float32 or bfloat16.
 ``main`` composes the config from the checkout's ``configs/`` tree
 (defaults, the ``experiment=<name>`` overlay, then ``key=value``
@@ -17,6 +17,17 @@ config has one. Outputs go to ``outputs/<experiment>/`` under the working
 directory, which ``main`` enters (``config.yaml``, ``model_last.ckpt``,
 ``model_best.ckpt``, ``logs/``, ``profile/``). It runs on the card unless
 ``device`` (or ``--device``) says ``cpu``.
+
+Data parallelism (``parallel/ddp.py``, the JAX package's device mesh): under
+a launcher (``torchrun``, or ``distributed: true`` with its environment)
+``main`` joins the launcher's ranks; where ``mesh: {data: N}`` or ``gpu:
+[...]`` asks for N ranks and N cards are visible, it starts ranks 1..N-1
+itself and runs rank 0. Where fewer devices are visible or ``batch_size``
+does not divide, it warns and trains on one device, as the JAX package does.
+Each rank takes ``batch_size / ranks`` of each batch of its host; eval
+batches are padded (``pad_last``) and their detections gathered to rank 0,
+which alone evaluates and writes ``config.yaml``, logs and checkpoints
+(under the module's own names).
 """
 
 from __future__ import annotations
@@ -40,7 +51,9 @@ from centernet_uda_torch import models as model_registry
 from centernet_uda_torch import resolve_device
 from centernet_uda_torch import uda as uda_registry
 from centernet_uda_torch.data.loader import DataLoader
+from centernet_uda_torch.models.common import bn_group_count, set_bn_groups
 from centernet_uda_torch.ops.dcn import PALLAS_MAX_SHIFT
+from centernet_uda_torch.parallel import ddp
 from centernet_uda_torch.uda.base import _HOST_KEYS, Model
 from centernet_uda_torch.utils import optim as optim_util
 from centernet_uda_torch.utils.meters import AverageMeter
@@ -59,10 +72,16 @@ CONFIG_DIR = Path(__file__).resolve().parents[1] / "configs"
 # steps (a read per step would wait for every step to finish)
 STATS_FLUSH = 8
 
+# how long rank 0 waits for the ranks it started to exit after its run
+RANK_JOIN_TIMEOUT_S = 600
+
 
 def build_trainer(cfg, device="cuda") -> Model:
     """Assemble backend + loss + optimizer + trainer; call ``init_done()``
-    on the result before the first step."""
+    on the result before the first step. Under a process group (``main``)
+    the trainer is this rank's, with ``bn_sync`` over the ranks; without
+    one, a config asking for data parallelism warns and builds for one
+    device."""
     device = resolve_device(device)
     precision = str(cfg.get("precision", "float32"))
     if precision not in PRECISIONS:
@@ -73,15 +92,16 @@ def build_trainer(cfg, device="cuda") -> Model:
     # loss and optimizer in float32): no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if cfg.get("mesh") or isinstance(cfg.get("gpu"), (list, tuple)):
-        raise NotImplementedError("multi-device training is not ported yet "
-                                  "(ROADMAP A11)")
-    bn_sync = cfg.get("bn_sync", "global")
-    if str(bn_sync) not in ("global", "replica", "1"):
-        # one device: "replica" is the whole batch, as "global" is
-        raise NotImplementedError(
-            f"bn_sync={bn_sync!r}: BatchNorm statistics over batch groups "
-            "are not ported yet (ROADMAP A11)")
+    if not ddp.is_distributed():
+        n_ranks, why_not = ddp.plan_ranks(cfg, device)
+        if why_not:
+            log.warning(why_not)
+        elif n_ranks > 1:
+            log.warning("%d-way data parallelism starts its ranks through "
+                        "main() or torchrun; this trainer runs in one "
+                        "process", n_ranks)
+    bn_groups = bn_group_count(cfg.get("bn_sync", "global"),
+                               ddp.world_size())
 
     backend_params = cfg.model.backend.params.to_dict()
     backend_params.setdefault("dcn_impl", str(cfg.get("dcn_impl", "auto")))
@@ -89,6 +109,7 @@ def build_trainer(cfg, device="cuda") -> Model:
     backend = model_registry.build(cfg.model.backend.name, **backend_params,
                                    seed=int(cfg.get("seed", 42)),
                                    device=device)
+    set_bn_groups(backend.module, bn_groups)
 
     uda_cfg = cfg.model.get("uda")
     if uda_cfg:
@@ -116,14 +137,18 @@ def build_trainer(cfg, device="cuda") -> Model:
 
 
 def load_datasets(cfg, down_ratio: int, rotated_boxes: bool,
-                  pin_memory: bool = False, full_batches_only: bool = False):
+                  pin_memory: bool = False, full_batches_only: bool = False,
+                  batch_size: Optional[int] = None, shard_id: int = 0,
+                  num_shards: int = 1):
     """Build train/val/test loaders with merged defaults (train.py:17-67).
 
     The final partial eval batch runs as it is; with ``full_batches_only``
-    (kept for a device mesh, ROADMAP A11) it is padded by repeating samples
-    and carries ``_num_real``, and ``_run_phase`` slices the detections back
-    to the real samples. ``pin_memory``: the loaders hand over pinned
-    tensors (the trainer's host keys stay numpy).
+    (data parallelism) it is padded by repeating samples and carries
+    ``_num_real``, and ``_run_phase`` slices the detections back to the
+    real samples. ``pin_memory``: the loaders hand over pinned tensors (the
+    trainer's host keys stay numpy). ``batch_size`` (default the config's)
+    is this process's batch; rank ``shard_id`` of ``num_shards`` loads its
+    shard.
     """
     defaults = {
         "max_detections": cfg.max_detections,
@@ -140,7 +165,7 @@ def load_datasets(cfg, down_ratio: int, rotated_boxes: bool,
         dataset = data_registry.build(section.name, **params)
         loader = DataLoader(
             dataset,
-            batch_size=int(cfg.batch_size),
+            batch_size=int(batch_size or cfg.batch_size),
             shuffle=shuffle,
             num_workers=int(cfg.get("num_workers", 0)),
             worker_mode=str(cfg.get("worker_mode", "thread")),
@@ -149,6 +174,8 @@ def load_datasets(cfg, down_ratio: int, rotated_boxes: bool,
             seed=int(cfg.get("seed", 42)),
             pin_memory=pin_memory,
             host_keys=_HOST_KEYS,
+            shard_id=shard_id,
+            num_shards=num_shards,
         )
         return dataset, loader
 
@@ -191,7 +218,8 @@ def _stop_profiler(prof, device: torch.device, steps: int) -> None:
 def _run_phase(trainer, loader, evaluators, tb_logger, stats, epoch, tag,
                is_training, phases, profile_steps=0):
     """One pass over ``loader``; appends the phase's record to ``phases``
-    (see ``main``)."""
+    (see ``main``). Under data parallelism the eval detections go to rank
+    0's evaluators after the pass."""
     n_batches = 0
     t0 = time.perf_counter()
     wait_s = 0.0
@@ -199,6 +227,7 @@ def _run_phase(trainer, loader, evaluators, tb_logger, stats, epoch, tag,
     prof = None
     clamp_warned = False
     pending = []  # [(stats_dict_of_device_tensors, n_real)]
+    rank_detections = []  # this rank's, gathered to rank 0 after the pass
 
     def flush_pending():
         nonlocal clamp_warned
@@ -237,7 +266,8 @@ def _run_phase(trainer, loader, evaluators, tb_logger, stats, epoch, tag,
         wait_s += time.perf_counter() - t_next
         # torch.profiler trace of the first N train steps of the first
         # epoch (the reference has no tracing at all)
-        if profile_steps and is_training and epoch == 1 and n_batches == 0:
+        if (profile_steps and is_training and epoch == 1 and n_batches == 0
+                and ddp.is_main()):
             prof = _start_profiler(trainer.device)
         outputs = trainer.step(data, is_training=is_training)
         n_batches += 1
@@ -264,13 +294,22 @@ def _run_phase(trainer, loader, evaluators, tb_logger, stats, epoch, tag,
                 # drop padded duplicates before they reach the evaluator
                 detections = {k: v[:n_real] for k, v in detections.items()}
             detections["image_shape"] = tuple(data["input"].shape[1:])
-            for ev in evaluators:
-                ev.add_batch(**detections)
+            if ddp.is_distributed():
+                if n_real:
+                    rank_detections.append(detections)
+            else:
+                for ev in evaluators:
+                    ev.add_batch(**detections)
             if tb_logger is not None:
                 tb_logger.log_detections(data, detections, epoch, tag=tag)
 
     if prof is not None:
         _stop_profiler(prof, trainer.device, n_batches)
+    if not is_training and ddp.is_distributed():
+        for part in ddp.gather_to_main(rank_detections) or []:
+            for detections in part:
+                for ev in evaluators:
+                    ev.add_batch(**detections)
 
     flush_pending()
     dt = time.perf_counter() - t0
@@ -323,8 +362,41 @@ def main(argv=None, device: str = "cuda",
     args = parser.parse_intermixed_args(
         sys.argv[1:] if argv is None else list(argv))
     cfg = config_lib.compose(args.overrides, config_dir=str(CONFIG_DIR))
+    device = resolve_device(args.device)
 
-    run_dir = config_lib.setup_run_dir(cfg)
+    ranks = ddp.launched_ranks()
+    if ranks is None and cfg.get("distributed"):
+        raise ValueError(
+            "distributed: true joins a launcher's ranks: run it under "
+            "torchrun (which sets RANK, WORLD_SIZE, MASTER_ADDR and "
+            "MASTER_PORT)")
+    procs = []
+    if ranks is None:
+        # build_trainer warns where the devices cannot take the ranks asked
+        n_ranks, _ = ddp.plan_ranks(cfg, device)
+        if n_ranks:
+            ranks, procs = ddp.spawn_ranks(
+                n_ranks, ["--device", args.device, *args.overrides])
+    if ranks is not None and device.type == "cuda":
+        device = torch.device("cuda", ranks.local_rank)
+    try:
+        if ranks is not None:
+            ddp.init(ranks, device)
+        scalars = _train(cfg, device, ranks, phases)
+    except BaseException:
+        ddp.stop_ranks(procs)
+        raise
+    finally:
+        ddp.shutdown()
+    ddp.join_ranks(procs, RANK_JOIN_TIMEOUT_S)
+    return scalars
+
+
+def _train(cfg, device: torch.device, ranks: Optional[ddp.Ranks],
+           phases: List[Dict]) -> dict:
+    """``main`` after its ranks are set up: this process's run."""
+    is_main = ddp.is_main()
+    run_dir = config_lib.setup_run_dir(cfg, dump=is_main)
     # anchor user-supplied paths before entering the run dir (hydra leaves
     # relative paths dangling after its chdir; we resolve them instead)
     for key in ("pretrained", "resume"):
@@ -334,31 +406,45 @@ def main(argv=None, device: str = "cuda",
     os.chdir(run_dir)  # hydra-compatible: checkpoints/logs land in the run dir
 
     logging.basicConfig(
-        level=logging.INFO,
-        format="[%(asctime)s][%(name)s][%(levelname)s] - %(message)s",
+        level=logging.INFO if is_main else logging.WARNING,
+        format=("[%(asctime)s][%(name)s][%(levelname)s] - %(message)s"
+                if is_main else f"[rank {ddp.rank()}]" "[%(asctime)s]"
+                "[%(name)s][%(levelname)s] - %(message)s"),
     )
 
     np.random.seed(int(cfg.get("seed", 42)))
 
-    trainer = build_trainer(cfg, device=args.device)
+    trainer = build_trainer(cfg, device=device)
     backend = trainer.backend
 
+    batch_size = int(cfg.batch_size)
+    if ranks is not None:
+        if batch_size % ranks.local_world:
+            raise ValueError(f"batch_size {batch_size} does not divide over "
+                             f"the host's {ranks.local_world} ranks")
+        batch_size //= ranks.local_world
+        log.info("rank %d of %d: batch %d of the host's %d", ranks.rank,
+                 ranks.world, batch_size, int(cfg.batch_size))
     train_loader, val_loader, test_loader = load_datasets(
         cfg, down_ratio=backend.down_ratio,
         rotated_boxes=backend.rotated_boxes,
         pin_memory=trainer.device.type == "cuda",
+        full_batches_only=ranks is not None, batch_size=batch_size,
+        shard_id=ddp.rank(), num_shards=ddp.world_size(),
     )
 
-    tb_logger = TensorboardLogger(cfg, val_loader.dataset.classes)
+    # rank 0 alone logs and evaluates
+    tb_logger = (TensorboardLogger(cfg, val_loader.dataset.classes)
+                 if is_main else None)
 
     evaluators = []
-    for e in cfg.evaluation:
+    for e in (cfg.evaluation if is_main else ()):
         ev_params = cfg.evaluation[e]
         ev_params = ev_params.to_dict() if hasattr(ev_params, "to_dict") else {}
         ev = eval_registry.build(
             e, score_threshold=float(cfg.get("score_threshold", 0.0)), **ev_params
         )
-        ev.classes = tb_logger.classes
+        ev.classes = val_loader.dataset.classes
         ev.num_workers = int(cfg.get("num_workers", 0))
         ev.use_rotated_boxes = bool(backend.rotated_boxes)
         evaluators.append(ev)
@@ -404,11 +490,15 @@ def main(argv=None, device: str = "cuda",
                     s.reset()
                 else:
                     scalars[k] = s
-                tb_logger.log_stat(k, scalars[k], epoch)
+                if tb_logger is not None:
+                    tb_logger.log_stat(k, scalars[k], epoch)
+            # every rank takes rank 0's (the evaluators') decisions
+            scalars = ddp.broadcast_from_main(scalars)
 
             trainer.epoch_end()
-            tb_logger.reset()
-            trainer.save_model("model_last.ckpt", epoch, True)
+            if is_main:
+                tb_logger.reset()
+                trainer.save_model("model_last.ckpt", epoch, True)
 
             metric_name = cfg.save_best_metric.name
             if metric_name not in scalars:
@@ -422,7 +512,8 @@ def main(argv=None, device: str = "cuda",
             if (cfg.save_best_metric.mode == "min" and best > current) or (
                 cfg.save_best_metric.mode == "max" and best < current
             ):
-                trainer.save_model("model_best.ckpt", epoch, True)
+                if is_main:
+                    trainer.save_model("model_best.ckpt", epoch, True)
                 best = current
                 log.info(
                     "Save best model with %s of %.4f", metric_name, current
@@ -434,8 +525,11 @@ def main(argv=None, device: str = "cuda",
         for k, s in stats.items():
             value = s.avg if isinstance(s, AverageMeter) else s
             scalars[k] = value
-            tb_logger.log_stat(k, value, epoch)
-        tb_logger.reset()
+            if tb_logger is not None:
+                tb_logger.log_stat(k, value, epoch)
+        scalars = ddp.broadcast_from_main(scalars)
+        if tb_logger is not None:
+            tb_logger.reset()
 
     return scalars
 

@@ -35,6 +35,7 @@ from centernet_uda_torch.losses.advent import AdventLoss
 from centernet_uda_torch.models.common import lecun_normal_
 from centernet_uda_torch.ops.entropy import entropy_map
 from centernet_uda_torch.ops.tensor import sigmoid_clamped
+from centernet_uda_torch.parallel import ddp
 from centernet_uda_torch.uda.base import Model
 from centernet_uda_torch.utils import checkpoint as ckpt
 from centernet_uda_torch.utils import optim as optim_util
@@ -142,6 +143,9 @@ class AdversarialEntropyMinimization(Model):
         loss.backward(inputs=[p for p in self.backend.module.parameters()
                               if p.requires_grad])
         disc_loss.backward(inputs=list(self.discriminator.parameters()))
+        # one all-reduce of both parameter sets' gradients across ranks (no
+        # DDP reducer: it expects every gradient of one backward)
+        ddp.sum_gradients([self.optimizer, self.disc_optimizer])
         self.optimizer.step()
         self.disc_optimizer.step()
         stats = {k: v.detach() for k, v in stats.items()}

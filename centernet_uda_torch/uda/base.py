@@ -25,7 +25,13 @@ Stochastic depth (EfficientNet): the trainer holds a ``torch.Generator`` on
 its device and reseeds it before each train step from ``seed + 7919`` and
 the step count, as the JAX package folds the step into its dropout key;
 a backend that has a ``drop_generator`` attribute draws its masks from it
-in train mode. The masks' bits differ from JAX's.
+in train mode. The masks' bits differ from JAX's; every rank draws the same
+ones.
+
+Data parallelism (``parallel/ddp.py``): each rank's loss is its share of
+the global batch's, the step sums the gradients over the ranks before the
+optimizer steps, and ``step`` returns the stats reduced over the ranks (the
+global batch's losses, the largest max |dy|).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import torch
 from centernet_uda_torch import resolve_device
 from centernet_uda_torch.ops.dcn import DCN, PALLAS_MAX_SHIFT
 from centernet_uda_torch.ops.decode import decode_detections
+from centernet_uda_torch.parallel import ddp
 from centernet_uda_torch.utils import checkpoint as ckpt
 from centernet_uda_torch.utils import optim as optim_util
 
@@ -168,6 +175,7 @@ class Model:
         self.optimizer.zero_grad(set_to_none=True)
         loss, (outputs, stats) = self.loss_terms(batch, True)
         loss.backward()
+        ddp.sum_gradients([self.optimizer])
         self.optimizer.step()
         stats = {k: v.detach() for k, v in stats.items()}
         stats["total_loss"] = loss.detach()
@@ -204,10 +212,10 @@ class Model:
             self._seed_drop_generator()
             stats = self.train_step(batch)
             self.global_step += 1
-            return {"stats": stats}
+            return {"stats": ddp.reduce_stats(stats)}
         outputs, stats = self.eval_step(batch)
         outputs = dict(outputs)
-        outputs["stats"] = stats
+        outputs["stats"] = ddp.reduce_stats(stats)
         return outputs
 
     def decode(self, outputs: Dict[str, torch.Tensor]):

@@ -20,7 +20,8 @@ package's ``import_state_dict`` selects its shims (digits ignored, so
 The result loads with ``module.load_state_dict(sd)`` and, saved with
 ``torch.save``, imports back into the JAX package through its own
 ``import_state_dict``. ``disc_state_dict_from_jax(params)`` does the same
-for the ADVENT discriminator's ``conv0..conv4``.
+for the ADVENT discriminator's ``conv0..conv4``, and
+``pooling_state_dict_from_jax(params)`` for ``DCNPooling``'s ``fc1..fc3``.
 """
 
 from __future__ import annotations
@@ -304,4 +305,27 @@ def disc_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
             _conv(np.asarray(leaves["kernel"], np.float32)))
         sd[f"{idx}.bias"] = torch.tensor(np.asarray(leaves["bias"],
                                                     np.float32))
+    return sd
+
+
+def pooling_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The port's ``DCNPooling`` state dict from the JAX module's
+    ``params``: flax ``fc<i>`` Dense kernels (in, out) -> ``fc<i>.weight``
+    (out, in), biases as they are. ``fc1`` reads the pooled bins
+    channels-last (PS, PS, C) in JAX and channel-major (C, PS, PS) in the
+    port, so its input rows are permuted; PS is read off ``fc3`` (PS * PS
+    * 3 outputs)."""
+    kernels = {name: np.asarray(leaves["kernel"], np.float32)
+               for name, leaves in dict(params).items()}
+    bins = kernels["fc3"].shape[1] // 3
+    ps = int(round(bins ** 0.5))
+    fc1 = kernels["fc1"]
+    channels = fc1.shape[0] // bins
+    kernels["fc1"] = fc1.reshape(ps, ps, channels, -1).transpose(
+        2, 0, 1, 3).reshape(channels * bins, -1)
+    sd: Dict[str, torch.Tensor] = {}
+    for name, kernel in kernels.items():
+        sd[f"{name}.weight"] = torch.tensor(np.ascontiguousarray(kernel.T))
+        sd[f"{name}.bias"] = torch.tensor(np.asarray(params[name]["bias"],
+                                                     np.float32))
     return sd

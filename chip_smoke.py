@@ -103,14 +103,46 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
    The new backbones' f32 heads on the card are held against the same
    module on the CPU, run there in float64 (same weights and input,
    train-mode BatchNorm, TF32 off), within 1e-3 of each head's scale;
-   DLA-34's against the exact DCN op as in phase 4.
+   DLA-34's against the exact DCN op as in phase 4;
+10. serving export and data parallelism:
+   a. the export CLI (``centernet_uda_torch.export.main``) writes DLA-34's
+      artifacts from phase 7's float32 checkpoint: 512 px batch 1 with
+      decode (``.pt2`` and ``.opt.pt2``) and 800 px batch 4 without
+      (``-wd``, ``.pt2``); each is reloaded with ``load_artifact`` here and
+      in a fresh process that imports the port alone (no JAX), and every
+      call on the card must launch exactly the 16 ``dcn_fwd`` of the DCN
+      layers and give the eager serving module's outputs (raw heads within
+      1e-5 of their scale, the sorted top-k scores within 1e-5, and each
+      top-k row clear of the cut with a partner row of the same class, a
+      score within that bound and the same box; or within 4 times the
+      eager module's own spread over 4 more calls, where that is larger:
+      the DCN forward is not bitwise repeatable); ms per call, eager and
+      artifact;
+   b. MobileNetV2 with ``use_dcn=true`` (seeded init) exported at 512 px
+      the same way: 1 ``dcn_sel_fwd`` and 2 ``dcn_fwd`` per call;
+   c. DLA-34 at float32 and bfloat16 takes 3 steps on one batch as a plain
+      trainer and as the trainer of a one-rank NCCL group: 16 + 16
+      launches of the precision a step, the first step's losses equal
+      within 1e-5 of the largest (or 4 times the range of 4 plain
+      trainers' first steps, where that is larger), step times beside
+      each other; then
+      ``main()`` with ``mesh.data=1`` (one NCCL rank that ``main()`` joins
+      itself) for an epoch of phase 7's set at each precision;
+   d. DLA-34 at float32 with ``bn_sync`` 2 and 4: 3 steps and an eval,
+      launches as in phase 4, losses finite;
+   e. ``experiment=adversarial_entropy_minimization_dla`` as shipped
+      (``gpu: [0, 1]``) through ``main()`` on phase 7's set: it must warn
+      that one device is visible and train an epoch on it;
+   f. ``DCNPooling`` at the deformable R-FCN's shape (81 classes, 7 x 7,
+      128 RoIs on a 2 x 3969 x 32 x 32 map) on the card against the CPU:
+      output and gradients within 1e-4 of their scale.
 
 Before each model trains, its heads on the kernel path are held against the
 exact DCN op on the same weights and a small input. Every phase drives the
 entry points a user calls (``build_trainer``, ``Model.step``,
 ``get_detections``) with the launch counters set to 0 just before and read
 just after. The last lines are a ``{"kernels": [...]}`` JSON line (one
-entry per kernel source, launches summed over phases 4-9), the card's
+entry per kernel source, launches summed over phases 4-10), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero. ``--json PATH`` also writes every measurement
 to PATH; ``--profile`` adds a torch.profiler breakdown by kernel of two
@@ -1046,7 +1078,8 @@ def run_cli(name, overrides, per_train, per_eval, profile_steps=0):
     ``CLI_DIR / name``. Each training step must launch ``per_train``, each
     eval step ``per_eval`` (counted from the CLI's phase records), every
     phase's loss and every ``MSCOCO_Precision``/``MSCOCO_Recall`` mean be
-    finite. Returns the run's record."""
+    finite. Returns the run's record, with the messages of the checkpoint
+    and trainer loggers (``log``)."""
     import logging
     import os
 
@@ -1060,9 +1093,11 @@ def run_cli(name, overrides, per_train, per_eval, profile_steps=0):
     records = []
     handler = logging.Handler()
     handler.emit = records.append
-    ckpt_log = logging.getLogger("centernet_uda_torch.utils.checkpoint")
-    ckpt_log.setLevel(logging.INFO)
-    ckpt_log.addHandler(handler)
+    loggers = [logging.getLogger(n) for n in (
+        "centernet_uda_torch.utils.checkpoint", "uda")]
+    for logger in loggers:
+        logger.setLevel(logging.INFO)
+        logger.addHandler(handler)
     cwd = os.getcwd()
     os.chdir(workdir)
     phases = []
@@ -1075,7 +1110,8 @@ def run_cli(name, overrides, per_train, per_eval, profile_steps=0):
         torch.cuda.synchronize()
     finally:
         os.chdir(cwd)
-        ckpt_log.removeHandler(handler)
+        for logger in loggers:
+            logger.removeHandler(handler)
     wall_s = time.perf_counter() - t0
     launches = dict(dcn_cuda.LAUNCHES)
     steps = {tag: sum(p["steps"] for p in phases if p["tag"] == tag)
@@ -1118,6 +1154,27 @@ def run_cli(name, overrides, per_train, per_eval, profile_steps=0):
     return run
 
 
+def cli_data(seed):
+    """The overrides that point a CLI run at phase 7's COCO set."""
+    train_dir, val_dir = (CLI_DIR / "data" / part for part in ("train",
+                                                               "val"))
+    return [f"seed={seed}", "num_workers=4",
+            f"datasets.training.params.image_folder={train_dir / 'images'}",
+            f"datasets.training.params.annotation_file="
+            f"{train_dir / 'instances.json'}",
+            f"datasets.validation.params.image_folder={val_dir / 'images'}",
+            f"datasets.validation.params.annotation_file="
+            f"{val_dir / 'instances.json'}"]
+
+
+def cli_target_domain():
+    """The target-domain overrides of a UDA run on phase 7's set: its
+    validation images, in both phases."""
+    val_images = CLI_DIR / "data" / "val" / "images"
+    return [f"datasets.{p}.params.target_domain_glob={val_images}/*.ppm"
+            for p in ("training", "validation")]
+
+
 def cli_on_data(n_dcn, seed, profile):
     """Phase 7: the port's CLI, ``experiment=baseline`` at full width, on a
     synthetic COCO set of PPM images: 2 epochs at float32, a resume to
@@ -1129,17 +1186,11 @@ def cli_on_data(n_dcn, seed, profile):
 
     rng = np.random.RandomState(seed)
     t0 = time.perf_counter()
-    train_dir, train_anno = write_coco_set(CLI_DIR / "data" / "train",
-                                           CLI_TRAIN_IMAGES, rng, 6)
-    val_dir, val_anno = write_coco_set(CLI_DIR / "data" / "val",
-                                       CLI_VAL_IMAGES, rng, 6)
+    write_coco_set(CLI_DIR / "data" / "train", CLI_TRAIN_IMAGES, rng, 6)
+    write_coco_set(CLI_DIR / "data" / "val", CLI_VAL_IMAGES, rng, 6)
     print(f"wrote {CLI_TRAIN_IMAGES} + {CLI_VAL_IMAGES} PPM images of "
           f"{CLI_IMAGE_WH} in {time.perf_counter() - t0:.1f} s", flush=True)
-    sets = [f"seed={seed}", "num_workers=4",
-            f"datasets.training.params.image_folder={train_dir}",
-            f"datasets.training.params.annotation_file={train_anno}",
-            f"datasets.validation.params.image_folder={val_dir}",
-            f"datasets.validation.params.annotation_file={val_anno}"]
+    sets = cli_data(seed)
     common = ["experiment=baseline", "batch_size=16"] + sets
     f32 = (expect(dcn_fwd=n_dcn, dcn_bwd=n_dcn), expect(dcn_fwd=n_dcn))
     out = {"cli_f32": run_cli("f32", common + ["epochs=2",
@@ -1166,10 +1217,8 @@ def cli_on_data(n_dcn, seed, profile):
 
     # ADVENT at its own batch (8), the validation images as the target
     # domain of both phases: an epoch, then a resume of both optimizers
-    target = [f"datasets.{p}.params.target_domain_glob={val_dir}/*.ppm"
-              for p in ("training", "validation")]
     advent = ["experiment=adversarial_entropy_minimization",
-              "precision=float32"] + sets + target
+              "precision=float32"] + sets + cli_target_domain()
     per_step = (expect(dcn_fwd=2 * n_dcn, dcn_bwd=2 * n_dcn),
                 expect(dcn_fwd=2 * n_dcn))
     out["cli_advent"] = run_cli("advent", advent + ["epochs=1"], *per_step)
@@ -1484,6 +1533,548 @@ def backbones_rotated_keypoints(n_dcn, seed):
     return out
 
 
+# phase 10: the serving artifacts of DLA-34 (name, input size, batch, with
+# decode), exported from phase 7's float32 run
+EXPORT_RUNS = (("dla34_512", 512, 1, True), ("dla34_800_wd", 800, 4, False))
+# eager and artifact outputs: raw heads within SERVE_TOL of each head's
+# scale, the (sorted) top-k scores within SERVE_TOL, and each top-k row's
+# class and box alike to its partner's, the row of the other output with
+# the same class and a score within that bound (rows at the top-k cut are
+# left out: a few steps of training leave many of the top 100 at the
+# heatmap's clamp, 1e-4, tied). The DCN forward is not bitwise repeatable:
+# where a grid is short it splits Cin across blocks that add with float
+# atomics, and it stages x in bf16, so a last-bit change upstream can flip
+# a rounding (two eager calls of DLA-34 at 800 px part by 1.1e-3 of the reg
+# head's scale, measured on one H100; at 512 px, a pair of calls that agreed
+# bitwise was followed by an artifact call 7e-7 off in the sorted scores
+# that reordered near-equal rows). Where SPREAD_CALLS more eager calls on
+# the same input part from the first by more than SERVE_TOL, the bound is
+# SPREAD_FACTOR times their largest spread.
+SERVE_TOL, SPREAD_FACTOR, SPREAD_CALLS = 1e-5, 4.0, 4
+# the one-rank step against the plain step: the first step's losses within
+# RANK_TOL of the largest loss, or SPREAD_FACTOR times the range of
+# RANK_PLAIN plain trainers' first-step losses where that is larger (the
+# DCN forward is not bitwise repeatable, see SERVE_TOL: two plain f32
+# trainers' first losses on one batch parted by 3.3e-5 to 3.0e-4 of 18.7
+# in runs on one H100; one pair is too few to bound a third sample)
+RANK_TOL, RANK_PLAIN = 1e-5, 4
+P10_STEPS = 3
+BN_SYNC_GROUPS = (2, 4)
+# DCNPooling at the deformable R-FCN's shape (the DCN paper's COCO
+# detector: 81 classes, 7 x 7 groups and bins, 4 samples a bin, trans_std
+# 0.1, fc layers 1024 wide) on the stride-16 map of a 512 px batch of 2,
+# 64 RoIs an image; card against CPU within POOL_TOL of scale
+POOL = dict(batch=2, size=32, output_dim=81, group=7, pooled=7,
+            rois_per_image=64, spatial_scale=1 / 16, trans_std=0.1,
+            fc_dim=1024)
+POOL_TOL = 1e-4
+SERVE_DIR = ROOT / "build" / "serve"
+
+# the fresh process of phase 10: imports the port alone, loads each
+# artifact with load_artifact, runs it on its saved input, saves the
+# outputs and prints each artifact's launches and ms per call as JSON
+SERVE_IN_FRESH_PROCESS = """
+import json, sys
+import numpy as np, torch
+from centernet_uda_torch.export import load_artifact
+from centernet_uda_torch.ops import dcn_cuda
+report = {}
+for job in json.loads(sys.argv[1]):
+    program = load_artifact(job["path"]).module()
+    x = torch.from_numpy(np.load(job["input"])).cuda()
+    dcn_cuda.reset_launches()
+    with torch.no_grad():
+        out = program(x)
+    torch.cuda.synchronize()
+    launches = dict(dcn_cuda.LAUNCHES)
+    torch.save(out, job["output"])
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with torch.no_grad():
+        start.record()
+        for _ in range(10):
+            program(x)
+        end.record()
+    torch.cuda.synchronize()
+    report[job["name"]] = {"launches": launches,
+                           "ms": start.elapsed_time(end) / 10}
+report["foreign_modules"] = sorted(
+    m for m in sys.modules if m.split(".")[0] in
+    ("jax", "jaxlib", "flax", "optax", "centernet_uda_tpu"))
+print(json.dumps(report))
+"""
+
+
+def decoded_diff(got, want, window):
+    """Two decoded outputs ``(boxes, scores, classes[, keypoints])``: the
+    largest difference of the sorted top-k scores, and row by row the
+    geometry (box, and keypoints where served) against the nearest row of
+    the other output with the same class and a score within ``window``,
+    both ways. A row within ``window`` of its output's k-th score is left
+    out (a near-tie across the cut may trade it for a row beyond the top
+    k); every other row must find a partner. Sorted scores alone cannot
+    say which rows may swap: a change of each score by ``d`` can move the
+    sorted vector by far less than ``d``. Returns the score error, the
+    largest geometry error, the rows checked, the rows with no partner and
+    the geometry's scale."""
+    import torch
+
+    def rows(out):
+        out = [t.double().cpu() for t in out]
+        geometry = out[0] if len(out) == 3 else torch.cat(
+            [out[0], out[3].flatten(2)], dim=-1)
+        return geometry, out[1], out[2]
+
+    def one_way(a, b):
+        """Each row of ``a`` clear of its cut against its partners in
+        ``b``: (largest geometry error, rows checked, rows unmatched)."""
+        (ga, sa, ca), (gb, sb, cb) = a, b
+        err, checked, unmatched = 0.0, 0, 0
+        for n in range(sa.shape[0]):
+            for i in torch.nonzero(sa[n] > sa[n, -1] + window).flatten():
+                partner = (((sb[n] - sa[n, i]).abs() <= window)
+                           & (cb[n] == ca[n, i]))
+                checked += 1
+                if not bool(partner.any()):
+                    unmatched += 1
+                    continue
+                err = max(err, float((gb[n][partner] - ga[n, i])
+                                     .abs().amax(dim=-1).min()))
+        return err, checked, unmatched
+
+    a, b = rows(got), rows(want)
+    score_err = float((a[1] - b[1]).abs().max())
+    err_ab, checked_ab, unmatched_ab = one_way(a, b)
+    err_ba, checked_ba, unmatched_ba = one_way(b, a)
+    return (score_err, max(err_ab, err_ba), checked_ab + checked_ba,
+            unmatched_ab + unmatched_ba, float(b[0].abs().max()))
+
+
+def served_spread(first, others):
+    """The eager module's own spread over SPREAD_CALLS more calls on one
+    input: per output (``served_errors``'s keys), the largest difference
+    of ``others`` from ``first``; decoded rows are paired within SERVE_TOL
+    of score, or SPREAD_FACTOR times the score spread where that is
+    larger."""
+    if isinstance(first, dict):
+        return {k: max(float((o[k].double() - v.double()).abs().max())
+                       for o in others) for k, v in first.items()}
+    scores = max(decoded_diff(o, first, SERVE_TOL)[0] for o in others)
+    window = max(SERVE_TOL, SPREAD_FACTOR * scores)
+    boxes = 0.0
+    for o in others:
+        _, err, _, unmatched, _ = decoded_diff(o, first, window)
+        if unmatched:
+            raise AssertionError(f"eager serving module: {unmatched} top-k "
+                                 "rows of one call have no partner in "
+                                 "another call's")
+        boxes = max(boxes, err)
+    return {"scores": scores, "boxes": boxes}
+
+
+def served_errors(name, got, want, spread):
+    """Artifact outputs against the eager serving module's: raw heads, or
+    the sorted top-k scores and each top-k row's class and geometry
+    against its partner's (``decoded_diff``, the score window being the
+    scores' bound), each within ``max(SERVE_TOL * scale, SPREAD_FACTOR *
+    spread)`` (see SERVE_TOL). Returns {output: max |err|}."""
+    import torch
+
+    def bound(scale, key):
+        return max(SERVE_TOL * scale, SPREAD_FACTOR * spread[key])
+
+    if isinstance(want, dict):
+        errs = {}
+        for k, w in want.items():
+            scale = float(w.abs().max())
+            errs[k] = float((got[k].double() - w.double()).abs().max())
+            if not (bool(torch.isfinite(got[k]).all())
+                    and errs[k] <= bound(scale, k)):
+                raise AssertionError(f"{name} head {k}: max |err| "
+                                     f"{errs[k]}, scale {scale}, eager "
+                                     f"spread {spread[k]}")
+        return errs
+    score_err, box_err, checked, unmatched, scale = decoded_diff(
+        got, want, bound(1.0, "scores"))
+    errs = {"scores": score_err, "boxes": box_err, "rows": checked}
+    if not (all(bool(torch.isfinite(t).all()) for t in got) and checked
+            and not unmatched and score_err <= bound(1.0, "scores")
+            and box_err <= bound(scale, "boxes")):
+        raise AssertionError(f"{name}: {errs}, rows with no partner "
+                             f"{unmatched}, eager spread {spread}")
+    return errs
+
+
+def serve_artifacts(n_dcn, seed):
+    """Phase 10 a-b: export DLA-34 from phase 7's float32 checkpoint
+    through the export CLI (512 px batch 1 with decode as ``.pt2`` and
+    ``.opt.pt2``, 800 px batch 4 ``-wd`` as ``.pt2``) and MobileNetV2 with
+    ``use_dcn`` from its seeded init (512 px, batch 1, with decode); reload
+    each artifact with ``load_artifact`` in this process and in a fresh
+    one that imports the port alone, run it on the card, and hold its
+    launches and outputs against the eager serving module's. Returns the
+    phase's record."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from centernet_uda_torch import export
+    from centernet_uda_torch import models as model_registry
+    from centernet_uda_torch.config import compose
+    from centernet_uda_torch.ops import dcn_cuda
+
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    outputs = CLI_DIR / "f32" / "outputs"
+    cfg = export.config_lib.load_composed(
+        str(outputs / "baseline" / "config.yaml"))
+    rng = np.random.RandomState(seed)
+    served, jobs = {}, []
+
+    def check_artifact(name, path, serving, x, per_call):
+        """Reload one artifact here; its launches, outputs and ms beside
+        the eager module's."""
+        with torch.no_grad():
+            want = serving(x)
+            spread = served_spread(
+                want, [serving(x) for _ in range(SPREAD_CALLS)])
+            eager_ms = time_ms(lambda: serving(x))
+        program = export.load_artifact(path).module()
+        dcn_cuda.reset_launches()
+        with torch.no_grad():
+            got = program(x)
+        torch.cuda.synchronize()
+        launches = dict(dcn_cuda.LAUNCHES)
+        if launches != per_call:
+            raise AssertionError(f"{name}: artifact launches {launches} != "
+                                 f"{per_call}")
+        errs = served_errors(name, got, want, spread)
+        with torch.no_grad():
+            ms = time_ms(lambda: program(x))
+        np.save(SERVE_DIR / f"{name}.in.npy", x.cpu().numpy())
+        jobs.append({"name": name, "path": str(path),
+                     "input": str(SERVE_DIR / f"{name}.in.npy"),
+                     "output": str(SERVE_DIR / f"{name}.out.pt")})
+        served[name] = {"launches": launches, "errs": errs, "ms": ms,
+                        "eager_spread": spread, "eager_ms": eager_ms,
+                        "want": want, "per_call": per_call,
+                        "bytes": path.stat().st_size}
+        print(f"{name}: {path.name} ({path.stat().st_size / 2**20:.1f} MiB) "
+              f"{ms:.3f} ms/call, eager {eager_ms:.3f} ms/call, launches "
+              f"{ {k: v for k, v in launches.items() if v} }, max |err| "
+              + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+              + " (eager's own spread " + " ".join(
+                  f"{k}={v:.3g}" for k, v in spread.items()) + ")",
+              flush=True)
+
+    dla = expect(dcn_fwd=n_dcn)
+    for name, size, batch, decode in EXPORT_RUNS:
+        args = ["-e", "baseline", "-i", str(size), str(size), "-b",
+                str(batch), "--outputs-dir", str(outputs), "--formats",
+                "pt2", *(["opt"] if decode else ["-wd"])]
+        t0 = time.perf_counter()
+        paths = export.main(args)
+        export_s = time.perf_counter() - t0
+        print(f"{name}: export CLI {args} wrote "
+              f"{[p.name for p in paths]} in {export_s:.1f} s", flush=True)
+        serving = export.ServingModule(export.build_model(
+            cfg, outputs / "baseline" / "model_last.ckpt", "cuda"),
+            with_decode=decode)
+        x = torch.from_numpy(rng.randn(batch, 3, size, size).astype(
+            np.float32)).cuda()
+        for path in paths:
+            kind = "opt" if path.name.endswith(".opt.pt2") else "pt2"
+            check_artifact(f"{name}_{kind}", path, serving, x, dla)
+        served[f"{name}_pt2"]["export_s"] = export_s
+
+    cfg_m = compose(["experiment=baseline_mobilenet_v2",
+                     "model.backend.params.use_dcn=true", f"seed={seed}"],
+                    config_dir=str(ROOT / "configs"))
+    params = cfg_m.model.backend.params.to_dict()
+    backend = model_registry.build(cfg_m.model.backend.name, **params,
+                                   seed=seed, dtype=torch.float32,
+                                   device="cuda")
+    serving = export.ServingModule(backend)
+    t0 = time.perf_counter()
+    program = export.export_program(serving, (1, 3, TRAIN_SIZE, TRAIN_SIZE))
+    path = export.export_pt2(program, SERVE_DIR / export.artifact_name(
+        cfg_m, (TRAIN_SIZE, TRAIN_SIZE), True))
+    print(f"mobilenetv2: exported {path.name} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    x = torch.from_numpy(rng.randn(1, 3, TRAIN_SIZE, TRAIN_SIZE).astype(
+        np.float32)).cuda()
+    check_artifact("mobilenetv2_512_pt2", path, serving, x,
+                   expect(dcn_sel_fwd=1, dcn_fwd=2))
+    del backend, serving, program
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVE_IN_FRESH_PROCESS, json.dumps(jobs)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT)})
+    if proc.returncode != 0:
+        raise AssertionError(f"fresh process failed:\n{proc.stderr[-4000:]}")
+    fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+    if fresh.pop("foreign_modules"):
+        raise AssertionError("the fresh process imported JAX or the JAX "
+                             "package")
+    for name, rec in served.items():
+        if fresh[name]["launches"] != rec["per_call"]:
+            raise AssertionError(f"{name} in a fresh process: launches "
+                                 f"{fresh[name]['launches']}")
+        got = torch.load(SERVE_DIR / f"{name}.out.pt", weights_only=True)
+        rec["fresh_errs"] = served_errors(f"{name} (fresh)", got,
+                                          rec.pop("want"),
+                                          rec["eager_spread"])
+        rec["fresh_ms"] = fresh[name]["ms"]
+        print(f"{name} in a fresh process: {rec['fresh_ms']:.3f} ms/call, "
+              f"launches as here, max |err| " + " ".join(
+                  f"{k}={v:.3g}" for k, v in rec["fresh_errs"].items()),
+              flush=True)
+    print(f"fresh process: {time.perf_counter() - t0:.1f} s for "
+          f"{len(jobs)} artifacts", flush=True)
+    for rec in served.values():
+        rec.pop("per_call")
+    return served
+
+
+def one_rank_steps(n_dcn, seed):
+    """Phase 10 c, steps: DLA-34 at each precision takes P10_STEPS train
+    steps on one seeded batch as a plain trainer, then as the trainer of a
+    one-rank NCCL group (its normalizers, gradients and stats all-reduced):
+    each step launches the precision's 16 + 16 kernels, and the first
+    step's losses (same weights, same batch) equal the plain step's within
+    RANK_TOL of the largest, or SPREAD_FACTOR times the range of RANK_PLAIN
+    plain trainers' first steps where that is larger. Returns {precision:
+    record}."""
+    import numpy as np
+    import torch
+
+    from centernet_uda_torch.config import compose
+    from centernet_uda_torch.ops import dcn_cuda
+    from centernet_uda_torch.parallel import ddp
+    from centernet_uda_torch.train import build_trainer
+
+    out = {}
+    for precision, fwd, bwd in (("float32", "dcn_fwd", "dcn_bwd"),
+                                ("bfloat16", "dcn_fused_fwd",
+                                 "dcn_fused_bwd")):
+        cfg = compose(["experiment=baseline", f"precision={precision}",
+                       f"seed={seed}"], config_dir=str(ROOT / "configs"))
+        data = synthetic_batch(np.random.RandomState(seed),
+                               int(cfg.batch_size), TRAIN_SIZE,
+                               int(cfg.model.backend.params.num_classes),
+                               int(cfg.max_detections))
+        runs = {}
+        modes = ["plain", "one_rank"] + [f"plain_{i}"
+                                         for i in range(1, RANK_PLAIN)]
+        for mode in modes:
+            if mode == "one_rank":
+                ddp.init(ddp.Ranks(0, 1, 0, 1, port=ddp.free_port()),
+                         torch.device("cuda", 0))
+            try:
+                trainer = build_trainer(cfg, device="cuda")
+                trainer.init_done()
+                step_ms, losses = [], []
+                dcn_cuda.reset_launches()
+                steps = 1 if mode.startswith("plain_") else P10_STEPS
+                for _ in range(steps):
+                    t0 = time.perf_counter()
+                    stats = trainer.step(data, is_training=True)["stats"]
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    losses.append({k: float(v) for k, v in stats.items()})
+                launches = dict(dcn_cuda.LAUNCHES)
+                distributed = ddp.is_distributed()
+            finally:
+                ddp.shutdown()
+            want = expect(**{fwd: n_dcn * steps, bwd: n_dcn * steps})
+            if launches != want or distributed != (mode == "one_rank"):
+                raise AssertionError(f"{mode} {precision}: launches "
+                                     f"{launches}, distributed "
+                                     f"{distributed}")
+            if not all(math.isfinite(v) for s in losses for v in s.values()):
+                raise AssertionError(f"{mode} {precision}: losses {losses}")
+            runs[mode] = {"step_ms": step_ms, "stats": losses,
+                          "launches": launches}
+            del trainer
+            torch.cuda.empty_cache()
+        plain = runs["plain"]["stats"][0]
+        first = {k: abs(runs["one_rank"]["stats"][0][k] - v)
+                 for k, v in plain.items()}
+        spread = max(
+            max(runs[m]["stats"][0][k] for m in modes if m != "one_rank")
+            - min(runs[m]["stats"][0][k] for m in modes if m != "one_rank")
+            for k in plain)
+        scale = max(abs(v) for v in plain.values())
+        if max(first.values()) > max(RANK_TOL * scale,
+                                     SPREAD_FACTOR * spread):
+            raise AssertionError(f"{precision}: the one-rank step's losses "
+                                 f"part from the plain step's: {first}, "
+                                 f"{RANK_PLAIN} plain trainers by {spread}")
+        later = [max(abs(a[k] - b[k]) for k in a) for a, b in zip(
+            runs["plain"]["stats"][1:], runs["one_rank"]["stats"][1:])]
+        ms = {m: sum(runs[m]["step_ms"][1:]) / (P10_STEPS - 1)
+              for m in ("plain", "one_rank")}
+        print(f"one NCCL rank, DLA-34 {precision} B={cfg.batch_size}: step "
+              f"{ms['one_rank']:.1f} ms (plain {ms['plain']:.1f} ms); first "
+              f"step's losses max |diff| {max(first.values()):.3g} of "
+              f"{scale:.4g} ({RANK_PLAIN} plain trainers: {spread:.3g}); "
+              f"later "
+              f"steps' {['%.3g' % d for d in later]}", flush=True)
+        out[precision] = {"runs": runs, "first_step_max_abs_diff":
+                          max(first.values()), "plain_spread": spread,
+                          "later_max_abs_diff": later, "step_ms": ms}
+    return out
+
+
+def grouped_bn_steps(n_dcn, seed):
+    """Phase 10 d: DLA-34 at float32 with ``bn_sync`` 2 and 4 (statistics
+    per group of 8 and 4 samples of the batch of 16): P10_STEPS train
+    steps and an eval step, launches as in phase 4, losses finite. Returns
+    {run name: record}."""
+    import numpy as np
+    import torch
+
+    from centernet_uda_torch.config import compose
+    from centernet_uda_torch.models.common import BatchNorm2d
+    from centernet_uda_torch.train import build_trainer
+
+    out = {}
+    for groups in BN_SYNC_GROUPS:
+        phase(f"bn_sync={groups}: DLA-34 float32")
+        cfg = compose(["experiment=baseline", f"bn_sync={groups}",
+                       f"seed={seed}"], config_dir=str(ROOT / "configs"))
+        trainer = build_trainer(cfg, device="cuda")
+        trainer.init_done()
+        bns = {m.groups for m in trainer.backend.module.modules()
+               if isinstance(m, BatchNorm2d)}
+        if bns != {groups}:
+            raise AssertionError(f"BatchNorm groups {bns}")
+        rng = np.random.RandomState(seed + groups)
+        data, eval_data = [synthetic_batch(
+            rng, int(cfg.batch_size), size,
+            int(cfg.model.backend.params.num_classes),
+            int(cfg.max_detections)) for size in (TRAIN_SIZE, EVAL_SIZE)]
+        record = {}
+        record["train"], record["eval"] = train_and_eval(
+            trainer, cfg, data, eval_data,
+            expect(dcn_fwd=n_dcn, dcn_bwd=n_dcn), expect(dcn_fwd=n_dcn),
+            steps=P10_STEPS)
+        later = record["train"]["step_ms"][1:]
+        print(f"bn_sync={groups} DLA-34 float32 B={cfg.batch_size}: steps "
+              f"2-{P10_STEPS} {' '.join(f'{ms:.1f}' for ms in later)} ms",
+              flush=True)
+        out[f"bn_sync_{groups}"] = record
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def ranks_through_main(n_dcn, seed):
+    """Phase 10 c (CLI) and e: ``main()`` on phase 7's set with
+    ``mesh.data=1`` (one NCCL rank that ``main()`` joins itself) for an
+    epoch at float32 and at bfloat16, and
+    ``experiment=adversarial_entropy_minimization_dla`` as shipped
+    (``gpu: [0, 1]``) for an epoch: it must warn that one device is
+    visible and train on it. Returns {run name: record}."""
+    sets = cli_data(seed)
+    out = {}
+    for precision, fwd, bwd in (("float32", "dcn_fwd", "dcn_bwd"),
+                                ("bfloat16", "dcn_fused_fwd",
+                                 "dcn_fused_bwd")):
+        run = run_cli(f"one_rank_{precision}", [
+            "experiment=baseline", "batch_size=16", "mesh={data: 1}",
+            "epochs=1", f"precision={precision}"] + sets,
+            expect(**{fwd: n_dcn, bwd: n_dcn}), expect(**{fwd: n_dcn}))
+        if not any(m.startswith("rank 0 of 1: batch")
+                   for m in run["log"]):
+            raise AssertionError(f"one rank {precision}: main() did not "
+                                 f"run as a rank: {run['log']}")
+        out[f"cli_one_rank_{precision}"] = run
+    warning = ("requested 2-way data parallelism but only 1 device(s) "
+               "available; running single-device")
+    run = run_cli("advent_dla", [
+        "experiment=adversarial_entropy_minimization_dla",
+        "precision=float32", "epochs=1"] + sets + cli_target_domain(),
+        expect(dcn_fwd=2 * n_dcn, dcn_bwd=2 * n_dcn),
+        expect(dcn_fwd=2 * n_dcn))
+    if warning not in run["log"]:
+        raise AssertionError(f"ADVENT on DLA-34: no single-device warning "
+                             f"in {run['log']}")
+    print(f"ADVENT on DLA-34 as shipped (gpu: [0, 1]): warned "
+          f"'{warning}' and trained on the card", flush=True)
+    out["cli_advent_dla"] = run
+    return out
+
+
+def pooling_card_vs_cpu(seed):
+    """Phase 10 f: ``DCNPooling`` (plain PyTorch; the JAX package has no
+    kernel for it) at POOL's shape on the card against the same module and
+    inputs on the CPU: output and the gradients of x and of the fc layers
+    within POOL_TOL of their scale. Returns the record."""
+    import numpy as np
+    import torch
+
+    from centernet_uda_torch.ops.dcn_pooling import DCNPooling
+
+    p = POOL
+    rng = np.random.RandomState(seed)
+    channels = p["output_dim"] * p["group"] ** 2
+    x = rng.randn(p["batch"], channels, p["size"], p["size"]).astype(
+        np.float32)
+    n = p["rois_per_image"] * p["batch"]
+    corner = rng.rand(n, 2) * 380
+    extent = rng.rand(n, 2) * 250 + 16
+    rois = np.concatenate([np.repeat(np.arange(p["batch"]),
+                                     p["rois_per_image"])[:, None],
+                           corner, np.minimum(corner + extent, 511)],
+                          1).astype(np.float32)
+    module = DCNPooling(p["spatial_scale"], p["pooled"], p["output_dim"],
+                        False, p["group"], trans_std=p["trans_std"],
+                        deform_fc_dim=p["fc_dim"],
+                        generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():  # offsets and a mask away from fc3's zero init
+        module.fc3.weight.normal_(0.0, 0.02, generator=torch.Generator()
+                                  .manual_seed(seed + 1))
+        module.fc3.bias.normal_(0.0, 0.5, generator=torch.Generator()
+                                .manual_seed(seed + 2))
+    coef = rng.randn(n, p["output_dim"], p["pooled"], p["pooled"]).astype(
+        np.float32)
+
+    def run(device):
+        mod = DCNPooling(p["spatial_scale"], p["pooled"], p["output_dim"],
+                         False, p["group"], trans_std=p["trans_std"],
+                         deform_fc_dim=p["fc_dim"]).to(device)
+        mod.load_state_dict(module.state_dict())
+        xt = torch.tensor(x, device=device, requires_grad=True)
+        out = mod(xt, torch.tensor(rois, device=device))
+        (out * torch.tensor(coef, device=device)).sum().backward()
+        grads = {"x": xt.grad, **{k: q.grad for k, q in
+                                  mod.named_parameters()}}
+        return out.detach().cpu(), {k: g.cpu() for k, g in grads.items()}
+
+    want, want_grads = run("cpu")
+    got, got_grads = run("cuda")
+    errs = {}
+    for k, g, w in [("out", got, want)] + [
+            (f"d{k}", got_grads[k], want_grads[k]) for k in want_grads]:
+        scale = float(w.abs().max())
+        errs[k] = float((g.double() - w.double()).abs().max())
+        if not (bool(torch.isfinite(g).all())
+                and errs[k] <= POOL_TOL * scale):
+            raise AssertionError(f"DCNPooling {k} card vs CPU: max |err| "
+                                 f"{errs[k]}, scale {scale}")
+    xt = torch.tensor(x, device="cuda", requires_grad=True)
+    mod = module.cuda()
+    roi_t = torch.tensor(rois, device="cuda")
+    coef_t = torch.tensor(coef, device="cuda")
+    ms = time_ms(lambda: (mod(xt, roi_t) * coef_t).sum().backward())
+    print(f"DCNPooling {n} RoIs on {tuple(x.shape)}: card vs CPU max |err| "
+          + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+          + f"; forward + backward {ms:.3f} ms on the card", flush=True)
+    return {"errs": errs, "ms": ms}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every measurement here")
@@ -1727,6 +2318,19 @@ def main(argv=None) -> int:
     p9 = backbones_rotated_keypoints(n_dcn, args.seed)
     report.update(p9)
 
+    phase("serving export: DLA-34 and MobileNetV2 artifacts on the card")
+    served = serve_artifacts(n_dcn, args.seed)
+    report["served"] = served
+    phase("one NCCL rank: DLA-34 steps against the plain step")
+    one_rank = one_rank_steps(n_dcn, args.seed)
+    report["one_rank"] = one_rank
+    p10 = grouped_bn_steps(n_dcn, args.seed)
+    phase("ranks through main(): mesh.data=1, ADVENT on DLA-34 as shipped")
+    p10.update(ranks_through_main(n_dcn, args.seed))
+    report.update(p10)
+    phase("DCNPooling on the card against the CPU")
+    report["dcn_pooling"] = pooling_card_vs_cpu(args.seed)
+
     runs = [report[k]["launches"] for k in (
         "train", "eval", "bf16_train", "bf16_eval", "mnv2_train",
         "mnv2_eval", "mnv2_bf16_train", "mnv2_bf16_eval", "lanes_eval",
@@ -1734,6 +2338,12 @@ def main(argv=None) -> int:
         "cli_advent_resume", "cli_coco_merged")]
     runs += [r[part]["launches"] for r in (*uda.values(), *p9.values())
              for part in ("train", "eval")]
+    runs += [r["launches"] for r in served.values()]
+    runs += [run["launches"] for r in one_rank.values()
+             for run in r["runs"].values()]
+    runs += [r["launches"] for k, r in p10.items() if k.startswith("cli_")]
+    runs += [r[part]["launches"] for k, r in p10.items()
+             if k.startswith("bn_sync_") for part in ("train", "eval")]
 
     def launches(name):
         return sum(run[name] for run in runs)

@@ -115,7 +115,6 @@ def test_profile_steps_writes_a_trace(tiny, tmp_path, monkeypatch):
     # ImageNet trunk weights need the torch hub cache; nothing is downloaded
     (["model.backend.params.pretrained=true"], FileNotFoundError,
      "no cached weights"),
-    (["gpu=[0,1]"], NotImplementedError, "multi-device"),
 ])
 def test_unported_configs_raise(tiny, tmp_path, monkeypatch, extra, error,
                                 match):
@@ -123,6 +122,20 @@ def test_unported_configs_raise(tiny, tmp_path, monkeypatch, extra, error,
     monkeypatch.setenv("TORCH_HOME", str(tmp_path / "torch_home"))
     with pytest.raises(error, match=match):
         train.main(overrides(tiny, *extra), device="cpu")
+
+
+def test_two_device_config_trains_on_one_device(tiny, tmp_path, monkeypatch,
+                                                caplog):
+    """``gpu: [0, 1]`` (the reference's DataParallel switch) on the CPU, one
+    device: the JAX package's warning, then an epoch on that device."""
+    monkeypatch.chdir(tmp_path)
+    with caplog.at_level(logging.WARNING, logger="uda"):
+        scalars = train.main(overrides(tiny, "gpu=[0,1]", "epochs=1"),
+                             device="cpu")
+    assert ("requested 2-way data parallelism but only 1 device(s) "
+            "available; running single-device") in caplog.text
+    assert math.isfinite(scalars["validation/total_loss"])
+    assert (tmp_path / RUN / "model_last.ckpt").is_file()
 
 
 def test_runs_on_the_card_unless_asked(tiny, tmp_path, monkeypatch):

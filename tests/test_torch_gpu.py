@@ -424,3 +424,64 @@ def test_freeze_base_keeps_the_trunk_on_the_card(cuda):
             assert torch.equal(p, before[k]), k
         else:
             assert not torch.equal(p, before[k]), k
+
+
+# --- the forward kernels as custom ops, and an exported model ------------------
+
+
+def op_inputs(cuda):
+    """(op, args) of each of the four forward ops at a small shape."""
+    x, off, m, wt, bias = make_inputs(8, 2, 16, 24, 12, 10, cuda)
+    om_w, om_b = (torch.randn(27, 16, 3, 3, device=cuda) * 0.05,
+                  torch.randn(27, device=cuda))
+    ops = torch.ops.centernet_uda
+    return [(ops.dcn_fwd, (x, off, m, wt, bias, 14.0)),
+            (ops.dcn_sel_fwd, (x.bfloat16(), off, m, wt.bfloat16(), bias,
+                               14.0)),
+            (ops.dcn_wide_fwd, (x, off, m, wt, bias, 14.0)),
+            (ops.dcn_fused_fwd, (x.bfloat16(), om_w, om_b, wt, bias, 14.0))]
+
+
+def test_custom_ops_fake_shapes_match_the_kernels(cuda):
+    """Each op's fake implementation gives its kernel's shapes, dtypes and
+    strides (``torch.library.opcheck`` runs the kernel beside it)."""
+    for op, args in op_inputs(cuda):
+        torch.library.opcheck(op, args, test_utils=(
+            "test_schema", "test_faketensor"))
+        out = op(*args)
+        outs = out if isinstance(out, tuple) else (out,)
+        assert outs[0].shape == (2, 24, 12, 10) and outs[0].is_contiguous()
+        assert outs[0].dtype == args[0].dtype
+    # the fused op's second output is the f32 max |dy| scalar
+    assert out[1].shape == () and out[1].dtype == torch.float32
+
+
+def test_exported_model_launches_the_kernels(cuda, tmp_path):
+    """A narrow DLA on the card, exported with decode and reloaded: each
+    call of the artifact launches the forward kernels of its 16 DCN layers
+    (15 at W >= 8, one select at the 4 x 4 map) and gives the eager
+    module's detections."""
+    from centernet_uda_torch import models
+    from centernet_uda_torch.export import (
+        ServingModule,
+        export_program,
+        export_pt2,
+        load_artifact,
+    )
+
+    backend = models.build("dla", num_classes=3, levels=(1,) * 6,
+                           channels=(4, 8, 8, 16, 16, 32), head_conv=8,
+                           seed=3, device="cuda")
+    serving = ServingModule(backend, max_detections=10)
+    path = export_pt2(export_program(serving, (1, 3, 128, 128)),
+                      tmp_path / "dla")
+    program = load_artifact(path).module()
+    x = torch.randn(1, 3, 128, 128, device=cuda)
+    with torch.no_grad():
+        want = serving(x)
+    dcn_cuda.reset_launches()
+    got = program(x)
+    torch.cuda.synchronize()
+    assert dcn_cuda.LAUNCHES == only(dcn_fwd=15, dcn_sel_fwd=1)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)

@@ -1,5 +1,7 @@
 """The port's trainer on its own (CPU, narrow DLA): the loud degrade to the
-exact DCN op at the offset clamp, and the entry points' refusals."""
+exact DCN op at the offset clamp, the entry points' refusals, and the
+data-parallel settings on one device (the JAX package's warning, BatchNorm
+groups)."""
 
 import logging
 
@@ -8,6 +10,7 @@ import pytest
 import torch
 
 from centernet_uda_torch.config import compose
+from centernet_uda_torch.models.common import BatchNorm2d
 from centernet_uda_torch.ops.dcn import DCN, PALLAS_MAX_SHIFT, kernel_route
 from centernet_uda_torch.ops.gaussian import encode_targets
 from centernet_uda_torch.train import build_trainer
@@ -61,13 +64,47 @@ def test_degrade_to_exact_op_at_the_clamp(caplog):
 
 @pytest.mark.parametrize("override,match", [
     ("precision=float16", "precision"),
-    ("gpu=[0,1]", "multi-device"),
-    ("mesh={data: 2}", "multi-device"),
-    ("bn_sync=2", "bn_sync"),
 ])
 def test_unported_settings_raise(override, match):
     cfg = compose(["experiment=baseline", override] + NARROW)
     with pytest.raises(NotImplementedError, match=match):
+        build_trainer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("overrides,warning,groups", [
+    (["gpu=[0,1]"], "requested 2-way data parallelism but only 1 device",
+     1),
+    (["mesh={data: 2}"], "requested 2-way data parallelism but only 1 "
+     "device", 1),
+    (["mesh={data: 1}", "batch_size=3"], None, 1),
+    (["bn_sync=2"], None, 2),
+    (["bn_sync=replica"], None, 1),
+    (["bn_sync=4", "gpu=[0,1]"], "running single-device", 4),
+])
+def test_data_parallel_settings_on_one_device(caplog, overrides, warning,
+                                              groups):
+    """Without a process group, a config asking for more devices than the
+    CPU's one warns as the JAX package does and builds for one device; the
+    BatchNorm layers take ``bn_sync``'s groups (``replica`` on one device is
+    the whole batch)."""
+    cfg = compose(["experiment=baseline"] + overrides + NARROW)
+    with caplog.at_level(logging.WARNING, logger="uda"):
+        trainer = build_trainer(cfg, device="cpu")
+    if warning is None:
+        assert "single-device" not in caplog.text
+    else:
+        assert warning in caplog.text and "single-device" in caplog.text
+    bns = [m for m in trainer.backend.module.modules()
+           if isinstance(m, BatchNorm2d)]
+    assert bns and {m.groups for m in bns} == {groups}
+    trainer.init_done()
+    stats = trainer.step(batch(), is_training=True)["stats"]
+    assert all(np.isfinite(float(v)) for v in stats.values())
+
+
+def test_bn_sync_rejects_other_words():
+    cfg = compose(["experiment=baseline", "bn_sync=device"] + NARROW)
+    with pytest.raises(ValueError, match="bn_sync"):
         build_trainer(cfg, device="cpu")
 
 
