@@ -6,8 +6,13 @@ JAX package returns HWC and (h, w, num_classes). Every other key (``ind``,
 ``reg_mask``, ``wh``, ``reg``, ``gt_dets``, ``gt_areas``, ``kps``,
 ``gt_kps``, ``kp_reg_mask``, ``id``, ``target_domain_input``) is the JAX
 package's, byte for byte, for the same seed. Axis-aligned targets are
-encoded by ``ops/gaussian.py:encode_targets`` (the JAX package's C++
-encoder is not carried over); images are normalised in numpy.
+encoded and images normalised by the host library (``native``, built with
+g++ at first use; the JAX package's ``native`` is its counterpart), or,
+with ``CENTERNET_DISABLE_NATIVE`` set (which an explicit
+``use_native_encoder`` overrides) or ``use_native_encoder=False``, by
+their plain versions, ``ops/gaussian.py:encode_targets`` and
+``normalize_image``, which give the same arrays. Rotated boxes and keypoint
+targets are encoded in numpy, as in the JAX package.
 
 Images: binary PPM/PGM (``P6``/``P5``, 8 bits) is read with numpy alone;
 every other format through OpenCV, then PIL, imported where an image is
@@ -23,6 +28,7 @@ from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 
+from centernet_uda_torch import native
 from centernet_uda_torch.data import augment as aug
 from centernet_uda_torch.data.box import (get_annotation_with_angle,
                                           rotate_bbox_float)
@@ -87,6 +93,16 @@ def write_ppm(path, rgb: np.ndarray) -> None:
         f.write(np.ascontiguousarray(rgb, np.uint8).tobytes())
 
 
+def normalize_image(img: np.ndarray, mean, std) -> np.ndarray:
+    """``(img / 255 - mean) / std`` of an (H, W, 3) uint8 image as a
+    contiguous float32 (3, H, W) array: the plain version of
+    ``native.normalize_image``."""
+    img = img.astype(np.float32) / 255.0
+    mean = np.asarray(mean, np.float32).reshape(1, 1, 3)
+    std = np.asarray(std, np.float32).reshape(1, 1, 3)
+    return np.ascontiguousarray(((img - mean) / std).transpose(2, 0, 1))
+
+
 def load_image(path) -> np.ndarray:
     """An image file as (H, W, 3) uint8 RGB.
 
@@ -133,6 +149,7 @@ class Dataset:
         max_detections: int = 150,
         down_ratio: int = 4,
         seed: Optional[int] = None,
+        use_native_encoder: Optional[bool] = None,
     ):
         self.image_folder = Path(image_folder)
         self.coco = COCO(annotation_file)
@@ -148,6 +165,19 @@ class Dataset:
         self.augment_target_domain = bool(augment_target_domain)
         self.string_id_mapping: Dict[str, int] = {}
         self.rng = np.random.RandomState(seed)
+        # unset, it follows CENTERNET_DISABLE_NATIVE, as the evaluator does
+        if use_native_encoder is None:
+            use_native_encoder = native.enabled()
+        elif not use_native_encoder:
+            log.info("use_native_encoder=False: the numpy target encoder "
+                     "and normalisation run")
+        if use_native_encoder:
+            native.load()  # built here, in the caller, on the first use
+            self._encode_boxes = native.encode_targets
+            self._normalize_hwc = native.normalize_image
+        else:
+            self._encode_boxes = encode_targets
+            self._normalize_hwc = normalize_image
 
         # contiguous category remap, 1..num_classes -> 0..num_classes-1
         # (datasets/coco.py:45-48)
@@ -185,9 +215,7 @@ class Dataset:
     # ------------------------------------------------------------------
     def _normalize(self, img: np.ndarray) -> np.ndarray:
         """uint8 HWC -> normalised float32 CHW."""
-        img = img.astype(np.float32) / 255.0
-        return np.ascontiguousarray(
-            ((img - self.mean) / self.std).transpose(2, 0, 1))
+        return self._normalize_hwc(img, self.mean, self.std)
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         img_id = self.images[index]
@@ -290,7 +318,7 @@ class Dataset:
             kp_out = kp_flat
 
         output_h, output_w = self._output_hw()
-        t = encode_targets(
+        t = self._encode_boxes(
             boxes_out.reshape(-1, 4),
             [self.cat_mapping[anns[k]["category_id"]] for k in range(num_objs)],
             output_h, output_w, self.num_classes, self.max_detections,

@@ -1,9 +1,12 @@
 """Pure-numpy COCO detection evaluation (COCOeval-equivalent).
 
-A copy of ``centernet_uda_tpu/evaluation/coco_eval_np.py`` with its
-pure-Python greedy matcher (the JAX package's C++ matcher is not carried
-over). It re-implements the COCO mAP protocol that the reference's
-``evaluation/coco.py`` drives through ``pycocotools.cocoeval.COCOeval``: 10 IoU thresholds 0.50:0.05:0.95, 101
+A copy of ``centernet_uda_tpu/evaluation/coco_eval_np.py``. Its greedy
+matcher runs in the host library (``native.coco_greedy_match``, where the
+JAX evaluator calls its own C++ matcher), or, with
+``CENTERNET_DISABLE_NATIVE`` set, in Python (``greedy_match``, its plain
+version, which gives the same arrays). It re-implements the COCO mAP
+protocol that the reference's ``evaluation/coco.py`` drives through
+``pycocotools.cocoeval.COCOeval``: 10 IoU thresholds 0.50:0.05:0.95, 101
 recall thresholds, area ranges all/small/medium/large, maxDets [1, 10, 100],
 greedy score-ordered matching with ignore handling, and the
 precision (T, R, K, A, M) / recall (T, K, A, M) accumulation tables.
@@ -21,6 +24,8 @@ from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from centernet_uda_torch import native
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 REC_THRS = np.linspace(0.0, 1.0, 101)
@@ -143,6 +148,41 @@ def rotated_iou_matrix(dts: np.ndarray, gts: np.ndarray,
     return out
 
 
+def greedy_match(iou: np.ndarray, gt_ig: np.ndarray, gt_crowd: np.ndarray,
+                 thrs: Sequence[float], dt_out: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """COCO's greedy matching of one (image, category) cell at each of
+    ``thrs`` (pycocotools' evaluateImg): ``iou`` (D, G) with the ground
+    truths ordered non-ignored first, their ignore and crowd flags, and the
+    detections' out-of-area-range flags. Returns ``(dtm, dt_ignore)``,
+    (T, D) int64 and bool."""
+    T, (D, G) = len(thrs), iou.shape
+    dtm = np.zeros((T, D), dtype=np.int64)
+    gtm = np.zeros((T, G), dtype=np.int64)
+    dt_ig = np.zeros((T, D), dtype=bool)
+    for ti, t in enumerate(thrs):
+        for di in range(D):
+            best = min(t, 1 - 1e-10)
+            match = -1
+            for gi in range(G):
+                if gtm[ti, gi] > 0 and not gt_crowd[gi]:
+                    continue
+                # stop at ignored gts once a non-ignored match found
+                if match > -1 and not gt_ig[match] and gt_ig[gi]:
+                    break
+                if iou[di, gi] < best:
+                    continue
+                best = iou[di, gi]
+                match = gi
+            if match == -1:
+                continue
+            dt_ig[ti, di] = gt_ig[match]
+            dtm[ti, di] = 1
+            gtm[ti, match] = 1
+    dt_ig = np.logical_or(dt_ig, np.logical_and(dtm == 0, dt_out[None, :]))
+    return dtm, dt_ig
+
+
 class COCOEval:
     """Greedy-matching COCO evaluation over in-memory annotation lists.
 
@@ -170,6 +210,8 @@ class COCOEval:
         self.img_ids = sorted(img_ids)
         self.cat_ids = sorted(cat_ids)
         self.eval: Dict[str, np.ndarray] = {}
+        self._match = (native.coco_greedy_match if native.enabled()
+                       else greedy_match)
 
     # ------------------------------------------------------------------
     def _iou(self, img_id, cat_id) -> np.ndarray:
@@ -206,7 +248,6 @@ class COCOEval:
         gt_ig = gt_ig[gt_order]
         iou = ious[:, gt_order] if len(gts) else ious
 
-        T = len(IOU_THRS)
         D = len(dts)
         G = len(gts)
         dt_out = np.array(
@@ -217,33 +258,9 @@ class COCOEval:
             [bool(gts[gt_order[gi]].get("iscrowd", 0)) for gi in range(G)],
             dtype=bool,
         )
-
-        dtm = np.zeros((T, D), dtype=np.int64)
-        gtm = np.zeros((T, G), dtype=np.int64)
-        dt_ig = np.zeros((T, D), dtype=bool)
-
-        for ti, t in enumerate(IOU_THRS):
-            for di in range(D):
-                best = min(t, 1 - 1e-10)
-                match = -1
-                for gi in range(G):
-                    if gtm[ti, gi] > 0 and not gt_crowd[gi]:
-                        continue
-                    # stop at ignored gts once a non-ignored match found
-                    if match > -1 and not gt_ig[match] and gt_ig[gi]:
-                        break
-                    if iou[di, gi] < best:
-                        continue
-                    best = iou[di, gi]
-                    match = gi
-                if match == -1:
-                    continue
-                dt_ig[ti, di] = gt_ig[match]
-                dtm[ti, di] = 1
-                gtm[ti, match] = 1
-        dt_ig = np.logical_or(
-            dt_ig, np.logical_and(dtm == 0, dt_out[None, :])
-        )
+        # the cached IoU matrix covers the top max(MAX_DETS) detections
+        dtm, dt_ig = self._match(iou[:D].reshape(D, G), gt_ig, gt_crowd,
+                                 IOU_THRS, dt_out)
         return {
             "dt_scores": np.array([d["score"] for d in dts]),
             "dt_matches": dtm,

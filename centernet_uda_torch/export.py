@@ -76,7 +76,8 @@ def build_model(cfg, checkpoint_path, device="cuda") -> Backend:
     backend = model_registry.build(cfg.model.backend.name, **params,
                                    seed=int(cfg.get("seed", 42)),
                                    dtype=torch.float32, device=device)
-    ckpt.load_checkpoint(checkpoint_path, backend.module)
+    ckpt.load_checkpoint(checkpoint_path, backend.module,
+                         backend_name=backend.name)
     backend.module.eval()
     return backend
 

@@ -2,7 +2,10 @@
 
 Copies of ``centernet_uda_tpu/ops/gaussian.py``'s ``gaussian_radius``,
 ``gaussian_2d`` and ``draw_gaussian`` (the reference's ``utils/image.py``
-``gaussian_radius``, ``gaussian2D`` and ``draw_umich_gaussian``).
+``gaussian_radius``, ``gaussian2D`` and ``draw_umich_gaussian``), and
+``encode_targets``. These are the plain versions of the host library's
+functions (``centernet_uda_torch/native``), which the data pipeline runs
+unless it is asked for numpy; the tests hold the library against them.
 """
 
 from __future__ import annotations
@@ -99,7 +102,12 @@ def encode_targets(boxes: np.ndarray, classes, out_h: int, out_w: int,
         h, w = bbox[3] - bbox[1], bbox[2] - bbox[0]
         if h <= 0 or w <= 0:
             continue
-        radius = max(0, int(gaussian_radius((np.ceil(h), np.ceil(w)))))
+        # on Python floats: float32 scalars would round the quadratics in
+        # float32 under NumPy 2's promotion (the radius then differs for a
+        # few boxes wider than 256 output pixels); the reference passes the
+        # ceilings as ints, the JAX package's C++ encoder as doubles
+        radius = max(0, int(gaussian_radius((float(np.ceil(h)),
+                                             float(np.ceil(w))))))
         ct = np.array([(bbox[0] + bbox[2]) / 2, (bbox[1] + bbox[3]) / 2],
                       np.float32)
         ct_int = ct.astype(np.int32)

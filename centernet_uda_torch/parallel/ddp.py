@@ -26,8 +26,10 @@ its ranks, what the JAX package computes over the whole batch:
 Ranks come from a launcher (``torchrun``: ``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), or
 ``train.main`` starts them itself where ``mesh: {data: N}`` or ``gpu: [..]``
-asks for N and N devices are visible (``plan_ranks``). The backend is NCCL
-on the card and gloo on the CPU.
+asks for N and N devices are visible, or, where nothing asks, one per
+visible card when more than one is visible and ``batch_size`` divides over
+them (``plan_ranks``, the JAX package's auto mesh). The backend is NCCL on
+the card and gloo on the CPU.
 """
 
 from __future__ import annotations
@@ -93,20 +95,30 @@ def requested_ranks(cfg) -> int:
 
 
 def plan_ranks(cfg, device: torch.device) -> Tuple[int, Optional[str]]:
-    """The ranks this host runs for ``cfg`` on ``device``'s kind: ``(n,
-    None)``, or ``(0, warning)`` where fewer devices are visible than asked
-    or ``batch_size`` does not divide (the JAX package's messages,
-    ``centernet_uda_tpu/train.py``); then the run trains on one device. The
-    CPU counts as one device."""
+    """The ranks this host runs for ``cfg`` on ``device``'s kind and why
+    not the ones asked for: ``(n, None)`` for the ``n`` asked for, or
+    ``(0, warning)`` where fewer devices are visible than asked or
+    ``batch_size`` does not divide (the JAX package's messages,
+    ``centernet_uda_tpu/train.py``). Where that leaves 0, every visible
+    device takes a rank if more than one is visible and ``batch_size``
+    divides over them (``_should_auto_mesh`` there); else the run trains
+    on one device. The CPU counts as one device."""
     n = requested_ranks(cfg)
     available = (torch.cuda.device_count() if device.type == "cuda" else 1)
+    batch_size = int(cfg.get("batch_size", 1))
+    why_not = None
     if n > available:
-        return 0, (f"requested {n}-way data parallelism but only "
-                   f"{available} device(s) available; running single-device")
-    if n and int(cfg.get("batch_size", 1)) % n != 0:
-        return 0, (f"batch_size {cfg.get('batch_size')} is not divisible by "
-                   f"the {n}-way data mesh; running single-device")
-    return n, None
+        n, why_not = 0, (f"requested {n}-way data parallelism but only "
+                         f"{available} device(s) available")
+    elif n and batch_size % n != 0:
+        n, why_not = 0, (f"batch_size {cfg.get('batch_size')} is not "
+                         f"divisible by the {n}-way data mesh")
+    if not n and available > 1 and batch_size % available == 0:
+        n = available
+    if why_not is not None:
+        why_not += (f"; running on the {n} visible devices" if n
+                    else "; running single-device")
+    return n, why_not
 
 
 def launched_ranks() -> Optional[Ranks]:

@@ -96,7 +96,7 @@ def build_trainer(cfg, device="cuda") -> Model:
         n_ranks, why_not = ddp.plan_ranks(cfg, device)
         if why_not:
             log.warning(why_not)
-        elif n_ranks > 1:
+        if n_ranks > 1:
             log.warning("%d-way data parallelism starts its ranks through "
                         "main() or torchrun; this trainer runs in one "
                         "process", n_ranks)
@@ -223,6 +223,7 @@ def _run_phase(trainer, loader, evaluators, tb_logger, stats, epoch, tag,
     n_batches = 0
     t0 = time.perf_counter()
     wait_s = 0.0
+    log_s = 0.0
     n_images = 0
     prof = None
     clamp_warned = False
@@ -301,7 +302,9 @@ def _run_phase(trainer, loader, evaluators, tb_logger, stats, epoch, tag,
                 for ev in evaluators:
                     ev.add_batch(**detections)
             if tb_logger is not None:
+                t_log = time.perf_counter()
                 tb_logger.log_detections(data, detections, epoch, tag=tag)
+                log_s += time.perf_counter() - t_log
 
     if prof is not None:
         _stop_profiler(prof, trainer.device, n_batches)
@@ -318,7 +321,7 @@ def _run_phase(trainer, loader, evaluators, tb_logger, stats, epoch, tag,
     loss = stats.get(f"{tag}/total_loss")
     phases.append({"epoch": epoch, "tag": tag, "steps": n_batches,
                    "images": n_images, "seconds": dt,
-                   "loader_wait_s": wait_s,
+                   "loader_wait_s": wait_s, "log_detections_s": log_s,
                    "total_loss": loss.avg if loss is not None else None})
     log.info("%s epoch %d: %d steps in %.2f s, %.1f%% of it waiting for "
              "the loader", tag, epoch, n_batches, dt,
@@ -347,9 +350,10 @@ def main(argv=None, device: str = "cuda",
     ``phases``, when given, receives one record per phase run: ``epoch``,
     ``tag``, ``steps``, ``images``, ``seconds`` (wall time of the phase,
     the device's work included), ``loader_wait_s`` (of it, the time spent
-    waiting for the next batch), ``total_loss`` (its meter's mean since the
-    meters were last reset) and, for an eval phase, ``evaluate_s`` (the
-    evaluators' time after it).
+    waiting for the next batch), ``log_detections_s`` (of it, the time
+    spent drawing and writing the TensorBoard detection images),
+    ``total_loss`` (its meter's mean since the meters were last reset) and,
+    for an eval phase, ``evaluate_s`` (the evaluators' time after it).
     """
     phases = [] if phases is None else phases
     parser = argparse.ArgumentParser(

@@ -177,6 +177,10 @@ class AdversarialEntropyMinimization(Model):
     def load_model(self, path, resume: bool = False) -> int:
         disc_path = Path(path).with_name("discriminator.ckpt")
         if disc_path.exists():
+            # the JAX package writes its whole state there, disc_params in it
+            part = ("disc_state_dict" if ckpt.is_jax_checkpoint(disc_path)
+                    else "state_dict")
             ckpt.load_checkpoint(disc_path, self.discriminator,
-                                 self.disc_optimizer, resume=resume)
+                                 self.disc_optimizer, resume=resume,
+                                 backend_name=self.backend.name, part=part)
         return super().load_model(path, resume=resume)

@@ -285,7 +285,8 @@ class Model:
         """Restore weights (and, with ``resume``, the optimizer and the
         epoch); returns the first epoch to run."""
         epoch = ckpt.load_checkpoint(path, self.backend.module,
-                                     self.optimizer, resume=resume)
+                                     self.optimizer, resume=resume,
+                                     backend_name=self.backend.name)
         self.epoch = epoch
         return epoch + 1
 

@@ -9,7 +9,23 @@ optimizer state and the epoch (train.py:137-140). A missing file is a
 warning. Loading tolerates partial checkpoints: a shape-mismatched entry is
 skipped with a warning and a missing one keeps its fresh value
 (utils/helper.py:103-117). A bare state dict (a ``.pth`` of weights) loads
-as the weights of an epoch-0 checkpoint.
+as the weights of an epoch-0 checkpoint. A leading ``module.`` (the
+reference's DataParallel prefix) is stripped from every key, as the JAX
+package's importer strips it.
+
+A checkpoint of the JAX package (``centernet_uda_tpu/utils/checkpoint.py``:
+a pickle of numpy trees, ``{epoch, params, batch_stats[, disc_params,
+opt_state, disc_opt_state]}``, told from a torch file by its content: not
+a zip, and not led by torch's legacy magic number) loads too:
+``read_checkpoint`` reads it with an unpickler that builds numpy
+arrays and builtin containers and turns every other class (optax's states)
+into an inert ``Stub``, so nothing imports JAX and no pickled code runs;
+``params``/``batch_stats`` become the backend's state dict through
+``utils/weights.py:state_dict_from_jax`` (by the backend's name) and
+``disc_params`` the discriminator's. Its weights load and its epoch comes
+along under ``resume``; its optimizer state is not read (the optimizer
+starts fresh, with a log line), as the JAX package's own ``.pth`` route
+does.
 
 ``load_backbone_pretrained`` is the backend's own ``pretrained`` param
 (``centernet_uda_tpu/utils/torch_import.py:load_backbone_pretrained``):
@@ -25,10 +41,15 @@ from __future__ import annotations
 import glob
 import logging
 import os
+import pickle
+import zipfile
 from pathlib import Path
 from typing import Callable, Dict, Optional
 
 import torch
+
+from centernet_uda_torch.utils.weights import (disc_state_dict_from_jax,
+                                               state_dict_from_jax)
 
 log = logging.getLogger(__name__)
 
@@ -45,20 +66,118 @@ def save_checkpoint(path, model: torch.nn.Module, epoch: int,
     tmp.replace(path)
 
 
+class Stub:
+    """What the JAX-checkpoint reader makes of an object whose class it
+    does not admit (an optax state): its arguments and state, kept as
+    data."""
+
+    def __new__(cls, *args, **kwargs):
+        return super().__new__(cls)
+
+    def __init__(self, *args, **kwargs):
+        self.args, self.kwargs = args, kwargs
+
+    def __setstate__(self, state):
+        self.state = state
+
+
+# the globals a pickle of numpy trees needs, across numpy 1 and 2
+_ADMITTED = {
+    ("numpy", "dtype"), ("numpy", "ndarray"),
+    ("numpy.core.multiarray", "_reconstruct"),
+    ("numpy._core.multiarray", "_reconstruct"),
+    ("numpy.core.multiarray", "scalar"), ("numpy._core.multiarray", "scalar"),
+    ("numpy.core.numeric", "_frombuffer"),
+    ("numpy._core.numeric", "_frombuffer"),
+    ("_codecs", "encode"), ("collections", "OrderedDict"),
+} | {("builtins", name) for name in (
+    "dict", "list", "tuple", "set", "frozenset", "int", "float", "complex",
+    "bool", "str", "bytes", "bytearray")}
+
+
+class _NumpyTreeUnpickler(pickle.Unpickler):
+    """Builds numpy arrays and builtin containers; every other class
+    becomes a ``Stub`` subclass of the same name."""
+
+    def find_class(self, module, name):
+        if (module, name) in _ADMITTED:
+            return super().find_class(module, name)
+        return type(name, (Stub,), {"__module__": f"stub:{module}"})
+
+
+def _read_jax_checkpoint(path) -> Optional[Dict]:
+    """The JAX package's checkpoint dict, or None for a file that
+    ``torch.load`` reads: a ``torch.save`` zip, or torch's legacy format
+    (before torch 1.6, or ``_use_new_zipfile_serialization=False``), whose
+    first pickle is torch's magic number."""
+    if zipfile.is_zipfile(path):
+        return None
+    with open(path, "rb") as f:
+        data = _NumpyTreeUnpickler(f).load()
+    if (isinstance(data, int)
+            and data == torch.serialization.MAGIC_NUMBER):
+        return None
+    if not isinstance(data, dict) or "params" not in data:
+        raise ValueError(f"{path} is neither a torch checkpoint nor a JAX "
+                         "checkpoint ({epoch, params, batch_stats, ...})")
+    return data
+
+
+def is_jax_checkpoint(path) -> bool:
+    """True for an existing file that the JAX package wrote."""
+    path = Path(path)
+    return path.is_file() and _read_jax_checkpoint(path) is not None
+
+
+def _strip_module_prefix(state: Dict) -> Dict:
+    return {(key[len("module."):] if key.startswith("module.") else key):
+            value for key, value in state.items()}
+
+
+def read_checkpoint(path, backend_name: str = "") -> Dict:
+    """A checkpoint as ``{"epoch", "state_dict"[, "optimizer"]}``, with
+    ``"disc_state_dict"`` for a JAX checkpoint that holds a discriminator
+    and ``"jax"`` saying which package wrote it. A JAX checkpoint needs
+    ``backend_name`` (``Backend.name``) to map its weights."""
+    path = Path(path)
+    data = _read_jax_checkpoint(path)
+    if data is None:
+        data = torch.load(path, map_location="cpu", weights_only=True)
+        if "state_dict" not in data:
+            data = {"state_dict": data}
+        return {**data, "jax": False}
+    if not backend_name:
+        raise ValueError(f"{path} is a JAX checkpoint: its weights map by "
+                         "the backend's name, and none was given")
+    out = {"epoch": int(data.get("epoch", 0)), "jax": True,
+           "state_dict": state_dict_from_jax(
+               {"params": data["params"],
+                "batch_stats": data.get("batch_stats") or {}},
+               backend_name)}
+    if data.get("disc_params"):
+        out["disc_state_dict"] = disc_state_dict_from_jax(data["disc_params"])
+    return out
+
+
 def load_checkpoint(path, model: torch.nn.Module,
                     optimizer: Optional[torch.optim.Optimizer] = None,
-                    resume: bool = False) -> int:
-    """Restore a checkpoint into ``model`` (and, when resuming, into
-    ``optimizer``). Returns the checkpoint's epoch when ``resume``, else 0;
-    0 for a missing file too."""
+                    resume: bool = False, backend_name: str = "",
+                    part: str = "state_dict") -> int:
+    """Restore a checkpoint's ``part`` (``state_dict``, or a JAX
+    checkpoint's ``disc_state_dict``) into ``model`` and, when resuming, its
+    optimizer state into ``optimizer``. Returns the checkpoint's epoch when
+    ``resume``, else 0; 0 for a missing file too."""
     path = Path(path)
     if not path.exists():
         log.warning("Model path %s does not exist!", path)
         return 0
 
-    data = torch.load(path, map_location="cpu", weights_only=True)
-    state = data.get("state_dict", data)
+    data = read_checkpoint(path, backend_name)
     epoch = int(data.get("epoch", 0)) if resume else 0
+    if part not in data:
+        log.warning("%s holds no %s", path, part)
+        return epoch
+    state = _strip_module_prefix(data[part])
 
     own = model.state_dict()
     loadable = {}
@@ -71,14 +190,19 @@ def load_checkpoint(path, model: torch.nn.Module,
             loadable[key] = state[key]
     model.load_state_dict(loadable, strict=False)
 
-    if resume and optimizer is not None and "optimizer" in data:
-        try:
-            optimizer.load_state_dict(data["optimizer"])
-            log.info("restore optimizer state at epoch %d", epoch)
-        except (ValueError, KeyError) as exc:  # structure drift
-            log.warning("could not restore optimizer state: %s", exc)
+    if resume and optimizer is not None:
+        if data["jax"]:
+            log.info("the JAX checkpoint's optimizer state is not read: "
+                     "the optimizer starts fresh at epoch %d", epoch)
+        elif "optimizer" in data:
+            try:
+                optimizer.load_state_dict(data["optimizer"])
+                log.info("restore optimizer state at epoch %d", epoch)
+            except (ValueError, KeyError) as exc:  # structure drift
+                log.warning("could not restore optimizer state: %s", exc)
 
-    log.info("restored weights from %s", path)
+    log.info("restored %d of %d weights from %s", len(loadable), len(own),
+             path)
     return epoch
 
 
@@ -156,9 +280,7 @@ def load_backbone_pretrained(module: torch.nn.Module, family: str,
     data = data.get("state_dict", data)
     key_of = _TRUNK_KEYS[family]
     state = {}
-    for key, value in data.items():
-        if key.startswith("module") and not key.startswith("module_list"):
-            key = key[7:]
+    for key, value in _strip_module_prefix(data).items():
         own = key_of(key)
         if own is not None:
             state[own] = value

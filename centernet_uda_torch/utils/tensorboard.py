@@ -1,10 +1,13 @@
 """TensorBoard logging: a copy of ``centernet_uda_tpu/utils/tensorboard.py``
 (the reference's utils/tensorboard.py).
 
-The writer is tensorboardX's where tensorboardX imports, and there is no
-writer (every call returns at once) where it does not; the import happens
-when a logger is made. Scalar keys are identical (``training/*``,
-``validation/*``, ``MSCOCO_*``) and the first ``num_visualizations``
+The writer is tensorboardX's where tensorboardX imports, else
+``torch.utils.tensorboard.SummaryWriter`` (the reference's own writer,
+which needs the ``tensorboard`` package), and there is no writer (every
+call returns at once) where neither imports; the import happens when a
+logger is made, and the logger says which writer it took. Scalar keys
+are identical (``training/*``, ``validation/*``, ``MSCOCO_*``) and the
+first ``num_visualizations``
 validation images per epoch are logged with pred|gt detection overlays
 (the CHW input transposed to HWC for drawing).
 """
@@ -30,14 +33,20 @@ class TensorboardLogger:
             cfg.get_dotted("tensorboard.score_threshold", 0.2) if cfg else 0.2
         )
         self._count = 0
+        self._visualizer = None
+        self.writer = None
         try:
             from tensorboardX import SummaryWriter
         except ImportError:
-            log.info("tensorboardX is not installed: no TensorBoard logs")
-            self.writer = None
-        else:
-            self.writer = SummaryWriter(log_dir)
-        self._visualizer = None
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                log.info("neither tensorboardX nor tensorboard is "
+                         "installed: no TensorBoard logs")
+                return
+        self.writer = SummaryWriter(log_dir)
+        log.info("TensorBoard logs in %s through %s", log_dir,
+                 SummaryWriter.__module__)
 
     def _get_visualizer(self):
         if self._visualizer is None:

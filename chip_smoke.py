@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
    logging libraries of the host; the card must be compute capability 9.0;
 2. build: compiles the seven DCN kernel sources from
    ``centernet_uda_torch/csrc/`` (one ``nvcc`` each, in parallel) and prints
-   the compiler's register / shared-memory report;
+   the compiler's register / shared-memory report, then the host library
+   (``csrc/host_encoder.cpp``, ``g++``) and loads it;
 3. kernels: each kernel against its plain PyTorch twin on the same inputs
    (atol 5e-2 * max(1, max|twin|), rtol 5e-2: the bound of the Pallas
    kernels' own tests; max |dy| to 1e-5 relative), timed beside its twin
@@ -49,7 +50,19 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
    16 with the defaults' augmentation, 800 px validation batch 16 with the
    COCO evaluator, 4 loader threads), a resume from its ``model_last.ckpt``
    to epoch 3 (which must restore the optimizer at epoch 2 and run epoch 3
-   only), then 1 epoch at bfloat16; then
+   only), then 1 epoch at bfloat16; the float32 run's TensorBoard event
+   file must hold the ``MSCOCO_*`` scalars; the same 2 float32 epochs again
+   without the host library (``CENTERNET_DISABLE_NATIVE``), each epoch's
+   loader-wait share printed beside the library's, each eval phase's
+   seconds beside its detection images' and its evaluator's, and the
+   evaluator alone, library and numpy in turns on seeded detections; 1
+   epoch from
+   ``model_last.ckpt`` with every key under DataParallel's ``module.``
+   prefix as ``pretrained`` (every weight restored); then
+   ``experiment=baseline_mobilenet_v2`` with ``use_dcn=true`` (batch 32: a
+   train step launches ``dcn_sel_fwd``/``dcn_sel_bwd`` once and the lanes
+   pair twice) and ``experiment=baseline_resnet18`` (batch 16, no DCN
+   layer), 1 float32 epoch each; then
    ``experiment=adversarial_entropy_minimization`` (batch 8, the validation
    images as the target domain of both phases) for 1 epoch at float32,
    which writes ``discriminator.ckpt`` beside ``model_last.ckpt``, and a
@@ -62,7 +75,11 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
    launch the 16 layers' forward and backward kernels of its precision
    (twice for ADVENT: source and target; none for EfficientNet), each eval
    step the forwards; losses and the COCO means finite; the checkpoints
-   written.
+   written; every run but the one without it must have called the host
+   library's target encoder (not for rotated boxes, which keep numpy's),
+   normalisation and COCO matcher (``native.CALLS``). The JAX package's
+   checkpoints are not read here (this host has no JAX to write one; the
+   CPU tests hold that path), and the phase says so.
    It prints each epoch's train time and loader-wait share and the eval
    time with the evaluator; with ``--profile`` the float32 run also traces
    its first two steps (``profile_steps``) and prints the device time of
@@ -114,7 +131,11 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
       layers and give the eager serving module's outputs (raw heads within
       1e-5 of their scale, the sorted top-k scores within 1e-5, and each
       top-k row clear of the cut with a partner row of the same class, a
-      score within that bound and the same box; or within 4 times the
+      score within that bound and the same box (where no partner has it,
+      the eager heads' box at a pixel the pool may keep, of the row's
+      class and score, within the max-pool window of the pixel that
+      decodes a partner: a max-pool near-tie may keep either); or within
+      4 times the
       eager module's own spread over 4 more calls, where that is larger:
       the DCN forward is not bitwise repeatable); ms per call, eager and
       artifact;
@@ -135,7 +156,12 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
       that one device is visible and train an epoch on it;
    f. ``DCNPooling`` at the deformable R-FCN's shape (81 classes, 7 x 7,
       128 RoIs on a 2 x 3969 x 32 x 32 map) on the card against the CPU:
-      output and gradients within 1e-4 of their scale.
+      output and gradients within 1e-4 of their scale;
+11. host pipeline: ``tools/bench_pipeline_torch.py`` on 64 seeded JPEGs at
+   512 px, batch 16, the training augmentation, 4 and then 8 loader
+   threads, with the host library and with numpy: each stage's ms a sample
+   (decode, augment, normalise, encode, other, collate, pin) and the
+   loader's images a second.
 
 Before each model trains, its heads on the kernel path are held against the
 exact DCN op on the same weights and a small input. Every phase drives the
@@ -201,6 +227,12 @@ COCO_MERGED_LOSS = [
 CARD_VS_CPU = 1e-3
 # phase 7's coco_merged run: two source folders of this many images
 MERGED_IMAGES = 16
+# the host library's functions a CLI run on axis-aligned boxes calls
+NATIVE_FUNCTIONS = ("encode_targets", "normalize_image", "coco_greedy_match")
+# phase 11, the host-pipeline bench (tools/bench_pipeline_torch.py): its
+# JPEG set, input size, batch, loader threads and seconds a loader run
+PIPE_IMAGES, PIPE_SIZE, PIPE_BATCH = 64, 512, 16
+PIPE_WORKERS, PIPE_SECONDS = (4, 8), 8.0
 # H100 SXM published peaks (dense): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -1073,19 +1105,23 @@ def memcpy_ms(trace_path, steps):
     return {k: v / steps for k, v in out.items()}
 
 
-def run_cli(name, overrides, per_train, per_eval, profile_steps=0):
+def run_cli(name, overrides, per_train, per_eval, profile_steps=0,
+            native_used=NATIVE_FUNCTIONS):
     """Phase 7, one ``main()`` of the port's CLI on the card, run from
     ``CLI_DIR / name``. Each training step must launch ``per_train``, each
     eval step ``per_eval`` (counted from the CLI's phase records), every
     phase's loss and every ``MSCOCO_Precision``/``MSCOCO_Recall`` mean be
-    finite. Returns the run's record, with the messages of the checkpoint
-    and trainer loggers (``log``)."""
+    finite. The host library's functions ``native_used`` must each have
+    been called, and with ``native_used=()`` the run goes without the
+    library (``CENTERNET_DISABLE_NATIVE``) and calls none. Returns the
+    run's record, with the messages of the checkpoint, TensorBoard and
+    trainer loggers (``log``) and the library's call counts."""
     import logging
     import os
 
     import torch
 
-    from centernet_uda_torch import train
+    from centernet_uda_torch import native, train
     from centernet_uda_torch.ops import dcn_cuda
 
     workdir = CLI_DIR / name
@@ -1094,15 +1130,19 @@ def run_cli(name, overrides, per_train, per_eval, profile_steps=0):
     handler = logging.Handler()
     handler.emit = records.append
     loggers = [logging.getLogger(n) for n in (
-        "centernet_uda_torch.utils.checkpoint", "uda")]
+        "centernet_uda_torch.utils.checkpoint",
+        "centernet_uda_torch.utils.tensorboard", "uda")]
     for logger in loggers:
         logger.setLevel(logging.INFO)
         logger.addHandler(handler)
     cwd = os.getcwd()
     os.chdir(workdir)
+    if not native_used:
+        os.environ[native.DISABLE_ENV] = "1"
     phases = []
     torch.cuda.synchronize()
     dcn_cuda.reset_launches()
+    native.reset_calls()
     t0 = time.perf_counter()
     try:
         scalars = train.main(overrides + [f"profile_steps={profile_steps}"],
@@ -1110,10 +1150,16 @@ def run_cli(name, overrides, per_train, per_eval, profile_steps=0):
         torch.cuda.synchronize()
     finally:
         os.chdir(cwd)
+        os.environ.pop(native.DISABLE_ENV, None)
         for logger in loggers:
             logger.removeHandler(handler)
     wall_s = time.perf_counter() - t0
     launches = dict(dcn_cuda.LAUNCHES)
+    native_calls = dict(native.CALLS)
+    if (any(native_calls[f] <= 0 for f in native_used)
+            or not native_used and any(native_calls.values())):
+        raise AssertionError(f"CLI {name}: host library calls "
+                             f"{native_calls}, expected {native_used}")
     steps = {tag: sum(p["steps"] for p in phases if p["tag"] == tag)
              for tag in ("training", "validation")}
     want = {k: per_train[k] * steps["training"]
@@ -1136,15 +1182,18 @@ def run_cli(name, overrides, per_train, per_eval, profile_steps=0):
                   f"{p['total_loss']:.4f}", flush=True)
         else:
             print(f"CLI {name} epoch {p['epoch']}: eval {p['steps']} steps "
-                  f"in {p['seconds']:.2f} s + evaluator "
+                  f"in {p['seconds']:.2f} s (detection images "
+                  f"{p['log_detections_s']:.2f} s) + evaluator "
                   f"{p['evaluate_s']:.2f} s (loader wait "
                   f"{p['loader_wait_s'] / p['seconds']:.1%}), loss "
                   f"{p['total_loss']:.4f}", flush=True)
     print(f"CLI {name}: main() {wall_s:.1f} s, launches {launches}, mAP "
           f"{means['MSCOCO_Precision/mAP']:.5f}, mAR@100 "
-          f"{means['MSCOCO_Recall/mAR100']:.5f}", flush=True)
+          f"{means['MSCOCO_Recall/mAR100']:.5f}, host library calls "
+          f"{native_calls}", flush=True)
     run = {"wall_s": wall_s, "phases": phases, "launches": launches,
-           "coco": coco, "log": [r.getMessage() for r in records]}
+           "coco": coco, "log": [r.getMessage() for r in records],
+           "native_calls": native_calls}
     if profile_steps:
         run["memcpy_ms_per_step"] = memcpy_ms(
             workdir / "outputs" / "baseline" / "profile" / "trace.json",
@@ -1214,6 +1263,8 @@ def cli_on_data(n_dcn, seed, profile):
         "bf16", common + ["epochs=1", "precision=bfloat16"],
         expect(dcn_fused_fwd=n_dcn, dcn_fused_bwd=n_dcn),
         expect(dcn_fused_fwd=n_dcn))
+    out.update(cli_host_paths(run_dir, common, f32, out["cli_f32"], seed))
+    out.update(cli_other_backbones(sets))
 
     # ADVENT at its own batch (8), the validation images as the target
     # domain of both phases: an epoch, then a resume of both optimizers
@@ -1240,6 +1291,171 @@ def cli_on_data(n_dcn, seed, profile):
                              f"{restored} optimizers")
     out["cli_coco_merged"] = coco_merged_on_data(rng, sets[:2])
     return out
+
+
+def event_scalar_tags(log_dir):
+    """The scalar tags of the TensorBoard event files in ``log_dir``."""
+    from tensorboard.backend.event_processing.event_accumulator import (
+        EventAccumulator)
+
+    events = EventAccumulator(str(log_dir))
+    events.Reload()
+    return sorted(events.Tags()["scalars"])
+
+
+def evaluator_ab(seed, images=CLI_VAL_IMAGES, num_classes=6,
+                 per_image=150, turns=3):
+    """Phase 7: the COCO evaluator alone, host library and numpy in turns
+    in this process, on seeded detections the size of the CLI's eval (its
+    images, 5-29 ground truths each, ``per_image`` detections, every other
+    one near a ground truth). Returns the seconds of each evaluation, per
+    matcher."""
+    import os
+
+    import numpy as np
+
+    from centernet_uda_torch import native
+    from centernet_uda_torch.evaluation.coco_eval_np import COCOEval
+
+    rng = np.random.RandomState(seed)
+    w, h = CLI_IMAGE_WH
+    gts, dts = [], []
+    for image_id in range(images):
+        near = []
+        for _ in range(rng.randint(5, 30)):
+            x, y = rng.rand(2) * (w, h) * 0.85
+            bw, bh = 8 + rng.rand(2) * (w, h) * 0.25
+            near.append([x, y, x + bw, y + bh])
+            gts.append({"image_id": image_id, "bbox": near[-1],
+                        "category_id": int(rng.randint(1, num_classes + 1)),
+                        "area": float(bw * bh), "iscrowd": 0})
+        for k in range(per_image):
+            if k % 2 == 0:
+                box = (np.array(near[rng.randint(len(near))])
+                       + rng.randn(4) * 6).tolist()
+            else:
+                x, y = rng.rand(2) * (w, h) * 0.85
+                bw, bh = 8 + rng.rand(2) * (w, h) * 0.25
+                box = [x, y, x + bw, y + bh]
+            dts.append({"image_id": image_id, "bbox": box,
+                        "category_id": int(rng.randint(1, num_classes + 1)),
+                        "area": float((box[2] - box[0]) * (box[3] - box[1])),
+                        "score": float(rng.rand())})
+    out = {"host library": [], "numpy": []}
+    try:
+        for _ in range(turns):
+            for key in out:
+                if key == "numpy":
+                    os.environ[native.DISABLE_ENV] = "1"
+                t0 = time.perf_counter()
+                COCOEval(gts, dts).evaluate_and_accumulate()
+                out[key].append(time.perf_counter() - t0)
+                os.environ.pop(native.DISABLE_ENV, None)
+    finally:
+        os.environ.pop(native.DISABLE_ENV, None)
+    return out
+
+
+def cli_host_paths(run_dir, common, f32, first, seed):
+    """Phase 7, the host paths of the f32 DLA-34 run ``first`` (its
+    record) in ``run_dir``: its
+    TensorBoard event file (``MSCOCO_*`` among its scalars); the same 2
+    epochs without the host library, each epoch's loader-wait share beside
+    the library's, and each eval phase's seconds, its detection images'
+    and its evaluator's side by side, then the evaluator alone in turns
+    (``evaluator_ab``); ``model_last.ckpt`` with every key under
+    DataParallel's ``module.`` prefix as ``pretrained``, every weight
+    restored. Returns the records."""
+    import re
+
+    import torch
+
+    out = {}
+    writer = [m for m in first["log"]
+              if m.startswith("TensorBoard logs in")]
+    tags = event_scalar_tags(run_dir / "logs")
+    print(f"event file: {writer}, {len(tags)} scalar tags, e.g. "
+          f"{[t for t in tags if t.startswith('MSCOCO_')][:3]}", flush=True)
+    if (not writer or "MSCOCO_Precision/mAP" not in tags
+            or "training/total_loss" not in tags):
+        raise AssertionError(f"event file: {writer}, tags {tags}")
+    out["event_tags"] = tags
+
+    out["cli_f32_numpy"] = run_cli(
+        "f32_numpy", common + ["epochs=2", "precision=float32"], *f32,
+        native_used=())
+    shares = {key: [p["loader_wait_s"] / p["seconds"]
+                    for p in run["phases"] if p["tag"] == "training"]
+              for key, run in (("cli_f32", first),
+                               ("cli_f32_numpy", out["cli_f32_numpy"]))}
+    print(f"DLA-34 f32 loader wait a training epoch (4 threads): host "
+          f"library {[f'{v:.1%}' for v in shares['cli_f32']]}, numpy "
+          f"{[f'{v:.1%}' for v in shares['cli_f32_numpy']]}", flush=True)
+    out["loader_wait_share"] = shares
+    evals = {key: [{k: p[k] for k in ("seconds", "log_detections_s",
+                                      "evaluate_s")}
+                   for p in run["phases"] if p["tag"] == "validation"]
+             for key, run in (("cli_f32", first),
+                              ("cli_f32_numpy", out["cli_f32_numpy"]))}
+    print("DLA-34 f32 eval phases, s (phase / of it detection images / "
+          "evaluator after it): host library " + ", ".join(
+              f"{p['seconds']:.3f}/{p['log_detections_s']:.3f}/"
+              f"{p['evaluate_s']:.3f}" for p in evals["cli_f32"])
+          + "; numpy " + ", ".join(
+              f"{p['seconds']:.3f}/{p['log_detections_s']:.3f}/"
+              f"{p['evaluate_s']:.3f}" for p in evals["cli_f32_numpy"]),
+          flush=True)
+    out["eval_phases"] = evals
+    out["evaluator_ab_s"] = evaluator_ab(seed)
+    print("COCO evaluator alone, in turns in one process (16 images, 150 "
+          "detections each), s: " + "; ".join(
+              f"{k} {[round(v, 4) for v in t]}"
+              for k, t in out["evaluator_ab_s"].items()), flush=True)
+
+    state = torch.load(run_dir / "model_last.ckpt", map_location="cpu",
+                       weights_only=True)
+    prefixed = CLI_DIR / "data" / "module_prefixed.ckpt"
+    torch.save({"epoch": state["epoch"],
+                "state_dict": {f"module.{k}": v
+                               for k, v in state["state_dict"].items()}},
+               prefixed)
+    out["cli_prefixed"] = run_cli(
+        "prefixed", common + ["epochs=1", "precision=float32",
+                              f"pretrained={prefixed}"], *f32)
+    n = len(state["state_dict"])
+    restored = [m for m in out["cli_prefixed"]["log"]
+                if re.fullmatch(rf"restored {n} of {n} weights from "
+                                rf"{re.escape(str(prefixed))}", m)]
+    if not restored:
+        raise AssertionError(f"module.-prefixed checkpoint: "
+                             f"{out['cli_prefixed']['log']}")
+    print(f"module.-prefixed checkpoint as pretrained: {restored[0]}",
+          flush=True)
+    print("JAX-package checkpoints: not driven on the card: "
+          "this host has no JAX to write one; on the CPU tests/"
+          "test_torch_checkpoint.py::test_jax_checkpoint_through_main_and_"
+          "export loads one through main(), load_model and the export CLI "
+          "in a process without JAX", flush=True)
+    return out
+
+
+def cli_other_backbones(sets):
+    """Phase 7: ``experiment=baseline_mobilenet_v2`` with ``use_dcn=true``
+    (batch 32: a train step launches ``dcn_sel_fwd``/``dcn_sel_bwd`` once
+    and ``dcn_fwd``/``dcn_bwd`` twice, an eval step the forwards) and
+    ``experiment=baseline_resnet18`` (no DCN layer) through ``main()`` for
+    one float32 epoch each. Returns the records."""
+    return {
+        "cli_mnv2": run_cli(
+            "mnv2", ["experiment=baseline_mobilenet_v2",
+                     "model.backend.params.use_dcn=true", "epochs=1",
+                     "precision=float32"] + sets,
+            expect(dcn_sel_fwd=1, dcn_sel_bwd=1, dcn_fwd=2, dcn_bwd=2),
+            expect(dcn_sel_fwd=1, dcn_fwd=2)),
+        "cli_resnet18": run_cli(
+            "resnet18", ["experiment=baseline_resnet18", "epochs=1",
+                         "precision=float32"] + sets, expect(), expect()),
+    }
 
 
 def coco_merged_on_data(rng, sets):
@@ -1270,7 +1486,9 @@ def coco_merged_on_data(rng, sets):
                                   width=1 << 20).strip(),
                  f"datasets.validation.params.image_folder={val_dir}",
                  f"datasets.validation.params.annotation_file={val_anno}"]
-    run = run_cli("coco_merged", overrides, expect(), expect())
+    # rotated boxes keep their numpy encoder, as in the JAX package
+    run = run_cli("coco_merged", overrides, expect(), expect(),
+                  native_used=("normalize_image", "coco_greedy_match"))
     state = torch_load(CLI_DIR / "coco_merged" / "outputs" / "coco_merged"
                        / "model_last.ckpt")["state_dict"]
     if (state["wh.2.weight"].shape[0] != 3
@@ -1541,7 +1759,13 @@ EXPORT_RUNS = (("dla34_512", 512, 1, True), ("dla34_800_wd", 800, 4, False))
 # class and box alike to its partner's, the row of the other output with
 # the same class and a score within that bound (rows at the top-k cut are
 # left out: a few steps of training leave many of the top 100 at the
-# heatmap's clamp, 1e-4, tied). The DCN forward is not bitwise repeatable:
+# heatmap's clamp, 1e-4, tied; a row whose peak has a neighbour within that
+# bound in the eager heatmap may come from either pixel, since the decode's
+# max-pool may keep either: a fresh process's 512 px artifact moved such a
+# row by one output pixel, 4.0 px, with its scores 1.1e-6 from eager's, in
+# a run on one H100; such a row's box is held against the eager heads' box
+# at a pixel the pool may keep within the pool window of its partner's
+# pixel). The DCN forward is not bitwise repeatable:
 # where a grid is short it splits Cin across blocks that add with float
 # atomics, and it stages x in bf16, so a last-bit change upstream can flip
 # a rounding (two eager calls of DLA-34 at 800 px part by 1.1e-3 of the reg
@@ -1604,7 +1828,41 @@ print(json.dumps(report))
 """
 
 
-def decoded_diff(got, want, window):
+def eager_candidates(serving, x):
+    """What the decode of the serving module ``serving`` may return on
+    ``x``, pixel by pixel: the heatmap after the sigmoid (N, C, H, W) and
+    each pixel's box in input pixels (N, H, W, 4), from the eager heads
+    (axis-aligned boxes)."""
+    import torch
+
+    from centernet_uda_torch.ops.tensor import sigmoid_clamped
+
+    heads = serving.net(x)
+    hm = sigmoid_clamped(heads["hm"]).double().cpu()
+    wh, reg = heads["wh"].double().cpu(), heads["reg"].double().cpu()
+    n, _, h, w = hm.shape
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float64),
+                            torch.arange(w, dtype=torch.float64),
+                            indexing="ij")
+    cx, cy = xs + reg[:, 0], ys + reg[:, 1]
+    boxes = torch.stack([cx - wh[:, 0] / 2, cy - wh[:, 1] / 2,
+                         cx + wh[:, 0] / 2, cy + wh[:, 1] / 2], dim=-1)
+    return hm, boxes * serving.down_ratio, serving.nms_size
+
+
+def decoded_rows(out):
+    """A decoded output ``(boxes, scores, classes[, keypoints])`` as
+    (geometry, scores, classes) in float64 on the host, the geometry being
+    the box with the keypoints appended where served."""
+    import torch
+
+    out = [t.double().cpu() for t in out]
+    geometry = out[0] if len(out) == 3 else torch.cat(
+        [out[0], out[3].flatten(2)], dim=-1)
+    return geometry, out[1], out[2]
+
+
+def decoded_diff(got, want, window, eager, box_bound=0.0):
     """Two decoded outputs ``(boxes, scores, classes[, keypoints])``: the
     largest difference of the sorted top-k scores, and row by row the
     geometry (box, and keypoints where served) against the nearest row of
@@ -1613,22 +1871,68 @@ def decoded_diff(got, want, window):
     out (a near-tie across the cut may trade it for a row beyond the top
     k); every other row must find a partner. Sorted scores alone cannot
     say which rows may swap: a change of each score by ``d`` can move the
-    sorted vector by far less than ``d``. Returns the score error, the
-    largest geometry error, the rows checked, the rows with no partner and
-    the geometry's scale."""
+    sorted vector by far less than ``d``.
+
+    A box row further than ``box_bound`` from its partners may come from
+    the other pixel of a max-pool near-tie: it is held instead at a tie
+    partner, if that is nearer. Its partner row ``j`` is located at the
+    eager pixel ``q`` of its class, score within ``window``, whose box in
+    the eager heads (``eager``: ``eager_candidates``) is nearest to ``j``'s;
+    the row is then held against the eager box at the pixels of ``q``'s
+    max-pool window that the pool may keep (a local maximum up to
+    ``window``) with the row's class and a score within ``window``. Its
+    error is the larger of ``q``'s and that one. Returns the score error,
+    the largest geometry error, the rows checked, the rows with no
+    partner, the rows held at a tie partner, the rows the partner check
+    alone puts beyond ``box_bound``, and the geometry's scale."""
     import torch
+    import torch.nn.functional as F
 
-    def rows(out):
-        out = [t.double().cpu() for t in out]
-        geometry = out[0] if len(out) == 3 else torch.cat(
-            [out[0], out[3].flatten(2)], dim=-1)
-        return geometry, out[1], out[2]
+    hm, cand_boxes, size = eager
+    r = size // 2
+    keepable = hm >= F.max_pool2d(hm, size, 1, r) - window
+    pixels = {}
 
-    def one_way(a, b):
+    def pixel_of(side, out, n, j):
+        """The eager pixel (y, x) that row ``j`` of image ``n`` of ``out``
+        decodes and its box error there, or None."""
+        key = (side, n, j)
+        if key not in pixels:
+            g, s, c = out
+            level = (hm[n, int(c[n, j])] - s[n, j]).abs() <= window
+            errs = (cand_boxes[n] - g[n, j]).abs().amax(dim=-1).masked_fill(
+                ~level, float("inf"))
+            k = int(errs.argmin())
+            y, x = divmod(k, errs.shape[1])
+            pixels[key] = ((y, x, float(errs[y, x])) if bool(level.any())
+                           else None)
+        return pixels[key]
+
+    def at_tie_partner(a, b, side_b, n, i, partners):
+        """Row ``i`` of ``a``'s error held at its tie partners in ``b``."""
+        ga, sa, ca = a
+        c = int(ca[n, i])
+        allowed = keepable[n, c] & ((hm[n, c] - sa[n, i]).abs() <= window)
+        best = float("inf")
+        for j in partners.tolist():
+            q = pixel_of(side_b, b, n, j)
+            if q is None:
+                continue
+            y, x, q_err = q
+            y0, x0 = max(y - r, 0), max(x - r, 0)
+            near = allowed[y0:y + r + 1, x0:x + r + 1]
+            if bool(near.any()):
+                boxes = cand_boxes[n, y0:y + r + 1, x0:x + r + 1][near]
+                best = min(best, max(q_err, float(
+                    (boxes - ga[n, i]).abs().amax(dim=-1).min())))
+        return best
+
+    def one_way(a, b, side_b):
         """Each row of ``a`` clear of its cut against its partners in
-        ``b``: (largest geometry error, rows checked, rows unmatched)."""
+        ``b``: (largest geometry error, rows checked, rows unmatched, rows
+        held at a tie partner, rows beyond ``box_bound`` at a partner)."""
         (ga, sa, ca), (gb, sb, cb) = a, b
-        err, checked, unmatched = 0.0, 0, 0
+        err, checked, unmatched, at_tie, beyond = 0.0, 0, 0, 0, 0
         for n in range(sa.shape[0]):
             for i in torch.nonzero(sa[n] > sa[n, -1] + window).flatten():
                 partner = (((sb[n] - sa[n, i]).abs() <= window)
@@ -1637,32 +1941,42 @@ def decoded_diff(got, want, window):
                 if not bool(partner.any()):
                     unmatched += 1
                     continue
-                err = max(err, float((gb[n][partner] - ga[n, i])
-                                     .abs().amax(dim=-1).min()))
-        return err, checked, unmatched
+                row = float((gb[n][partner] - ga[n, i])
+                            .abs().amax(dim=-1).min())
+                if row > box_bound:
+                    beyond += 1
+                    if ga.shape[-1] == 4:
+                        tie = at_tie_partner(a, b, side_b, n, int(i),
+                                             torch.nonzero(partner)
+                                             .flatten())
+                        if tie < row:
+                            at_tie += 1
+                            row = tie
+                err = max(err, row)
+        return err, checked, unmatched, at_tie, beyond
 
-    a, b = rows(got), rows(want)
+    a, b = decoded_rows(got), decoded_rows(want)
     score_err = float((a[1] - b[1]).abs().max())
-    err_ab, checked_ab, unmatched_ab = one_way(a, b)
-    err_ba, checked_ba, unmatched_ba = one_way(b, a)
-    return (score_err, max(err_ab, err_ba), checked_ab + checked_ba,
-            unmatched_ab + unmatched_ba, float(b[0].abs().max()))
+    ab, ba = one_way(a, b, "want"), one_way(b, a, "got")
+    return (score_err, max(ab[0], ba[0]), *(x + y for x, y in zip(
+        ab[1:], ba[1:])), float(b[0].abs().max()))
 
 
-def served_spread(first, others):
+def served_spread(first, others, eager=None):
     """The eager module's own spread over SPREAD_CALLS more calls on one
     input: per output (``served_errors``'s keys), the largest difference
     of ``others`` from ``first``; decoded rows are paired within SERVE_TOL
     of score, or SPREAD_FACTOR times the score spread where that is
-    larger."""
+    larger (``decoded_diff`` with the eager candidates ``eager``)."""
     if isinstance(first, dict):
         return {k: max(float((o[k].double() - v.double()).abs().max())
                        for o in others) for k, v in first.items()}
-    scores = max(decoded_diff(o, first, SERVE_TOL)[0] for o in others)
+    scores = max(decoded_diff(o, first, SERVE_TOL, eager)[0]
+                 for o in others)
     window = max(SERVE_TOL, SPREAD_FACTOR * scores)
     boxes = 0.0
     for o in others:
-        _, err, _, unmatched, _ = decoded_diff(o, first, window)
+        _, err, _, unmatched, _, _, _ = decoded_diff(o, first, window, eager)
         if unmatched:
             raise AssertionError(f"eager serving module: {unmatched} top-k "
                                  "rows of one call have no partner in "
@@ -1671,12 +1985,13 @@ def served_spread(first, others):
     return {"scores": scores, "boxes": boxes}
 
 
-def served_errors(name, got, want, spread):
+def served_errors(name, got, want, spread, eager=None):
     """Artifact outputs against the eager serving module's: raw heads, or
     the sorted top-k scores and each top-k row's class and geometry
-    against its partner's (``decoded_diff``, the score window being the
-    scores' bound), each within ``max(SERVE_TOL * scale, SPREAD_FACTOR *
-    spread)`` (see SERVE_TOL). Returns {output: max |err|}."""
+    against its partner's (``decoded_diff`` with the eager candidates
+    ``eager``, the score window being the scores' bound), each within
+    ``max(SERVE_TOL * scale, SPREAD_FACTOR * spread)`` (see SERVE_TOL).
+    Returns {output: max |err|}."""
     import torch
 
     def bound(scale, key):
@@ -1693,9 +2008,11 @@ def served_errors(name, got, want, spread):
                                      f"{errs[k]}, scale {scale}, eager "
                                      f"spread {spread[k]}")
         return errs
-    score_err, box_err, checked, unmatched, scale = decoded_diff(
-        got, want, bound(1.0, "scores"))
-    errs = {"scores": score_err, "boxes": box_err, "rows": checked}
+    scale = float(decoded_rows(want)[0].abs().max())
+    score_err, box_err, checked, unmatched, at_tie, beyond, _ = decoded_diff(
+        got, want, bound(1.0, "scores"), eager, bound(scale, "boxes"))
+    errs = {"scores": score_err, "boxes": box_err, "rows": checked,
+            "rows_at_a_tie": at_tie, "rows_beyond_at_partner": beyond}
     if not (all(bool(torch.isfinite(t).all()) for t in got) and checked
             and not unmatched and score_err <= bound(1.0, "scores")
             and box_err <= bound(scale, "boxes")):
@@ -1735,8 +2052,10 @@ def serve_artifacts(n_dcn, seed):
         the eager module's."""
         with torch.no_grad():
             want = serving(x)
+            eager = (eager_candidates(serving, x) if serving.with_decode
+                     else None)
             spread = served_spread(
-                want, [serving(x) for _ in range(SPREAD_CALLS)])
+                want, [serving(x) for _ in range(SPREAD_CALLS)], eager)
             eager_ms = time_ms(lambda: serving(x))
         program = export.load_artifact(path).module()
         dcn_cuda.reset_launches()
@@ -1747,7 +2066,7 @@ def serve_artifacts(n_dcn, seed):
         if launches != per_call:
             raise AssertionError(f"{name}: artifact launches {launches} != "
                                  f"{per_call}")
-        errs = served_errors(name, got, want, spread)
+        errs = served_errors(name, got, want, spread, eager)
         with torch.no_grad():
             ms = time_ms(lambda: program(x))
         np.save(SERVE_DIR / f"{name}.in.npy", x.cpu().numpy())
@@ -1756,7 +2075,7 @@ def serve_artifacts(n_dcn, seed):
                      "output": str(SERVE_DIR / f"{name}.out.pt")})
         served[name] = {"launches": launches, "errs": errs, "ms": ms,
                         "eager_spread": spread, "eager_ms": eager_ms,
-                        "want": want, "per_call": per_call,
+                        "want": want, "eager": eager, "per_call": per_call,
                         "bytes": path.stat().st_size}
         print(f"{name}: {path.name} ({path.stat().st_size / 2**20:.1f} MiB) "
               f"{ms:.3f} ms/call, eager {eager_ms:.3f} ms/call, launches "
@@ -1824,7 +2143,8 @@ def serve_artifacts(n_dcn, seed):
         got = torch.load(SERVE_DIR / f"{name}.out.pt", weights_only=True)
         rec["fresh_errs"] = served_errors(f"{name} (fresh)", got,
                                           rec.pop("want"),
-                                          rec["eager_spread"])
+                                          rec["eager_spread"],
+                                          rec.pop("eager"))
         rec["fresh_ms"] = fresh[name]["ms"]
         print(f"{name} in a fresh process: {rec['fresh_ms']:.3f} ms/call, "
               f"launches as here, max |err| " + " ".join(
@@ -2075,6 +2395,36 @@ def pooling_card_vs_cpu(seed):
     return {"errs": errs, "ms": ms}
 
 
+def host_pipeline():
+    """Phase 11: ``tools/bench_pipeline_torch.py`` on ``PIPE_IMAGES`` JPEGs
+    at ``PIPE_SIZE`` px, batch ``PIPE_BATCH``, the training augmentation,
+    with each of ``PIPE_WORKERS`` loader threads, with the host library and
+    with numpy: each stage's ms a sample on one thread and the loader's
+    images a second. Returns the records."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    from bench_pipeline_torch import bench
+
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    out = {}
+    for workers in PIPE_WORKERS:
+        rec = bench(images=PIPE_IMAGES, size=PIPE_SIZE, batch=PIPE_BATCH,
+                    workers=workers, mode="thread", aug=True,
+                    seconds=PIPE_SECONDS, root=scratch)
+        for label, r in (("host library", rec), ("numpy", rec["numpy"])):
+            rate = r["pipeline_images_per_sec"]
+            if not rate > 0 or not all(
+                    v is not None and v >= 0
+                    for v in r["stage_ms_per_sample"].values()):
+                raise AssertionError(f"host pipeline {label}: {r}")
+            stages = ", ".join(f"{k} {v:.3f}" for k, v in
+                               r["stage_ms_per_sample"].items())
+            print(f"host pipeline, {workers} threads, {label}: {rate:.2f} "
+                  f"images/s; ms a sample: {stages}", flush=True)
+        out[f"threads_{workers}"] = rec
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every measurement here")
@@ -2127,6 +2477,10 @@ def main(argv=None) -> int:
     phase("build")
     t0 = time.time()
     print(dcn_cuda.compiler_report(dcn_cuda.build_kernels()))
+    from centernet_uda_torch import native
+
+    native.load()
+    print(f"host library: {native.lib_path()}")
     report["build_s"] = time.time() - t0
     print(f"built in {report['build_s']:.1f} s", flush=True)
 
@@ -2330,12 +2684,16 @@ def main(argv=None) -> int:
     report.update(p10)
     phase("DCNPooling on the card against the CPU")
     report["dcn_pooling"] = pooling_card_vs_cpu(args.seed)
+    phase(f"host pipeline: the loader bench at {PIPE_SIZE} px, batch "
+          f"{PIPE_BATCH}, {PIPE_WORKERS} threads")
+    report["host_pipeline"] = host_pipeline()
 
     runs = [report[k]["launches"] for k in (
         "train", "eval", "bf16_train", "bf16_eval", "mnv2_train",
         "mnv2_eval", "mnv2_bf16_train", "mnv2_bf16_eval", "lanes_eval",
-        "cli_f32", "cli_resume", "cli_bf16", "cli_advent",
-        "cli_advent_resume", "cli_coco_merged")]
+        "cli_f32", "cli_resume", "cli_bf16", "cli_f32_numpy", "cli_prefixed",
+        "cli_mnv2", "cli_resnet18", "cli_advent", "cli_advent_resume",
+        "cli_coco_merged")]
     runs += [r[part]["launches"] for r in (*uda.values(), *p9.values())
              for part in ("train", "eval")]
     runs += [r["launches"] for r in served.values()]

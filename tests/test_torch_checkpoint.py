@@ -1,8 +1,16 @@
 """Checkpoints of the port's trainer (CPU, narrow DLA): the JAX package's
 weights survive a save and a load; a resumed run is the uninterrupted run,
-bit for bit; partial checkpoints load what fits and say what did not."""
+bit for bit; partial checkpoints load what fits and say what did not; keys
+with DataParallel's ``module.`` prefix load; the JAX package's own
+checkpoint loads, evaluates and exports in a process without JAX; the
+TensorBoard logger writes without tensorboardX."""
 
+import ast
+import json
 import logging
+import os
+import re
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -18,6 +26,8 @@ from centernet_uda_torch.train import CONFIG_DIR, build_trainer
 from centernet_uda_torch.utils.weights import state_dict_from_jax
 
 torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
 
 NARROW = ["model.backend.params.levels=[1,1,1,1,1,1]",
           "model.backend.params.channels=[4,8,8,16,16,32]",
@@ -168,3 +178,207 @@ def test_checkpoint_is_written_atomically(tmp_path, with_optimizer):
     assert sorted(p.name for p in tmp_path.iterdir()) == ["model_last.ckpt"]
     data = torch.load(tmp_path / "model_last.ckpt", weights_only=True)
     assert ("optimizer" in data) == with_optimizer
+
+
+def test_module_prefixed_checkpoint_loads_every_weight(tmp_path, caplog):
+    """A checkpoint whose keys carry DataParallel's ``module.`` prefix (the
+    JAX-bridged weights saved that way) loads every weight, from a zip and
+    from torch's legacy format alike: the heads are the unprefixed
+    checkpoint's (tolerance of the round trip above)."""
+    src = trainer("dcn_impl=xla")
+    state = {f"module.{k}": v for k, v in
+             src.backend.module.state_dict().items()}
+    torch.save({"epoch": 2, "state_dict": state}, tmp_path / "dp.ckpt")
+    torch.save(state, tmp_path / "bare.pth")
+    # torch's legacy format (before torch 1.6), as the reference's .pth are
+    torch.save({"epoch": 2, "state_dict": state}, tmp_path / "legacy.ckpt",
+               _use_new_zipfile_serialization=False)
+    torch.save(state, tmp_path / "legacy.pth",
+               _use_new_zipfile_serialization=False)
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 3, 64, 64)
+                         .astype(np.float32))
+    with torch.no_grad():
+        want = src.backend.module.eval()(x)
+    for name in ("dp.ckpt", "bare.pth", "legacy.ckpt", "legacy.pth"):
+        dst = trainer("dcn_impl=xla", "seed=9")
+        caplog.clear()
+        with caplog.at_level(logging.INFO):
+            assert dst.load_model(tmp_path / name) == 1
+        n = len(state)
+        assert f"restored {n} of {n} weights" in caplog.text, name
+        assert "no parameter" not in caplog.text, name
+        with torch.no_grad():
+            got = dst.backend.module.eval()(x)
+        for k, ref in want.items():
+            np.testing.assert_allclose(
+                got[k].numpy(), ref.numpy(), rtol=1e-3,
+                atol=1e-4 * max(1.0, float(ref.abs().max())), err_msg=k)
+
+
+ADVENT_SIZE = 128
+
+# runs in a process with JAX, flax and optax blocked: main() with the JAX
+# checkpoint as ``pretrained`` on a test split, the trainer's load_model,
+# and the export CLI on it; saves the heads of both and the discriminator
+_NO_JAX_CHECKPOINT_RUN = """
+import glob, json, os, shutil, sys
+for name in ("jax", "jaxlib", "flax", "optax", "centernet_uda_tpu"):
+    sys.modules[name] = None
+import logging
+import numpy as np
+import torch
+from centernet_uda_torch import export, train
+from centernet_uda_torch.config import compose
+args = json.loads(sys.argv[1])
+records = []
+handler = logging.Handler()
+handler.emit = records.append
+logging.getLogger("centernet_uda_torch.utils.checkpoint").addHandler(handler)
+phases = []
+cwd = os.getcwd()
+train.main(args["main"], device="cpu", phases=phases)
+os.chdir(cwd)  # main() runs in its run dir
+assert [p["tag"] for p in phases] == ["test"], phases
+x = torch.from_numpy(np.load(args["x"]))
+trainer = train.build_trainer(
+    compose(args["trainer"], config_dir=str(train.CONFIG_DIR)), device="cpu")
+trainer.init_done()
+assert trainer.load_model(args["ckpt"], resume=True) == args["epoch"] + 1
+with torch.no_grad():
+    heads = trainer.backend.module.eval()(x)
+run = glob.glob("outputs/*/config.yaml")[0].rsplit("/", 1)[0]
+shutil.copy(args["ckpt"], run + "/model_last.ckpt")
+paths = export.main(["-e", run.split("/")[-1], "-i", str(x.shape[3]),
+                     str(x.shape[2]), "-b", str(x.shape[0]), "-wd",
+                     "--formats", "pt2", "--device", "cpu"])
+served = export.load_artifact(paths[0]).module()(x)
+np.savez(args["out"], **{"eager_" + k: v.numpy() for k, v in heads.items()},
+         **{"served_" + k: v.detach().numpy() for k, v in served.items()})
+torch.save(trainer.discriminator.state_dict(), args["disc"])
+print(json.dumps({"log": [r.getMessage() for r in records],
+                  "jax": [m for m in ("jax", "flax", "optax")
+                          if sys.modules.get(m)]}))
+"""
+
+
+def test_jax_checkpoint_through_main_and_export(tmp_path):
+    """A JAX ADVENT trainer's ``save_model(..., True)`` file (a pickle of
+    numpy trees with optax states) loads, in a process that imports no
+    JAX, through ``main(pretrained=...)`` (every weight restored, a test
+    phase run), ``load_model(resume=True)`` (the JAX epoch, a fresh
+    optimizer) and the export CLI; the eager and exported heads hold the
+    JAX model's within the round trip's tolerance, the discriminator is
+    the bridged one, bit for bit."""
+    import subprocess
+    import sys
+
+    import yaml
+
+    from centernet_uda_torch.utils.weights import disc_state_dict_from_jax
+    from tests import test_torch_uda_twins as tw
+    from tests.util_fixtures import make_tiny_coco
+
+    ovr = tw.overrides("adversarial_entropy_minimization", ADVENT_SIZE)
+    with tw.Twins():
+        jm = tw.jax_trainer(ovr)
+        jm.save_model(tmp_path / "jax_model.ckpt", 7, True)
+        x = np.random.RandomState(5).randn(
+            2, ADVENT_SIZE, ADVENT_SIZE, 3).astype(np.float32)
+        want = jm.backend.module.apply(
+            {"params": jm.state.params, "batch_stats": jm.state.batch_stats},
+            x, train=False)
+        want_disc = disc_state_dict_from_jax(
+            jax.tree.map(np.asarray, jm.state.disc_params))
+    np.save(tmp_path / "x.npy", x.transpose(0, 3, 1, 2).copy())
+
+    img_dir, anno = make_tiny_coco(tmp_path / "coco", num_images=2,
+                                   size=(ADVENT_SIZE, ADVENT_SIZE),
+                                   num_classes=tw.NUM_CLASSES, seed=3)
+    split = {"image_folder": str(img_dir), "annotation_file": str(anno),
+             "input_size": [ADVENT_SIZE, ADVENT_SIZE],
+             "target_domain_glob": f"{img_dir}/*"}
+    data = [f"datasets.{phase}.params.{k}={json.dumps(v)}"
+            for phase in ("training", "validation") for k, v in split.items()]
+    data.append("datasets.test=" + yaml.safe_dump(
+        {"name": "coco", "params": split}, default_flow_style=True,
+        width=1 << 20).strip())
+    port_ovr = ovr + tw.PORT_ONLY
+    args = {"main": port_ovr + data + [
+                "test_only=true", "num_workers=0",
+                f"pretrained={tmp_path / 'jax_model.ckpt'}"],
+            "trainer": port_ovr, "ckpt": str(tmp_path / "jax_model.ckpt"),
+            "epoch": 7, "x": str(tmp_path / "x.npy"),
+            "out": str(tmp_path / "heads.npz"),
+            "disc": str(tmp_path / "disc.pt")}
+    run = tmp_path / "run"
+    run.mkdir()
+    out = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_CHECKPOINT_RUN, json.dumps(args)],
+        cwd=run, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr[-4000:]
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["jax"] == []
+    # main() and load_model each restore the discriminator, then the
+    # model; the export CLI the model
+    restored = [re.match(r"restored (\d+) of (\d+) weights", m)
+                for m in report["log"]]
+    restored = [m.groups() for m in restored if m]
+    assert len(restored) == 5 and all(a == b for a, b in restored), restored
+    assert any("optimizer starts fresh at epoch 7" in m
+               for m in report["log"])
+
+    heads = np.load(tmp_path / "heads.npz")
+    for k, ref in want.items():
+        ref = np.asarray(ref).transpose(0, 3, 1, 2)
+        for kind in ("eager", "served"):
+            np.testing.assert_allclose(
+                heads[f"{kind}_{k}"], ref, rtol=1e-3,
+                atol=1e-4 * max(1.0, np.abs(ref).max()), err_msg=(kind, k))
+    got_disc = torch.load(tmp_path / "disc.pt", weights_only=True)
+    assert set(got_disc) == set(want_disc)
+    for k, v in want_disc.items():
+        assert torch.equal(got_disc[k], v), k
+
+
+def test_event_file_without_tensorboardx(tmp_path):
+    """With tensorboardX (and TensorFlow, as on the card host) blocked, the
+    logger writes through ``torch.utils.tensorboard``: the CLI's event file
+    holds the ``MSCOCO_*`` scalars of its eval."""
+    import subprocess
+    import sys
+
+    from tests.util_fixtures import make_tiny_coco
+
+    img_dir, anno = make_tiny_coco(tmp_path / "coco", num_images=2,
+                                   size=(64, 64), num_classes=3, seed=3)
+    overrides = ["experiment=baseline", "dcn_impl=xla", "epochs=1",
+                 "batch_size=2", "num_workers=0", "max_detections=10",
+                 "model.backend.params.num_classes=3"] + NARROW[:3]
+    for phase in ("training", "validation"):
+        overrides += [f"datasets.{phase}.params.image_folder={img_dir}",
+                      f"datasets.{phase}.params.annotation_file={anno}",
+                      f"datasets.{phase}.params.input_size=[64,64]"]
+    code = "\n".join([
+        "import sys",
+        "for name in ('tensorboardX', 'tensorflow', 'jax', 'flax', "
+        "'optax'):",
+        "    sys.modules[name] = None",
+        "import logging",
+        "logging.basicConfig(level=logging.INFO)",
+        "from centernet_uda_torch import train",
+        f"train.main({overrides!r}, device='cpu')",
+        "from tensorboard.backend.event_processing.event_accumulator "
+        "import EventAccumulator",
+        f"ea = EventAccumulator({str(tmp_path / 'outputs/baseline/logs')!r})",
+        "ea.Reload()",
+        "print(sorted(ea.Tags()['scalars']))",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "through torch.utils.tensorboard.writer" in out.stderr
+    tags = ast.literal_eval(out.stdout.strip().splitlines()[-1])
+    assert "MSCOCO_Precision/mAP" in tags and "MSCOCO_Recall/mAR100" in tags
+    assert any(t.startswith("training/") for t in tags)

@@ -70,14 +70,15 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 def test_cli_and_data_need_no_image_or_logging_library(tmp_path):
-    """With OpenCV, PIL, tensorboardX and JAX blocked, the CLI, the data
-    pipeline, the evaluator and the checkpoints import; a dataset of PPM
-    images at the input size, without augmentation, gives samples (reading
-    and resizing any other image needs OpenCV), and the TensorBoard logger
-    has no writer."""
+    """With OpenCV, PIL, tensorboardX, tensorboard and JAX blocked, the
+    CLI, the data pipeline, the evaluator and the checkpoints import; a
+    dataset of PPM images at the input size, without augmentation, gives
+    samples (reading and resizing any other image needs OpenCV), and the
+    TensorBoard logger has no writer."""
     code = "\n".join([
         "import sys",
-        f"for name in {FORBIDDEN + ('cv2', 'PIL', 'tensorboardX')!r}:",
+        "for name in " + repr(FORBIDDEN + ("cv2", "PIL", "tensorboardX",
+                                           "tensorboard")) + ":",
         "    sys.modules[name] = None",
         "import json",
         "import numpy as np",

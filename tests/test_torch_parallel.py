@@ -204,6 +204,35 @@ def test_plan_ranks_follows_the_jax_package():
                               torch.device("cuda"))[0] == 0
 
 
+@pytest.mark.parametrize("count", [2, 4])
+def test_plan_ranks_takes_every_visible_card_when_nothing_asks(
+        count, monkeypatch):
+    """The JAX package's auto mesh (``_should_auto_mesh``): with ``count``
+    cards visible (patched) and nothing asking, a batch that divides over
+    them takes one rank per card, one that does not stays on one device,
+    and so does the CPU; an asked-for degree wins, and one that the cards
+    cannot take warns and then follows the auto rule, as there, and the
+    warning names where the run goes."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert ddp.plan_ranks(compose(["batch_size=16"]), cuda) == (count, None)
+    assert ddp.plan_ranks(compose([f"batch_size={4 * count + 1}"]),
+                          cuda) == (0, None)
+    assert ddp.plan_ranks(compose(["batch_size=16"]), cpu) == (0, None)
+    assert ddp.plan_ranks(compose(["mesh={data: 1}", "batch_size=16"]),
+                          cuda) == (1, None)
+    n, why = ddp.plan_ranks(compose(["mesh={data: 8}", "batch_size=16"]),
+                            cuda)
+    assert n == count and why == (
+        f"requested 8-way data parallelism but only {count} device(s) "
+        f"available; running on the {count} visible devices")
+    n, why = ddp.plan_ranks(compose(
+        ["mesh={data: 8}", f"batch_size={4 * count + 1}"]), cuda)
+    assert n == 0 and why == (
+        f"requested 8-way data parallelism but only {count} device(s) "
+        "available; running single-device")
+
+
 def test_one_process_collectives_are_identities():
     t = torch.arange(4.0)
     assert ddp.global_sum(t) is t and ddp.gather_rows(t) is t
