@@ -15,18 +15,30 @@ device boundary:
 - an output queue prefetches ``prefetch`` batches ahead of the consumer,
   overlapping host work with device steps,
 - a training shard (``num_shards`` > 1) is its rank's rows of each global
-  batch, where the JAX package gives each host a slice of the epoch.
+  batch, where the JAX package gives each host a slice of the epoch,
+- a consumer that leaves early (``break``, an exception) gets control back
+  within seconds in both worker modes: the producer stops submitting, and
+  a process pool is shut down without ``Pool.terminate()`` while work is
+  in flight (see ``_stop_process_pool``).
 """
 
 from __future__ import annotations
 
+import logging
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, Sequence
 
 import numpy as np
 import torch
+
+log = logging.getLogger(__name__)
+
+# how long a loader that is left early waits for its workers: the tasks in
+# flight, then the pool's exit, then the producer thread
+STOP_TIMEOUT_S = 10.0
 
 
 def collate(samples) -> Dict[str, np.ndarray]:
@@ -37,9 +49,10 @@ def collate(samples) -> Dict[str, np.ndarray]:
     return batch
 
 
-# fork-inherited dataset for process workers (set right before the fork;
-# children reference it without any pickling)
+# fork-inherited dataset and stop flag for process workers (set right before
+# the fork; children reference them without any pickling)
 _PROC_DATASET = None
+_PROC_STOP = None
 
 
 def _proc_init():
@@ -54,7 +67,41 @@ def _proc_init():
 
 
 def _proc_get(idx: int):
+    # a task still queued when the consumer has left returns at once
+    if _PROC_STOP.value:
+        return None
     return _PROC_DATASET[int(idx)]
+
+
+def _stop_process_pool(pool, in_flight, stop_flag, timeout: float) -> None:
+    """Shut a ``multiprocessing.Pool`` down while tasks may be in flight.
+
+    ``Pool.terminate()`` puts a sentinel on the result queue under the
+    queue's write lock. A worker sending a result larger than the pipe's
+    buffer holds that lock until the result handler reads it to the end;
+    once terminate has stopped the result handler, nothing reads it, and
+    terminate waits for the lock forever (8 workers and 256 px samples
+    hang within a few early stops). So: the shared ``stop_flag`` turns
+    every queued task into a no-op, every result in flight is collected
+    (each worker finishes at most the sample it holds), and only then is
+    the pool closed and joined, when no worker holds a queue lock. The
+    whole stop is bounded by ``timeout``: where a sample does not finish
+    in time, ``terminate()`` runs on a daemon thread that is left behind
+    (logged), and the caller goes on."""
+    stop_flag.value = 1
+    deadline = time.monotonic() + timeout
+    for f in in_flight:
+        f.wait(max(deadline - time.monotonic(), 0.0))
+    if all(f.ready() for f in in_flight):
+        pool.close()
+        stopper = threading.Thread(target=pool.join, daemon=True)
+    else:
+        stopper = threading.Thread(target=pool.terminate, daemon=True)
+    stopper.start()
+    stopper.join(max(deadline - time.monotonic(), 1.0))
+    if stopper.is_alive():
+        log.warning("a loader's worker processes did not stop within "
+                    "%.0f s; left to exit on their own", timeout)
 
 
 class DataLoader:
@@ -213,15 +260,28 @@ class DataLoader:
             return False
 
         def producer():
-            global _PROC_DATASET
-            pool = None
+            global _PROC_DATASET, _PROC_STOP
+            pool = stop_flag = None
+            # batches submitted and not yet handed over: (futures, n_real)
+            pending = []
+
+            def hand_over_first() -> bool:
+                """Collate the oldest pending batch and put it on the
+                queue; it leaves ``pending`` once all its results are in."""
+                futures, n_real = pending[0]
+                samples = [result(f) for f in futures]
+                del pending[0]
+                return put_or_stop(self._finish(samples, n_real))
+
             try:
                 if self.worker_mode == "process":
                     import multiprocessing as mp
 
-                    _PROC_DATASET = self.dataset  # inherited via fork
-                    pool = mp.get_context("fork").Pool(
-                        self.num_workers, initializer=_proc_init)
+                    ctx = mp.get_context("fork")
+                    stop_flag = ctx.RawValue("b", 0)
+                    # inherited via fork
+                    _PROC_DATASET, _PROC_STOP = self.dataset, stop_flag
+                    pool = ctx.Pool(self.num_workers, initializer=_proc_init)
                     submit = lambda i: pool.apply_async(_proc_get, (i,))
                     result = lambda f: f.get()
                 else:
@@ -230,31 +290,26 @@ class DataLoader:
                         self.dataset.__getitem__, int(i))
                     result = lambda f: f.result()
 
-                pending = []
                 for idx_batch, n_real in self._index_batches():
                     if stop.is_set():
                         return
-                    futures = [submit(int(i)) for i in idx_batch]
-                    pending.append((futures, n_real))
+                    pending.append(([submit(int(i)) for i in idx_batch],
+                                    n_real))
                     # keep at most `prefetch` batches in flight
                     while len(pending) > self.prefetch:
-                        ready, n_r = pending.pop(0)
-                        if not put_or_stop(
-                            self._finish([result(f) for f in ready], n_r)
-                        ):
+                        if not hand_over_first():
                             return
-                for ready, n_r in pending:
-                    if not put_or_stop(
-                        self._finish([result(f) for f in ready], n_r)
-                    ):
+                while pending:
+                    if not hand_over_first():
                         return
             except Exception as exc:  # surface worker errors to the consumer
                 put_or_stop(exc)
             finally:
                 if pool is not None:
                     if self.worker_mode == "process":
-                        pool.terminate()
-                        pool.join()
+                        _stop_process_pool(
+                            pool, [f for fs, _ in pending for f in fs],
+                            stop_flag, STOP_TIMEOUT_S)
                     else:
                         pool.shutdown(wait=False, cancel_futures=True)
                 put_or_stop(None)
@@ -271,10 +326,16 @@ class DataLoader:
                 yield item
         finally:
             stop.set()  # unblocks any in-flight bounded put
-            while thread.is_alive():
+            # the producer's own stop is bounded by STOP_TIMEOUT_S; wait a
+            # little longer for it, and never forever
+            deadline = time.monotonic() + STOP_TIMEOUT_S + 5.0
+            while thread.is_alive() and time.monotonic() < deadline:
                 try:
                     out_q.get_nowait()
                 except queue.Empty:
                     pass
                 thread.join(timeout=0.05)
-            thread.join(timeout=5.0)
+            if thread.is_alive():
+                log.warning("a loader's producer thread did not stop within "
+                            "%.0f s; left behind (daemon)",
+                            STOP_TIMEOUT_S + 5.0)

@@ -161,14 +161,26 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
    512 px, batch 16, the training augmentation, 4 and then 8 loader
    threads, with the host library and with numpy: each stage's ms a sample
    (decode, augment, normalise, encode, other, collate, pin) and the
-   loader's images a second.
+   loader's images a second; then, in a fresh process, a process loader of
+   ``STOP_WORKERS`` workers on those JPEGs with the augmentation is left
+   after one batch, ``STOP_TIMES`` times, and each time must give control
+   back within ``STOP_LIMIT_S`` (ROADMAP C3);
+12. bench: ``python -m centernet_uda_torch.bench`` in a fresh process, once
+   at bfloat16 with every stage (``BENCH_STEPS=10``) and once at float32
+   without the 800 px and pipeline stages: every stage must give its number
+   (no ``_skip_reason`` but the switched-off stages', the scan cross-check's
+   and, at float32, MFU's), ``mfu_train`` must lie in (0, 1), each train
+   rate within ``BENCH_RATE_TOL`` of the batch over the median train step of
+   phase 4 at its precision, and its ``dcn_launches`` exactly its
+   precision's kernels, 16 a forward for every warm-up, timed and inference
+   call; both lines are printed.
 
 Before each model trains, its heads on the kernel path are held against the
 exact DCN op on the same weights and a small input. Every phase drives the
 entry points a user calls (``build_trainer``, ``Model.step``,
 ``get_detections``) with the launch counters set to 0 just before and read
 just after. The last lines are a ``{"kernels": [...]}`` JSON line (one
-entry per kernel source, launches summed over phases 4-10), the card's
+entry per kernel source, launches summed over phases 4-10 and 12), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero. ``--json PATH`` also writes every measurement
 to PATH; ``--profile`` adds a torch.profiler breakdown by kernel of two
@@ -233,6 +245,19 @@ NATIVE_FUNCTIONS = ("encode_targets", "normalize_image", "coco_greedy_match")
 # JPEG set, input size, batch, loader threads and seconds a loader run
 PIPE_IMAGES, PIPE_SIZE, PIPE_BATCH = 64, 512, 16
 PIPE_WORKERS, PIPE_SECONDS = (4, 8), 8.0
+# phase 11's early stop of a process loader (ROADMAP C3): workers, images,
+# stops, and the seconds a stop may take (the subprocess's own limit beside)
+STOP_WORKERS, STOP_IMAGES, STOP_TIMES, STOP_LIMIT_S = 8, 32, 3, 30.0
+STOP_PROCESS_TIMEOUT_S = 180
+# phase 12, the bench (python -m centernet_uda_torch.bench): its runs' knobs,
+# how far its train rate may lie from phase 4's steps, its time limit a run
+BENCH_RUNS = {
+    "bfloat16": {"BENCH_STEPS": "10"},
+    "float32": {"BENCH_STEPS": "10", "BENCH_DTYPE": "float32",
+                "BENCH_800": "0", "BENCH_PIPELINE": "0"},
+}
+BENCH_RATE_TOL = 0.2
+BENCH_TIMEOUT_S = 400
 # H100 SXM published peaks (dense): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -2425,6 +2450,134 @@ def host_pipeline():
     return out
 
 
+# phase 11's early stop, run in a fresh process: leaves a process loader
+# after one batch and prints each stop's seconds
+LOADER_STOP_SCRIPT = r"""
+import json, sys, tempfile, time
+from pathlib import Path
+root, workers, images, size, batch, times = sys.argv[1:7]
+sys.path.insert(0, root)
+sys.path.insert(0, root + "/tools")
+from bench_pipeline_torch import default_augmentation, write_jpeg_coco
+from centernet_uda_torch.data.coco import Dataset
+from centernet_uda_torch.data.loader import DataLoader
+
+with tempfile.TemporaryDirectory(dir=root + "/build") as tmp:
+    img, anno = write_jpeg_coco(Path(tmp), int(images), int(size))
+    ds = Dataset(str(img), str(anno), input_size=[int(size)] * 2,
+                 augmentation=default_augmentation(), num_classes=6,
+                 max_detections=150, seed=0)
+    seconds = []
+    for _ in range(int(times)):
+        loader = DataLoader(ds, batch_size=int(batch), shuffle=True,
+                            num_workers=int(workers), worker_mode="process",
+                            drop_last=True, prefetch=4)
+        for _ in loader:
+            t0 = time.perf_counter()
+            break
+        seconds.append(time.perf_counter() - t0)
+print(json.dumps({"stop_seconds": seconds}))
+"""
+
+
+def process_loader_stop():
+    """Phase 11's early stop (ROADMAP C3): a process loader of
+    ``STOP_WORKERS`` workers on ``STOP_IMAGES`` JPEGs at ``PIPE_SIZE`` px
+    with the training augmentation, left after one batch ``STOP_TIMES``
+    times in a fresh process; each stop must return within
+    ``STOP_LIMIT_S``. Returns the stops' seconds."""
+    import os
+    import signal
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", LOADER_STOP_SCRIPT, str(ROOT),
+         str(STOP_WORKERS), str(STOP_IMAGES), str(PIPE_SIZE),
+         str(PIPE_BATCH), str(STOP_TIMES)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=STOP_PROCESS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        out, err = "", f"no end within {STOP_PROCESS_TIMEOUT_S} s"
+    finally:
+        try:  # the process and its loader's workers, should any be left
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    if proc.returncode != 0 or not out.strip():
+        raise AssertionError(f"process loader stop: exit {proc.returncode}"
+                             f"\n{err[-2000:]}")
+    seconds = json.loads(out.strip().splitlines()[-1])["stop_seconds"]
+    print(f"process loader, {STOP_WORKERS} workers, left after one batch "
+          f"{STOP_TIMES} times: back in {', '.join(f'{t:.3f}' for t in seconds)}"
+          f" s", flush=True)
+    if len(seconds) != STOP_TIMES or max(seconds) >= STOP_LIMIT_S:
+        raise AssertionError(f"process loader stops took {seconds} s")
+    return seconds
+
+
+def run_bench(precision, knobs, n_dcn, step_ms):
+    """Phase 12, one run of ``python -m centernet_uda_torch.bench`` with
+    ``knobs``: every stage's number, ``mfu_train`` in (0, 1) at bfloat16,
+    the train rate within ``BENCH_RATE_TOL`` of the batch over the median
+    of ``step_ms`` (phase 4's train steps at this precision), and exactly
+    this precision's DCN launches. Returns the bench's JSON object."""
+    import os
+
+    import numpy as np
+
+    env = {**os.environ, **knobs}
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "centernet_uda_torch.bench"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"bench {precision}: exit {out.returncode}\n"
+                             f"{out.stderr[-3000:]}")
+    line = out.stdout.strip().splitlines()[-1]
+    print(f"bench {precision} ({seconds:.1f} s): {line}", flush=True)
+    res = json.loads(line)
+    d = res["detail"]
+    allowed = {"scan_skip_reason"}
+    allowed |= {f"{stage}_skip_reason" for stage, knob in (
+        ("infer_800px", "BENCH_800"), ("pipeline", "BENCH_PIPELINE"))
+        if knobs.get(knob) == "0"}
+    if precision == "float32":
+        allowed.add("mfu_skip_reason")
+    skipped = {k: v for k, v in d.items()
+               if k.endswith("_skip_reason") and k not in allowed}
+    if skipped or res["vs_baseline"] is not None:
+        raise AssertionError(f"bench {precision}: skipped {skipped}")
+    for key in ("decode_mean_ms_pipelined", "dcn_fwd_ms", "dcn_bwd_ms",
+                "train_images_per_sec", "infer_images_per_sec"):
+        if not (isinstance(d[key], (int, float)) and d[key] > 0):
+            raise AssertionError(f"bench {precision}: {key} = {d[key]}")
+    if precision == "bfloat16" and not 0 < d["mfu_train"] < 1:
+        raise AssertionError(f"bench mfu_train {d['mfu_train']}")
+    want_ips = d["batch_size"] * 1e3 / float(np.median(step_ms))
+    ratio = d["train_images_per_sec"] / want_ips
+    print(f"bench {precision} train {d['train_images_per_sec']:.2f} images/s "
+          f"against {want_ips:.2f} from phase 4's median step "
+          f"({ratio:.3f}x)", flush=True)
+    if abs(ratio - 1) > BENCH_RATE_TOL:
+        raise AssertionError(f"bench {precision} train rate {ratio:.3f}x "
+                             "phase 4's")
+    fwd, bwd = (("dcn_fused_fwd", "dcn_fused_bwd") if precision == "bfloat16"
+                else ("dcn_fwd", "dcn_bwd"))
+    warmup = int(knobs.get("BENCH_WARMUP", 3))
+    steps = int(knobs["BENCH_STEPS"])
+    trains, infers = warmup + steps, 1 + steps
+    want = expect(**{fwd: n_dcn * (trains + infers), bwd: n_dcn * trains})
+    if d["dcn_launches"] != want:
+        raise AssertionError(f"bench {precision} launches "
+                             f"{d['dcn_launches']} != {want}")
+    res["seconds"] = seconds
+    return res
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every measurement here")
@@ -2687,6 +2840,13 @@ def main(argv=None) -> int:
     phase(f"host pipeline: the loader bench at {PIPE_SIZE} px, batch "
           f"{PIPE_BATCH}, {PIPE_WORKERS} threads")
     report["host_pipeline"] = host_pipeline()
+    report["loader_stop_seconds"] = process_loader_stop()
+
+    phase("bench: python -m centernet_uda_torch.bench, bfloat16 and float32")
+    report["bench"] = {
+        precision: run_bench(precision, knobs, n_dcn, report[
+            "bf16_train" if precision == "bfloat16" else "train"]["step_ms"])
+        for precision, knobs in BENCH_RUNS.items()}
 
     runs = [report[k]["launches"] for k in (
         "train", "eval", "bf16_train", "bf16_eval", "mnv2_train",
@@ -2702,6 +2862,7 @@ def main(argv=None) -> int:
     runs += [r["launches"] for k, r in p10.items() if k.startswith("cli_")]
     runs += [r[part]["launches"] for k, r in p10.items()
              if k.startswith("bn_sync_") for part in ("train", "eval")]
+    runs += [r["detail"]["dcn_launches"] for r in report["bench"].values()]
 
     def launches(name):
         return sum(run[name] for run in runs)

@@ -155,8 +155,7 @@ def loader_rate(ds, batch: int, workers: int, mode: str,
                         worker_mode="thread" if mode == "sync" else mode,
                         drop_last=True, prefetch=4,
                         pin_memory=torch.cuda.is_available())
-    # a warm-up epoch, drained: a process pool stopped while tasks are
-    # pending can hang in Pool.terminate()
+    # a warm-up epoch: the workers' first samples (imports, caches)
     for _ in loader:
         pass
     n, epochs = 0, 0
