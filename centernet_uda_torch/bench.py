@@ -18,7 +18,8 @@ Knobs (environment, the defaults of ``bench.py``):
 - ``BENCH_BACKEND`` ``dla`` (DLA-34 with the DCNv2 neck), ``resnet``
   (ResNet-18), ``mobilenetv2`` (DCN and skips) or ``efficientnet`` (b0), 6
   classes each (``BACKEND_PARAMS``); ``BENCH_BATCH`` 16, ``BENCH_SIZE`` 512,
-  ``BENCH_STEPS`` 20 timed steps, ``BENCH_WARMUP`` 3;
+  ``BENCH_STEPS`` 20 timed steps, ``BENCH_WARMUP`` 3 (at least 2 on the
+  card), ``BENCH_CHUNK`` 10;
 - ``BENCH_DTYPE``: bfloat16 unless ``float32``, which is float32 with TF32
   off (``precision`` of the configs); ``BENCH_DCN`` ``auto``, ``cuda`` or
   ``xla`` (``pallas`` is read as ``cuda``, as in the configs);
@@ -43,10 +44,19 @@ Stages, in order; a stage that gives no number writes
    knobs as overrides), and ``infer_images_per_sec``, the backend's forward
    plus decode (k = 100) under ``torch.inference_mode()``; one seeded
    synthetic batch (``synthetic_batch``), staged on the device first, steps
-   enqueued back to back and one synchronisation at the end;
-   ``dcn_launches`` counts the DCN kernels' launches of this stage;
+   enqueued back to back and one synchronisation at the end. On the card
+   both are CUDA graphs (``utils/graphs.py``), as ``bench.py`` jits them:
+   the trainer's compiled step, and forward plus decode captured as one
+   graph. ``dcn_launches`` counts the DCN kernels' launches of the warm-up
+   and timed calls. Then, on the card only, the cross-checks
+   ``train_images_per_sec_scan`` and ``infer_images_per_sec_scan``:
+   ``BENCH_CHUNK`` (10) train steps, or forward-plus-decode calls, in one
+   CUDA graph, replayed ``max(steps // chunk, 2)`` times after one eager
+   and one capturing call (``bench.py``'s ``lax.scan`` chunks);
+   ``scan_dcn_launches`` counts their launches. On the CPU
+   ``scan_skip_reason`` says why there are none;
 4. ``infer_800px`` (``dla`` only): the same inference at 800 px, batch
-   ``max(batch // 2, 1)``;
+   ``max(batch // 2, 1)`` (a graph of its own on the card);
 5. ``pipeline``: ``pipeline_images_per_sec`` of
    ``tools/bench_pipeline_torch.py`` (48 images, ``MODE=process``,
    ``min(cores, 8)`` workers) in a fresh process: forking loader workers
@@ -88,6 +98,7 @@ from centernet_uda_torch.ops.dcn import DCN, DCN_IMPLS
 from centernet_uda_torch.ops.decode import decode_detections
 from centernet_uda_torch.train import CONFIG_DIR, build_trainer
 from centernet_uda_torch.utils.flops import forward_flops
+from centernet_uda_torch.utils.graphs import StepGraphs
 
 log = logging.getLogger("bench")
 
@@ -246,16 +257,62 @@ def _dcn_ops(dtype, impl, batch, size, steps, device, sync):
             "dcn_bwd_ms": round(max(both_s / steps * 1e3 - fwd_ms, 0.0), 3)}
 
 
-def _infer_fn(net, x):
-    """Forward plus decode (k = 100) of ``x``, as a serving call runs."""
+def _forward_decode(net, calls: int = 1):
+    """``calls`` forwards plus decode (k = 100) of ``inputs["input"]``, as a
+    serving call runs; returns the last call's detections."""
 
-    def infer():
+    def run(inputs):
         with torch.inference_mode():
-            out = net(x)
-            return decode_detections(out["hm"], out["wh"], out.get("reg"),
-                                     k=100, apply_sigmoid=True)
+            for _ in range(calls):
+                out = net(inputs["input"])
+                dets = decode_detections(out["hm"], out["wh"], out.get("reg"),
+                                         k=100, apply_sigmoid=True)
+            return dets
 
-    return infer
+    return run
+
+
+def _infer_fn(net, x, graphs=None, calls: int = 1):
+    """A call of ``_forward_decode`` on ``x``: a replayed graph of
+    ``graphs`` (a ``StepGraphs``) where given, else eager."""
+    fn = _forward_decode(net, calls)
+    if graphs is None:
+        return lambda: fn({"input": x})
+    name = f"infer{calls}"
+    return lambda: graphs(name, fn, {"input": x})
+
+
+def _scan_rates(trainer, net, data, infer_graphs, steps, sync):
+    """``train_images_per_sec_scan`` and ``infer_images_per_sec_scan``:
+    ``BENCH_CHUNK`` train steps (``trainer.train_step`` on the device batch)
+    or forward-plus-decode calls in one CUDA graph, after one eager and one
+    capturing call, timed over ``max(steps // chunk, 2)`` replays. The
+    trainer leaves eval mode for the train chunk and returns to it."""
+    chunk = int(os.environ.get("BENCH_CHUNK", 10))
+    n_chunks = max(steps // chunk, 2)
+    batch = data["input"].shape[0]
+
+    def train_chunk(inputs):
+        for _ in range(chunk):
+            stats = trainer.train_step(inputs)
+        return stats["total_loss"]
+
+    def train():
+        return trainer.step_graphs("train_scan", train_chunk, data)
+
+    for _ in range(2):
+        train()
+    train_s = _timed(train, n_chunks, sync)
+    net.eval()
+    infer = _infer_fn(net, data["input"], infer_graphs, calls=chunk)
+    for _ in range(2):
+        infer()
+    infer_s = _timed(infer, n_chunks, sync)
+    return {"train_images_per_sec_scan": round(
+                batch * chunk * n_chunks / train_s, 2),
+            "infer_images_per_sec_scan": round(
+                batch * chunk * n_chunks / infer_s, 2),
+            "scan_chunk": chunk, "scan_chunks": n_chunks}
 
 
 def main(argv=None, device: str = "cuda") -> int:
@@ -278,6 +335,9 @@ def main(argv=None, device: str = "cuda") -> int:
     input_size = int(env.get("BENCH_SIZE", 512))
     steps = int(env.get("BENCH_STEPS", 20))
     warmup = int(env.get("BENCH_WARMUP", 3))
+    if cuda:
+        # the first call of a graphed step runs eagerly, the second captures
+        warmup = max(warmup, 2)
     gate_decode = float(env.get("BENCH_GATE_DECODE_S", "150"))
     gate_dcn = float(env.get("BENCH_GATE_DCN_S", "240"))
     gate_800 = float(env.get("BENCH_GATE_800_S", "480"))
@@ -336,6 +396,7 @@ def main(argv=None, device: str = "cuda") -> int:
                   config_dir=str(CONFIG_DIR))
     trainer = build_trainer(cfg, device=device)
     trainer.init_done()
+    infer_graphs = StepGraphs(device) if cuda else None
     # staged on the device first: the device's step rate, not the copies
     data = {k: torch.as_tensor(v).to(device)
             for k, v in synthetic_batch(batch_size, input_size).items()}
@@ -350,10 +411,20 @@ def main(argv=None, device: str = "cuda") -> int:
     train_ips = batch_size * steps / train_s
 
     net = trainer.backend.module.eval()
-    infer = _infer_fn(net, data["input"])
-    infer()
+    infer = _infer_fn(net, data["input"], infer_graphs)
+    for _ in range(warmup):
+        infer()
     infer_ips = batch_size * steps / _timed(infer, steps, sync)
     launches = dict(dcn_cuda.LAUNCHES)
+    scan = {"scan_skip_reason": (
+        "no card: the *_scan rates are CUDA graphs of BENCH_CHUNK steps")}
+    if cuda and not trainer.compiled("train"):
+        scan = {"scan_skip_reason": "the train step runs eagerly on this "
+                                    "backend (uda/base.py)"}
+    elif cuda:
+        dcn_cuda.reset_launches()
+        scan = _scan_rates(trainer, net, data, infer_graphs, steps, sync)
+        scan["scan_dcn_launches"] = dict(dcn_cuda.LAUNCHES)
     stages.seconds["core"] = round(time.perf_counter() - t_core, 1)
 
     # --- 4: 800 px eval-resolution inference ------------------------------
@@ -362,8 +433,9 @@ def main(argv=None, device: str = "cuda") -> int:
         x800 = torch.from_numpy(
             np.random.RandomState(0).randn(b800, EVAL_SIZE, EVAL_SIZE, 3)
             .astype(np.float32).transpose(0, 3, 1, 2).copy()).to(device)
-        infer800 = _infer_fn(net, x800)
-        infer800()
+        infer800 = _infer_fn(net, x800, infer_graphs)
+        for _ in range(2 if cuda else 1):
+            infer800()
         return {"infer_800px_images_per_sec": round(
             b800 * steps / _timed(infer800, steps, sync), 2)}
 
@@ -398,8 +470,7 @@ def main(argv=None, device: str = "cuda") -> int:
         "train_images_per_sec": round(train_ips, 2),
         "infer_images_per_sec": round(infer_ips, 2),
         "train_ms_per_step": round(train_s / steps * 1e3, 3),
-        "scan_skip_reason": ("the *_scan cross-checks (steps in one jitted "
-                             "lax.scan) have no eager counterpart"),
+        **scan,
         "mfu_train": mfu_train,
         "mfu_infer": mfu_infer,
         "model_gflops_per_image": round(flops / 1e9, 4),

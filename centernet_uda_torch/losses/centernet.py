@@ -12,7 +12,7 @@ rank's loss is its share of the global batch's.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -108,12 +108,13 @@ def periodic_reg_l1_loss(output: torch.Tensor, mask: torch.Tensor,
 
 def kps_l1_loss(output: torch.Tensor, mask: torch.Tensor, ind: torch.Tensor,
                 target: torch.Tensor, weight: float = 1.0,
-                kp_indices: Optional[Sequence[Sequence[int]]] = None,
+                kp_indices=None,
                 distance_weight: float = 0.1, use_l1_distance: bool = False,
                 legacy_sqrt_bias: bool = True,
                 pred: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Keypoint offset L1 at the centers, plus with ``kp_indices`` the L1
-    between predicted and target distances of the listed keypoint pairs.
+    between predicted and target distances of the listed keypoint pairs
+    (a sequence of pairs, or their (P, 2) index tensor).
     ``mask`` is the per-coordinate ``kp_reg_mask`` (B, K, 2P). The L2
     distance adds ``1e4`` inside the square root as the reference does
     (``legacy_sqrt_bias``; ``1e-4`` otherwise)."""
@@ -163,10 +164,22 @@ class DetectionLoss:
     kp_distance_weight: float = 0.1
     kp_distance_weight_l1: bool = False
     legacy_sqrt_bias: bool = True
+    # kp_indices on each device, made once: a copy from the host inside a
+    # captured step (utils/graphs.py) is not allowed
+    _kp_index: Dict[torch.device, torch.Tensor] = field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def with_keypoints(self) -> bool:
         return self.kp_weight is not None or self.kp_indices is not None
+
+    def _kp_indices(self, device: torch.device) -> Optional[torch.Tensor]:
+        if self.kp_indices is None:
+            return None
+        if device not in self._kp_index:
+            self._kp_index[device] = torch.as_tensor(
+                self.kp_indices, dtype=torch.long, device=device)
+        return self._kp_index[device]
 
     def __call__(self, outputs: Dict[str, torch.Tensor],
                  batch: Dict[str, torch.Tensor]
@@ -194,7 +207,7 @@ class DetectionLoss:
                 outputs["kps"], batch["kp_reg_mask"], batch["ind"],
                 batch["kps"],
                 weight=1.0 if self.kp_weight is None else self.kp_weight,
-                kp_indices=self.kp_indices,
+                kp_indices=self._kp_indices(gathered.device),
                 distance_weight=self.kp_distance_weight,
                 use_l1_distance=self.kp_distance_weight_l1,
                 legacy_sqrt_bias=self.legacy_sqrt_bias,

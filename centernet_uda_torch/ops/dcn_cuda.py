@@ -59,7 +59,16 @@ Nothing is compiled or loaded at import.
 ``LAUNCHES`` counts, per kernel source, the launches made by the wrappers
 (for a forward, inside the op's CUDA implementation, so an exported
 artifact's calls count too); a run resets it with ``reset_launches()`` and
-reads it to show which path ran.
+reads it to show which path ran. A CUDA graph's replay runs no wrapper:
+``utils/graphs.py`` adds the launches a graph captured on every replay.
+
+Every launch may be captured into a CUDA graph (the compiled steps,
+``utils/graphs.py``): a wrapper allocates with ``torch.empty``/``torch.zeros``
+and launches on ``torch.cuda.current_stream()``, and the launchers' host
+calls (``cudaFuncGetAttributes``, ``cudaDeviceGetAttribute``,
+``cudaFuncSetAttribute``, ``cudaGetLastError``) are legal under capture in
+the global mode (``tests/test_torch_gpu.py`` captures each route so). A
+library is loaded at a kernel's first, eager call.
 """
 
 from __future__ import annotations

@@ -76,12 +76,13 @@ STATS_FLUSH = 8
 RANK_JOIN_TIMEOUT_S = 600
 
 
-def build_trainer(cfg, device="cuda") -> Model:
+def build_trainer(cfg, device="cuda", graphs: bool = True) -> Model:
     """Assemble backend + loss + optimizer + trainer; call ``init_done()``
     on the result before the first step. Under a process group (``main``)
     the trainer is this rank's, with ``bn_sync`` over the ranks; without
     one, a config asking for data parallelism warns and builds for one
-    device."""
+    device. On the card the steps are CUDA graphs (``uda/base.py``);
+    ``graphs=False`` gives the eager steps."""
     device = resolve_device(device)
     precision = str(cfg.get("precision", "float32"))
     if precision not in PRECISIONS:
@@ -118,10 +119,10 @@ def build_trainer(cfg, device="cuda") -> Model:
         uda_params = uda_cfg[method]
         if hasattr(uda_params, "to_dict"):
             uda_params = uda_params.to_dict()
-        trainer = uda_registry.build(method, device=device,
+        trainer = uda_registry.build(method, device=device, graphs=graphs,
                                      **(uda_params or {}))
     else:
-        trainer = Model(device=device)
+        trainer = Model(device=device, graphs=graphs)
     loss_cfg = cfg.model.backend.loss
     loss_params = loss_cfg.get("params")
     trainer.centernet_loss = loss_registry.build(

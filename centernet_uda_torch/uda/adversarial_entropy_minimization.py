@@ -7,7 +7,8 @@ softmax; the backend is trained to fool it on target images while it
 learns source (0) against target (1).
 
 One train step computes both updates from the same pre-update state, as
-the JAX package's single jitted step does:
+the JAX package's single jitted step does (on the card, one captured graph:
+both backwards and both optimizer steps; ``uda/base.py``):
 
 - the backend's gradient of ``centernet(source) + adversarial_weight *
   BCE(D(entropy(target_hm)), 0)``, taken with respect to the backend's
@@ -78,8 +79,9 @@ class AdversarialEntropyMinimization(Model):
     TARGET_LABEL = 1.0
 
     def __init__(self, adversarial_weight: float,
-                 optimizer: Optional[Dict[str, Any]] = None, device="cuda"):
-        super().__init__(device)
+                 optimizer: Optional[Dict[str, Any]] = None, device="cuda",
+                 graphs: bool = True):
+        super().__init__(device, graphs)
         self.adversarial_loss = AdventLoss()
         self.adversarial_weight = float(adversarial_weight)
         self.disc_optimizer_cfg = optimizer
@@ -163,10 +165,10 @@ class AdversarialEntropyMinimization(Model):
     # ------------------------------------------------------------------
     def epoch_end(self):
         super().epoch_end()
-        if self.disc_scheduler is not None:
-            optim_util.set_learning_rate(
+        if self.disc_scheduler is not None and optim_util.set_learning_rate(
                 self.disc_optimizer,
-                self.disc_scheduler.lr(self.epoch, self.disc_base_lr))
+                self.disc_scheduler.lr(self.epoch, self.disc_base_lr)):
+            self.invalidate_graphs()
 
     def save_model(self, path, epoch: int, with_optimizer: bool = False):
         super().save_model(path, epoch, with_optimizer)

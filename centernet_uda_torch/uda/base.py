@@ -32,6 +32,19 @@ Data parallelism (``parallel/ddp.py``): each rank's loss is its share of
 the global batch's, the step sums the gradients over the ranks before the
 optimizer steps, and ``step`` returns the stats reduced over the ranks (the
 global batch's losses, the largest max |dy|).
+
+Compiled steps (``utils/graphs.py``), the counterpart of the JAX package's
+jitted step functions: on the card, ``train_step``, ``eval_step`` and
+``decode`` run as CUDA graphs, captured on the second call of an input
+signature (the first runs eagerly) and replayed from then on; what they
+return are copies, valid however long the caller keeps them. The graphs are
+dropped where the JAX package rebuilds its step functions or a captured
+constant changes: ``maybe_degrade_dcn``, a learning-rate change in
+``epoch_end``, ``load_model``. ``graphs=False`` gives the eager step, and the
+CPU always runs eagerly. Two steps stay eager on the card, each with one
+log line: the train step under a process group (its all-reduces are not
+captured) and the train step of a backend with a stochastic-depth
+generator (EfficientNet; the generator is reseeded on the host per step).
 """
 
 from __future__ import annotations
@@ -48,6 +61,7 @@ from centernet_uda_torch.ops.decode import decode_detections
 from centernet_uda_torch.parallel import ddp
 from centernet_uda_torch.utils import checkpoint as ckpt
 from centernet_uda_torch.utils import optim as optim_util
+from centernet_uda_torch.utils.graphs import StepGraphs
 
 log = logging.getLogger(__name__)
 
@@ -66,13 +80,17 @@ class Model:
     optimizer_cfg: Optional[Dict[str, Any]] = None
     scheduler = None
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", graphs: bool = True):
         self.device = resolve_device(device)
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.base_lr: float = 0.0
         self.epoch: int = 0
         self.global_step: int = 0
         self.drop_generator: Optional[torch.Generator] = None
+        self.step_graphs: Optional[StepGraphs] = (
+            StepGraphs(self.device) if graphs and self.device.type == "cuda"
+            else None)
+        self._eager_logged = False
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -108,11 +126,19 @@ class Model:
                 dict(self.optimizer_cfg.get("params", {}) or {}))
 
     def epoch_end(self):
-        """Per-epoch LR schedule step."""
+        """Per-epoch LR schedule step; a new learning rate drops the
+        graphs, which hold the old one."""
         self.epoch += 1
         if self.scheduler is not None and self.optimizer is not None:
-            optim_util.set_learning_rate(
-                self.optimizer, self.scheduler.lr(self.epoch, self.base_lr))
+            if optim_util.set_learning_rate(
+                    self.optimizer, self.scheduler.lr(self.epoch,
+                                                      self.base_lr)):
+                self.invalidate_graphs()
+
+    def invalidate_graphs(self) -> None:
+        """Drop the captured steps; the next call of each recaptures."""
+        if self.step_graphs is not None:
+            self.step_graphs.invalidate()
 
     def _dcn_modules(self):
         return [m for m in self.backend.module.modules()
@@ -128,6 +154,7 @@ class Model:
             return False
         for m in mods:
             m.impl = "xla"
+        self.invalidate_graphs()
         log.error(
             "DCN vertical offsets reached %.1f px, AT the kernel clamp "
             "(max_shift=%d): sampling was truncating. Switched this run to "
@@ -190,11 +217,38 @@ class Model:
         self._fold_clamp_stats(outputs, stats)
         return outputs, stats
 
-    def _device_batch(self, data) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
-                for k, v in data.items()
+    @staticmethod
+    def _batch_tensors(data) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v) for k, v in data.items()
                 if isinstance(v, (np.ndarray, torch.Tensor))
                 and k not in _HOST_KEYS}
+
+    def _device_batch(self, data) -> Dict[str, torch.Tensor]:
+        return {k: v.to(self.device, non_blocking=True)
+                for k, v in self._batch_tensors(data).items()}
+
+    def compiled(self, name: str) -> bool:
+        """Whether ``name`` (train, eval, decode) runs as a graph."""
+        if self.step_graphs is None:
+            return False
+        why = None
+        if name == "train" and ddp.is_distributed():
+            why = "its gradient and stats all-reduces are not captured"
+        elif name == "train" and self.drop_generator is not None:
+            why = ("the stochastic-depth generator is reseeded on the host "
+                   "before every step")
+        if why and not self._eager_logged:
+            self._eager_logged = True
+            log.info("the train step runs eagerly: %s", why)
+        return why is None
+
+    def _run(self, name: str, fn, data):
+        """``fn`` on the batch's tensors: replayed from its graph where
+        ``name`` is compiled (the tensors copied into the graph's static
+        inputs), else eagerly on the tensors moved to the device."""
+        if self.compiled(name):
+            return self.step_graphs(name, fn, self._batch_tensors(data))
+        return fn(self._device_batch(data))
 
     #: UDA trainers forward the target domain in every phase
     #: (centernet_uda_tpu/uda/base.py:325-337)
@@ -207,13 +261,12 @@ class Model:
                 "phase; set datasets.<phase>.params.target_domain_glob to a "
                 "glob that matches images (the reference configures it for "
                 "training, validation and test alike)")
-        batch = self._device_batch(data)
         if is_training:
             self._seed_drop_generator()
-            stats = self.train_step(batch)
+            stats = self._run("train", self.train_step, data)
             self.global_step += 1
             return {"stats": ddp.reduce_stats(stats)}
-        outputs, stats = self.eval_step(batch)
+        outputs, stats = self._run("eval", self.eval_step, data)
         outputs = dict(outputs)
         outputs["stats"] = ddp.reduce_stats(stats)
         return outputs
@@ -221,10 +274,15 @@ class Model:
     def decode(self, outputs: Dict[str, torch.Tensor]):
         """Detections of one domain's heads; ``(detections, keypoints)``
         where the heads have ``kps``."""
+        heads = {k: outputs[k] for k in ("hm", "wh", "reg", "kps")
+                 if outputs.get(k) is not None}
+        return self._run("decode", self._decode, heads)
+
+    def _decode(self, heads: Dict[str, torch.Tensor]):
         k = int(self.cfg.get("max_detections", 150)) if self.cfg else 100
-        return decode_detections(outputs["hm"], outputs["wh"],
-                                 outputs.get("reg"), kps=outputs.get("kps"),
-                                 k=k, rotated=self.backend.rotated_boxes,
+        return decode_detections(heads["hm"], heads["wh"], heads.get("reg"),
+                                 kps=heads.get("kps"), k=k,
+                                 rotated=self.backend.rotated_boxes,
                                  apply_sigmoid=True)
 
     @torch.no_grad()
@@ -283,10 +341,12 @@ class Model:
     # ------------------------------------------------------------------
     def load_model(self, path, resume: bool = False) -> int:
         """Restore weights (and, with ``resume``, the optimizer and the
-        epoch); returns the first epoch to run."""
+        epoch); returns the first epoch to run. Drops the graphs: a resume
+        replaces the optimizer's state tensors."""
         epoch = ckpt.load_checkpoint(path, self.backend.module,
                                      self.optimizer, resume=resume,
                                      backend_name=self.backend.name)
+        self.invalidate_graphs()
         self.epoch = epoch
         return epoch + 1
 

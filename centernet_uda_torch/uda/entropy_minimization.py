@@ -15,8 +15,9 @@ from centernet_uda_torch.uda.base import Model
 class EntropyMinimization(Model):
     requires_target_domain = True
 
-    def __init__(self, entropy_weight: float, device="cuda"):
-        super().__init__(device)
+    def __init__(self, entropy_weight: float, device="cuda",
+                 graphs: bool = True):
+        super().__init__(device, graphs)
         self.entropy_loss = EntropyLoss()
         self.entropy_weight = float(entropy_weight)
 

@@ -18,8 +18,9 @@ class FDA(Model):
     requires_target_domain = True
 
     def __init__(self, entropy_weight: float, beta: float, eta: float = 1.5,
-                 use_circular: bool = False, device="cuda"):
-        super().__init__(device)
+                 use_circular: bool = False, device="cuda",
+                 graphs: bool = True):
+        super().__init__(device, graphs)
         self.entropy_loss = EntropyLoss(eta=eta)
         self.entropy_weight = float(entropy_weight)
         self.beta = float(beta)

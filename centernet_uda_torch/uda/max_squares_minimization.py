@@ -15,8 +15,9 @@ from centernet_uda_torch.uda.base import Model
 class MaxSquaresMinimization(Model):
     requires_target_domain = True
 
-    def __init__(self, max_squares_weight: float, device="cuda"):
-        super().__init__(device)
+    def __init__(self, max_squares_weight: float, device="cuda",
+                 graphs: bool = True):
+        super().__init__(device, graphs)
         self.max_squares_loss = MaxSquareLoss()
         self.max_squares_weight = float(max_squares_weight)
 

@@ -19,6 +19,15 @@ fix the arithmetic each name means here:
 Schedulers step per epoch: ``<Scheduler>.lr(epoch, base_lr)`` is a
 host-side function and ``set_learning_rate`` writes the result into the
 param groups. Unknown names raise ``KeyError``.
+
+On the card, Adam and AdamW are built with ``capturable=True``: their step
+count and bias correction live on the device, so a captured train step
+(``utils/graphs.py``) advances them on every replay (with the default, the
+count is a host number and a graph would replay the capture step's bias
+correction forever). SGD and ``RMSprop`` keep no host state per step. The
+learning rate stays a float, which a captured step holds as a constant:
+``set_learning_rate`` says whether it changed, and the trainer then drops
+its graphs. On the CPU every optimizer is built as before.
 """
 
 from __future__ import annotations
@@ -64,16 +73,22 @@ class RMSprop(torch.optim.Optimizer):
         return None
 
 
+def _on_card(parameters) -> bool:
+    return any(p.is_cuda for p in parameters)
+
+
 def _adam(parameters, lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0,
           **_):
     return torch.optim.Adam(parameters, lr=lr, betas=tuple(betas), eps=eps,
-                            weight_decay=weight_decay)
+                            weight_decay=weight_decay,
+                            capturable=_on_card(parameters))
 
 
 def _adamw(parameters, lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01,
            **_):
     return torch.optim.AdamW(parameters, lr=lr, betas=tuple(betas), eps=eps,
-                             weight_decay=weight_decay)
+                             weight_decay=weight_decay,
+                             capturable=_on_card(parameters))
 
 
 def _sgd(parameters, lr, momentum=0.0, weight_decay=0.0, nesterov=False,
@@ -111,12 +126,16 @@ def make_optimizer(name: str, params: Optional[Dict[str, Any]],
                                     "momentum") else v)
               for k, v in dict(params or {}).items()}
     lr = kwargs.pop("lr", 1e-3)
-    return _OPTIMIZERS[name](parameters, lr, **kwargs)
+    return _OPTIMIZERS[name](list(parameters), lr, **kwargs)
 
 
-def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> bool:
+    """Write ``lr`` into every param group; True where one changed."""
+    changed = False
     for group in optimizer.param_groups:
+        changed |= group["lr"] != lr
         group["lr"] = lr
+    return changed
 
 
 class MultiStepLR:

@@ -71,7 +71,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
    and 5 keypoints, ``coco_merger`` over two source folders of 16 images
    each, with rotated boxes and keypoints in their annotations and the
    experiment's augmentation, batch 8 at 512 px, validation at 800 px with
-   the rotated evaluator) for 1 epoch at float32. Each train step must
+   the rotated evaluator) for 1 epoch at float32. Each eval phase writes
+   its detection images to TensorBoard, all 16 in the two float32 runs
+   with and without the library (timed side by side), ``CLI_VISUALIZATIONS``
+   in the others. Each train step must
    launch the 16 layers' forward and backward kernels of its precision
    (twice for ADVENT: source and target; none for EfficientNet), each eval
    step the forwards; losses and the COCO means finite; the checkpoints
@@ -168,19 +171,37 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
 12. bench: ``python -m centernet_uda_torch.bench`` in a fresh process, once
    at bfloat16 with every stage (``BENCH_STEPS=10``) and once at float32
    without the 800 px and pipeline stages: every stage must give its number
-   (no ``_skip_reason`` but the switched-off stages', the scan cross-check's
-   and, at float32, MFU's), ``mfu_train`` must lie in (0, 1), each train
-   rate within ``BENCH_RATE_TOL`` of the batch over the median train step of
-   phase 4 at its precision, and its ``dcn_launches`` exactly its
-   precision's kernels, 16 a forward for every warm-up, timed and inference
-   call; both lines are printed.
+   (no ``_skip_reason`` but the switched-off stages' and, at float32,
+   MFU's), the scan cross-checks included (``*_scan``: 10 steps or calls in
+   one CUDA graph), ``mfu_train`` must lie in (0, 1), each train rate within
+   ``BENCH_RATE_TOL`` of the batch over the median replayed train step
+   (the third and fourth) of phase 4 at its precision, and its
+   ``dcn_launches`` and ``scan_dcn_launches``
+   exactly its precision's kernels, 16 a forward for every warm-up, timed
+   and inference call; both lines are printed;
+13. compiled steps (``utils/graphs.py``): DLA-34 at float32 and bfloat16
+   (batch 16) and the four UDA trainers at bfloat16 (batch 8) at 512 px,
+   each trained by two eager trainers (``graphs=False``) and one graphed
+   trainer from one seed on one batch (``GRAPH_RUNS``): 4 steps, a
+   MultiStepLR milestone (``epoch_end``), 2 steps; the graphed losses and
+   parameters within ``GRAPH_SPREAD`` times the eager runs' spread, each
+   step's launches exact, the milestone dropping the graphs and the step
+   captured after it moving the parameters at the new rate; the median
+   step ms, busy share (torch.profiler over 2 steps, whose kernel names
+   hold the DCN kernels inside graph replays too) and peak memory eager
+   and graphed; for DLA-34 at float32 the batch-1 512 px serving call
+   (forward plus decode) eager and graphed, then the degrade: after
+   ``maybe_degrade_dcn(PALLAS_MAX_SHIFT)`` two steps capture anew on the
+   exact op and launch no kernel.
 
 Before each model trains, its heads on the kernel path are held against the
 exact DCN op on the same weights and a small input. Every phase drives the
 entry points a user calls (``build_trainer``, ``Model.step``,
 ``get_detections``) with the launch counters set to 0 just before and read
-just after. The last lines are a ``{"kernels": [...]}`` JSON line (one
-entry per kernel source, launches summed over phases 4-10 and 12), the card's
+just after. Their steps are the default ones, CUDA graphs on the card: a
+signature's first call runs eagerly, the second captures, later ones
+replay, and the launch counts per step are exact either way. The last lines are a ``{"kernels": [...]}`` JSON line (one
+entry per kernel source, launches summed over phases 4-10, 12 and 13), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero. ``--json PATH`` also writes every measurement
 to PATH; ``--profile`` adds a torch.profiler breakdown by kernel of two
@@ -239,6 +260,10 @@ COCO_MERGED_LOSS = [
 CARD_VS_CPU = 1e-3
 # phase 7's coco_merged run: two source folders of this many images
 MERGED_IMAGES = 16
+# TensorBoard detection images an eval phase of a CLI run writes (about 0.35
+# s an image on the card host), but for the two f32 runs whose eval phases
+# are timed side by side, which keep the config's 50
+CLI_VISUALIZATIONS = 2
 # the host library's functions a CLI run on axis-aligned boxes calls
 NATIVE_FUNCTIONS = ("encode_targets", "normalize_image", "coco_greedy_match")
 # phase 11, the host-pipeline bench (tools/bench_pipeline_torch.py): its
@@ -258,6 +283,24 @@ BENCH_RUNS = {
 }
 BENCH_RATE_TOL = 0.2
 BENCH_TIMEOUT_S = 400
+# phase 13, the compiled steps: (experiment, precision, batch) at TRAIN_SIZE,
+# each trained by two eager trainers and one graphed trainer from one seed,
+# GRAPH_STEPS steps, then a MultiStepLR milestone (epoch_end) and
+# GRAPH_LR_STEPS more, each step from one state (``parity_run``); a graphed
+# run's stats and parameters must lie within GRAPH_SPREAD times the two
+# eager runs' spread, plus GRAPH_FLOOR of their scale (for a spread of 0:
+# the stats of a deterministic forward; the DCN backwards add with float
+# atomics, so the parameters always part); the step after the milestone
+# may move no parameter by more than GRAPH_LR_RATIO of the largest move of
+# the last step before it (the milestone's gamma is 0.1); GRAPH_TIMED more
+# steps give the median step ms, two more the profile; the batch-1 512 px
+# serving call (forward plus decode) is timed over SERVE_CALLS calls each way
+GRAPH_RUNS = (("baseline", "float32", TRAIN_BATCH),
+              ("baseline", "bfloat16", TRAIN_BATCH),
+              *((name, "bfloat16", UDA_BATCH) for name in UDA_EXPERIMENTS))
+GRAPH_STEPS, GRAPH_LR_STEPS, GRAPH_TIMED = 3, 2, 3
+GRAPH_SPREAD, GRAPH_FLOOR, GRAPH_LR_RATIO = 4.0, 1e-6, 0.5
+SERVE_CALLS = 20
 # H100 SXM published peaks (dense): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -280,8 +323,11 @@ def nvidia_smi() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _START:.1f} s)", flush=True)
 
 
 def library_versions() -> str:
@@ -949,7 +995,9 @@ def train_and_eval(trainer, cfg, data, eval_data, per_step, per_eval,
 
 def profile_train_steps(trainer, data, steps=2, top=12):
     """Device time of ``steps`` train steps by kernel (torch.profiler), the
-    DCN kernels' share and the device's busy share of the wall time."""
+    DCN kernels' share and the device's busy share of the wall time. The
+    kernels of a replayed CUDA graph keep their names in the trace
+    (phase 13 checks that its graphed profiles hold the DCN kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -975,8 +1023,270 @@ def profile_train_steps(trainer, data, steps=2, top=12):
     for name, ms in rows:
         print(f"  {ms / steps:9.3f} ms/step  {name[:110]}")
     return {"steps": steps, "wall_ms": wall_ms, "device_ms": device_ms,
-            "dcn_kernels_ms": dcn_ms,
+            "busy": device_ms / wall_ms, "dcn_kernels_ms": dcn_ms,
             "top_kernels_ms_per_step": {k: v / steps for k, v in rows}}
+
+
+def train_state(trainer):
+    """The tensors a train step updates in place: the backend's (and ADVENT's
+    discriminator's) parameters and buffers, and the optimizers' state."""
+    import torch
+
+    out = []
+    for m in (trainer.backend.module, getattr(trainer, "discriminator", None)):
+        if m is not None:
+            out += list(m.parameters()) + list(m.buffers())
+    for opt in (trainer.optimizer, getattr(trainer, "disc_optimizer", None)):
+        for st in (opt.state.values() if opt is not None else ()):
+            out += [v for v in st.values() if isinstance(v, torch.Tensor)]
+    return out
+
+
+def backend_params(trainer):
+    import torch
+
+    return torch.cat([p.detach().flatten().float()
+                      for p in trainer.backend.module.parameters()])
+
+
+def spread_check(label, what, eager, eager2, graphed, norm):
+    """Per step, ``graphed`` against ``eager`` beside ``eager2`` against
+    ``eager`` (lists of tensors, one a step), by ``norm`` (``max``: the
+    largest element difference; ``l2``: the norm of the difference); the
+    largest graphed difference within GRAPH_SPREAD times the largest eager
+    one plus GRAPH_FLOOR of the scale."""
+    import torch
+
+    def size(t):
+        t = t.double()
+        return float(t.abs().max() if norm == "max" else t.norm())
+
+    diff = max(size(g - e) for e, g in zip(eager, graphed))
+    spread = max(size(e2 - e) for e, e2 in zip(eager, eager2))
+    scale = max(size(e) for e in eager)
+    bound = GRAPH_SPREAD * spread + GRAPH_FLOOR * scale
+    print(f"{label} {what} ({norm}): graphed vs eager {diff:.4g}, eager vs "
+          f"eager {spread:.4g}, bound {bound:.4g}", flush=True)
+    if not (all(bool(torch.isfinite(g).all()) for g in graphed)
+            and diff <= bound):
+        raise AssertionError(f"{label} {what}: graphed off eager by {diff} "
+                             f"> {bound}")
+    return {"graphed_vs_eager": diff, "eager_vs_eager": spread}
+
+
+def timed_steps(trainer, data, steps, per_step):
+    """``steps`` train steps, each ended by a synchronisation and launching
+    exactly ``per_step``; returns (their ms, their stats)."""
+    import torch
+
+    from centernet_uda_torch.ops import dcn_cuda
+
+    ms, stats = [], []
+    for _ in range(steps):
+        dcn_cuda.reset_launches()
+        t0 = time.perf_counter()
+        out = trainer.step(data, is_training=True)["stats"]
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if dict(dcn_cuda.LAUNCHES) != per_step:
+            raise AssertionError(f"launches {dict(dcn_cuda.LAUNCHES)} != "
+                                 f"{per_step}")
+        stats.append(torch.stack([out[k].float() for k in sorted(out)]))
+    return ms, stats
+
+
+def serve_ms(net, graphs):
+    """Median ms of SERVE_CALLS batch-1 TRAIN_SIZE forward-plus-decode
+    calls (``bench._infer_fn``), each ended by a synchronisation; graphed
+    where ``graphs`` is a StepGraphs (after its eager and capturing call),
+    else eager. Returns (ms, the call's detections)."""
+    import numpy as np
+    import torch
+
+    from centernet_uda_torch.bench import _infer_fn
+
+    x = torch.from_numpy(np.random.RandomState(5).randn(
+        1, 3, TRAIN_SIZE, TRAIN_SIZE).astype(np.float32)).cuda()
+    infer = _infer_fn(net.eval(), x, graphs)
+    for _ in range(2):
+        dets = infer()
+    times = []
+    for _ in range(SERVE_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets = infer()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), dets
+
+
+def parity_run(trainer, data, per_step, snapshots, record):
+    """GRAPH_STEPS train steps, ``epoch_end`` (the milestone), GRAPH_LR_STEPS
+    more. Before each step the trainer's state is the first eager run's
+    before that step: ``snapshots`` collects it on that run and is loaded
+    (in place: a graph's state tensors keep their addresses) on the others,
+    so that each step is compared from one state (Adam moves an element
+    whose gradient is below the atomics' noise by +-lr either way, and
+    those steps would part the trajectories whatever runs them). Records
+    each step's stats and backend parameters, and the largest parameter
+    move of the step before the milestone and of the last step."""
+    import torch
+
+    n = GRAPH_STEPS + GRAPH_LR_STEPS
+    for i in range(n):
+        if i == GRAPH_STEPS:
+            trainer.epoch_end()
+            if trainer.step_graphs is not None and len(trainer.step_graphs):
+                raise AssertionError("the milestone left the graphs")
+        state = train_state(trainer)
+        if len(snapshots) <= i:
+            snapshots.append([t.detach().clone() for t in state])
+        else:
+            with torch.no_grad():
+                for t, v in zip(state, snapshots[i]):
+                    t.copy_(v)
+        before = backend_params(trainer)
+        ms, stats = timed_steps(trainer, data, 1, per_step)
+        record["step_ms"] += ms
+        record["stats"] += stats
+        record["params"].append(backend_params(trainer))
+        move = float((record["params"][-1] - before).abs().max())
+        if i in (GRAPH_STEPS - 1, n - 1):
+            record["moves"].append(move)
+
+
+def compiled_steps(n_dcn, seed):
+    """Phase 13: for each of GRAPH_RUNS, the graphed step against the eager
+    one (see GRAPH_RUNS and ``parity_run``): stats and parameters within the
+    spread rule, exact launches per step, the milestone honoured (the
+    graphs dropped, the step captured after it at the new rate), then the
+    median ms of GRAPH_TIMED more steps, the busy share (torch.profiler
+    over 2 steps) and the peak memory above the trainer's resident state,
+    eager and graphed. On DLA-34 at float32 also the batch-1 serving call
+    each way, then the degrade: after ``maybe_degrade_dcn(PALLAS_MAX_SHIFT)``
+    the next steps capture anew on the exact op and launch no kernel."""
+    import numpy as np
+    import torch
+
+    from centernet_uda_torch.config import compose
+    from centernet_uda_torch.ops.dcn import PALLAS_MAX_SHIFT
+    from centernet_uda_torch.train import build_trainer
+    from centernet_uda_torch.utils.graphs import StepGraphs
+
+    out = {}
+    for name, precision, batch in GRAPH_RUNS:
+        label = f"{name} {precision} B={batch}"
+        print(f"-- {label}", flush=True)
+        cfg = compose([f"experiment={name}", f"seed={seed}",
+                       f"precision={precision}", f"batch_size={batch}",
+                       "optimizer.scheduler.name=MultiStepLR",
+                       "optimizer.scheduler.params.milestones=[1]",
+                       "optimizer.scheduler.params.gamma=0.1"],
+                      config_dir=str(ROOT / "configs"))
+        rng = np.random.RandomState(seed + 13)
+        data = synthetic_batch(rng, batch, TRAIN_SIZE,
+                               int(cfg.model.backend.params.num_classes),
+                               int(cfg.max_detections))
+        n = n_dcn if name == "baseline" else 2 * n_dcn
+        if name != "baseline":
+            data = with_target_domain(data, rng)
+        fwd, bwd = (("dcn_fwd", "dcn_bwd") if precision == "float32" else
+                    ("dcn_fused_fwd", "dcn_fused_bwd"))
+        per_step = expect(**{fwd: n, bwd: n})
+        snapshots, runs, kept = [], {}, {}
+        for run, graphs in (("eager", False), ("eager2", False),
+                            ("graphed", True)):
+            trainer = build_trainer(cfg, device="cuda", graphs=graphs)
+            trainer.init_done()
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            rec = {"step_ms": [], "stats": [], "params": [], "moves": []}
+            parity_run(trainer, data, per_step, snapshots, rec)
+            before, after = rec["moves"]
+            lrs = sorted({g["lr"] for g in trainer.optimizer.param_groups})
+            if after > GRAPH_LR_RATIO * before:
+                raise AssertionError(
+                    f"{label} {run}: a step at lr {lrs} moved a parameter "
+                    f"by {after}, the last step before the milestone by "
+                    f"{before}")
+            if run != "eager2":
+                ms, _ = timed_steps(trainer, data, GRAPH_TIMED, per_step)
+                rec["median_step_ms"] = float(np.median(ms))
+                rec["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                                     - resident)
+                prof = profile_train_steps(trainer, data, top=3)
+                rec["busy"] = prof["busy"]
+                if prof["dcn_kernels_ms"] <= 0:
+                    raise AssertionError(f"{label} {run}: no DCN kernel in "
+                                         "the profile")
+                rec["launches"] = {k: v * (GRAPH_STEPS + GRAPH_LR_STEPS
+                                           + GRAPH_TIMED)
+                                   for k, v in per_step.items()}
+                print(f"{label} {run}: median step "
+                      f"{rec['median_step_ms']:.2f} ms, busy "
+                      f"{rec['busy']:.1%}, peak above the resident state "
+                      f"{rec['peak_bytes'] / 2**30:.2f} GiB; lr {lrs}: "
+                      f"largest move {after:.3g} after the milestone, "
+                      f"{before:.3g} before", flush=True)
+            if graphs:
+                calls = dict(trainer.step_graphs.calls)
+                # eager, capture, replay; the milestone; eager, capture; then
+                # the timed and profiled steps replay
+                if calls["captures"] != 2 or calls["eager"] != 2:
+                    raise AssertionError(f"{label}: graph calls {calls}")
+                rec["graph_calls"] = calls
+            runs[run] = rec
+            if name == "baseline" and precision == "float32" and graphs:
+                kept["graphed"] = trainer
+            elif name == "baseline" and precision == "float32":
+                kept.setdefault("eager", trainer)
+            del trainer
+            torch.cuda.empty_cache()
+        e, e2, g = (runs[k] for k in ("eager", "eager2", "graphed"))
+        record = {
+            "stats": spread_check(label, "stats", e["stats"], e2["stats"],
+                                  g["stats"], "max"),
+            "params": spread_check(label, "parameters", e["params"],
+                                   e2["params"], g["params"], "l2"),
+            "graph_calls": g["graph_calls"],
+        }
+        for run, rec in (("eager", e), ("graphed", g)):
+            record[run] = {key: rec[key] for key in (
+                "median_step_ms", "busy", "peak_bytes", "launches",
+                "step_ms")}
+        snapshots.clear()
+        if kept:
+            ms_e, dets_e = serve_ms(kept["eager"].backend.module, None)
+            ms_g, dets_g = serve_ms(kept["graphed"].backend.module,
+                                    StepGraphs("cuda"))
+            record["serve_batch1_ms"] = {"eager": ms_e, "graphed": ms_g}
+            print(f"serving call, batch 1 at {TRAIN_SIZE} px with decode: "
+                  f"eager {ms_e:.3f} ms, graphed {ms_g:.3f} ms", flush=True)
+            if not all(bool(torch.isfinite(t).all()) for t in
+                       (dets_e, dets_g)):
+                raise AssertionError("non-finite served detections")
+            graphed = kept["graphed"]
+            kept.clear()
+            if not graphed.maybe_degrade_dcn(PALLAS_MAX_SHIFT):
+                raise AssertionError("the degrade did not switch")
+            if len(graphed.step_graphs):
+                raise AssertionError("the degrade left the graphs")
+            captures = graphed.step_graphs.calls["captures"]
+            ms, stats = timed_steps(graphed, data, 2, expect())
+            if graphed.step_graphs.calls["captures"] != captures + 1:
+                raise AssertionError("no capture after the degrade")
+            if not all(bool(torch.isfinite(s).all()) for s in stats):
+                raise AssertionError("non-finite stats after the degrade")
+            print(f"degrade: 2 steps on the exact op, a new capture, no "
+                  f"launch, {' '.join(f'{t:.1f}' for t in ms)} ms",
+                  flush=True)
+            record["degrade_step_ms"] = ms
+            del graphed
+        out[label] = record
+        runs.clear()
+        torch.cuda.empty_cache()
+    return out
 
 
 def kernel_line(name, src, replaces, outs, records, label, launches,
@@ -1131,14 +1441,16 @@ def memcpy_ms(trace_path, steps):
 
 
 def run_cli(name, overrides, per_train, per_eval, profile_steps=0,
-            native_used=NATIVE_FUNCTIONS):
+            native_used=NATIVE_FUNCTIONS, visualizations=CLI_VISUALIZATIONS):
     """Phase 7, one ``main()`` of the port's CLI on the card, run from
     ``CLI_DIR / name``. Each training step must launch ``per_train``, each
     eval step ``per_eval`` (counted from the CLI's phase records), every
     phase's loss and every ``MSCOCO_Precision``/``MSCOCO_Recall`` mean be
     finite. The host library's functions ``native_used`` must each have
     been called, and with ``native_used=()`` the run goes without the
-    library (``CENTERNET_DISABLE_NATIVE``) and calls none. Returns the
+    library (``CENTERNET_DISABLE_NATIVE``) and calls none. An eval phase
+    writes ``visualizations`` detection images to TensorBoard (None: the
+    config's number). Returns the
     run's record, with the messages of the checkpoint, TensorBoard and
     trainer loggers (``log``) and the library's call counts."""
     import logging
@@ -1170,7 +1482,10 @@ def run_cli(name, overrides, per_train, per_eval, profile_steps=0,
     native.reset_calls()
     t0 = time.perf_counter()
     try:
-        scalars = train.main(overrides + [f"profile_steps={profile_steps}"],
+        images = ([] if visualizations is None else
+                  [f"tensorboard.num_visualizations={visualizations}"])
+        scalars = train.main(overrides + images
+                             + [f"profile_steps={profile_steps}"],
                              phases=phases)
         torch.cuda.synchronize()
     finally:
@@ -1269,7 +1584,8 @@ def cli_on_data(n_dcn, seed, profile):
     f32 = (expect(dcn_fwd=n_dcn, dcn_bwd=n_dcn), expect(dcn_fwd=n_dcn))
     out = {"cli_f32": run_cli("f32", common + ["epochs=2",
                                                "precision=float32"],
-                              *f32, profile_steps=2 if profile else 0)}
+                              *f32, profile_steps=2 if profile else 0,
+                              visualizations=None)}
     run_dir = CLI_DIR / "f32" / "outputs" / "baseline"
     written = sorted(p.name for p in run_dir.iterdir())
     if not {"config.yaml", "model_last.ckpt", "model_best.ckpt"} <= set(
@@ -1408,7 +1724,7 @@ def cli_host_paths(run_dir, common, f32, first, seed):
 
     out["cli_f32_numpy"] = run_cli(
         "f32_numpy", common + ["epochs=2", "precision=float32"], *f32,
-        native_used=())
+        native_used=(), visualizations=None)
     shares = {key: [p["loader_wait_s"] / p["seconds"]
                     for p in run["phases"] if p["tag"] == "training"]
               for key, run in (("cli_f32", first),
@@ -2522,7 +2838,8 @@ def run_bench(precision, knobs, n_dcn, step_ms):
     """Phase 12, one run of ``python -m centernet_uda_torch.bench`` with
     ``knobs``: every stage's number, ``mfu_train`` in (0, 1) at bfloat16,
     the train rate within ``BENCH_RATE_TOL`` of the batch over the median
-    of ``step_ms`` (phase 4's train steps at this precision), and exactly
+    of ``step_ms`` from the third step on (phase 4's replayed train steps at
+    this precision), and exactly
     this precision's DCN launches. Returns the bench's JSON object."""
     import os
 
@@ -2541,8 +2858,7 @@ def run_bench(precision, knobs, n_dcn, step_ms):
     print(f"bench {precision} ({seconds:.1f} s): {line}", flush=True)
     res = json.loads(line)
     d = res["detail"]
-    allowed = {"scan_skip_reason"}
-    allowed |= {f"{stage}_skip_reason" for stage, knob in (
+    allowed = {f"{stage}_skip_reason" for stage, knob in (
         ("infer_800px", "BENCH_800"), ("pipeline", "BENCH_PIPELINE"))
         if knobs.get(knob) == "0"}
     if precision == "float32":
@@ -2552,28 +2868,41 @@ def run_bench(precision, knobs, n_dcn, step_ms):
     if skipped or res["vs_baseline"] is not None:
         raise AssertionError(f"bench {precision}: skipped {skipped}")
     for key in ("decode_mean_ms_pipelined", "dcn_fwd_ms", "dcn_bwd_ms",
-                "train_images_per_sec", "infer_images_per_sec"):
+                "train_images_per_sec", "infer_images_per_sec",
+                "train_images_per_sec_scan", "infer_images_per_sec_scan"):
         if not (isinstance(d[key], (int, float)) and d[key] > 0):
             raise AssertionError(f"bench {precision}: {key} = {d[key]}")
     if precision == "bfloat16" and not 0 < d["mfu_train"] < 1:
         raise AssertionError(f"bench mfu_train {d['mfu_train']}")
-    want_ips = d["batch_size"] * 1e3 / float(np.median(step_ms))
+    # phase 4's steps from the third on replay its graph, as the bench's
+    # timed steps do (the first runs eagerly, the second captures)
+    want_ips = d["batch_size"] * 1e3 / float(np.median(step_ms[2:]))
     ratio = d["train_images_per_sec"] / want_ips
     print(f"bench {precision} train {d['train_images_per_sec']:.2f} images/s "
-          f"against {want_ips:.2f} from phase 4's median step "
+          f"against {want_ips:.2f} from phase 4's median replayed step "
           f"({ratio:.3f}x)", flush=True)
     if abs(ratio - 1) > BENCH_RATE_TOL:
         raise AssertionError(f"bench {precision} train rate {ratio:.3f}x "
                              "phase 4's")
     fwd, bwd = (("dcn_fused_fwd", "dcn_fused_bwd") if precision == "bfloat16"
                 else ("dcn_fwd", "dcn_bwd"))
-    warmup = int(knobs.get("BENCH_WARMUP", 3))
+    # the warm-up is at least 2 calls on the card (eager, then capture)
+    warmup = max(int(knobs.get("BENCH_WARMUP", 3)), 2)
     steps = int(knobs["BENCH_STEPS"])
-    trains, infers = warmup + steps, 1 + steps
-    want = expect(**{fwd: n_dcn * (trains + infers), bwd: n_dcn * trains})
+    calls = warmup + steps
+    want = expect(**{fwd: n_dcn * 2 * calls, bwd: n_dcn * calls})
     if d["dcn_launches"] != want:
         raise AssertionError(f"bench {precision} launches "
                              f"{d['dcn_launches']} != {want}")
+    # each scan: an eager chunk, a captured one, then the timed chunks
+    calls = d["scan_chunk"] * (2 + d["scan_chunks"])
+    want = expect(**{fwd: n_dcn * 2 * calls, bwd: n_dcn * calls})
+    if d["scan_dcn_launches"] != want:
+        raise AssertionError(f"bench {precision} scan launches "
+                             f"{d['scan_dcn_launches']} != {want}")
+    print(f"bench {precision} scan: train "
+          f"{d['train_images_per_sec_scan']:.2f}, infer "
+          f"{d['infer_images_per_sec_scan']:.2f} images/s", flush=True)
     res["seconds"] = seconds
     return res
 
@@ -2848,6 +3177,9 @@ def main(argv=None) -> int:
             "bf16_train" if precision == "bfloat16" else "train"]["step_ms"])
         for precision, knobs in BENCH_RUNS.items()}
 
+    phase(f"compiled steps: graphed against eager at {TRAIN_SIZE} px")
+    report["compiled"] = compiled_steps(n_dcn, args.seed)
+
     runs = [report[k]["launches"] for k in (
         "train", "eval", "bf16_train", "bf16_eval", "mnv2_train",
         "mnv2_eval", "mnv2_bf16_train", "mnv2_bf16_eval", "lanes_eval",
@@ -2862,7 +3194,10 @@ def main(argv=None) -> int:
     runs += [r["launches"] for k, r in p10.items() if k.startswith("cli_")]
     runs += [r[part]["launches"] for k, r in p10.items()
              if k.startswith("bn_sync_") for part in ("train", "eval")]
-    runs += [r["detail"]["dcn_launches"] for r in report["bench"].values()]
+    runs += [r["detail"][k] for r in report["bench"].values()
+             for k in ("dcn_launches", "scan_dcn_launches")]
+    runs += [r[part]["launches"] for r in report["compiled"].values()
+             for part in ("eager", "graphed")]
 
     def launches(name):
         return sum(run[name] for run in runs)

@@ -6,7 +6,8 @@ is one JSON object of ``bench.py``'s shape, every stage gives its number or
 its ``<stage>_skip_reason``, MFU is null with a reason (no card), and
 neither JAX nor the JAX package was imported. The pipeline stage runs on
 its own at 16 images of 64 px in process mode with 4 workers. Without a
-card and without ``device="cpu"`` the bench raises.
+card and without ``device="cpu"`` the bench raises. The ``*_scan`` stage,
+CUDA graphs on a card, runs through a stand-in graph on the CPU.
 """
 
 import json
@@ -80,10 +81,53 @@ def test_bench_line_on_the_cpu(backend):
     assert "decode_skip_reason" not in d
     assert d["mfu_train"] is None and d["mfu_skip_reason"].startswith(
         "no card")
-    assert d["scan_skip_reason"]
+    # the *_scan rates are CUDA graphs: on the CPU a reason, no number
+    assert d["scan_skip_reason"].startswith("no card")
+    assert "train_images_per_sec_scan" not in d
     assert d["model_gflops_per_image"] > 0
     # no kernel launches on the CPU: the DCN layers run the exact op
     assert not any(d["dcn_launches"].values())
+
+
+def test_scan_rates_fill_the_jax_benchs_keys(monkeypatch):
+    """The ``*_scan`` stage (a card run's: CUDA graphs of ``BENCH_CHUNK``
+    steps) through a stand-in graph on the CPU, on a narrow DLA at 64 px:
+    it fills ``train_images_per_sec_scan`` and
+    ``infer_images_per_sec_scan``, the names of root ``bench.py``'s line,
+    with rates."""
+    import torch
+
+    from centernet_uda_torch import bench
+    from centernet_uda_torch.config import compose
+    from centernet_uda_torch.train import build_trainer
+    from centernet_uda_torch.utils.graphs import StepGraphs
+    from tests.test_torch_step_graphs import StandInGraph, stand_in_graphs
+
+    torch.set_num_threads(2)
+    monkeypatch.setenv("BENCH_CHUNK", "2")
+    cfg = compose(["experiment=baseline", "dcn_impl=xla", "batch_size=2",
+                   "model.backend.params.num_classes=6",
+                   "model.backend.params.levels=[1,1,1,1,1,1]",
+                   "model.backend.params.channels=[4,8,8,16,16,32]",
+                   "model.backend.params.head_conv=8"],
+                  config_dir=str(ROOT / "configs"))
+    trainer = build_trainer(cfg, device="cpu")
+    trainer.init_done()
+    graphs = stand_in_graphs(trainer)
+    data = {k: torch.as_tensor(v)
+            for k, v in bench.synthetic_batch(2, 64).items()}
+    net = trainer.backend.module
+    scan = bench._scan_rates(trainer, net, data,
+                             StepGraphs("cpu", StandInGraph, counters={}),
+                             2, lambda: None)
+    keys = ("train_images_per_sec_scan", "infer_images_per_sec_scan")
+    assert set(scan) == {*keys, "scan_chunk", "scan_chunks"}
+    assert all(scan[k] > 0 for k in keys)
+    assert (scan["scan_chunk"], scan["scan_chunks"]) == (2, 2)
+    assert graphs.calls == {"eager": 1, "captures": 1, "replays": 3}
+    jax_bench = (ROOT / "bench.py").read_text()
+    assert all(f'"{k}"' in jax_bench for k in keys)
+    assert not net.training
 
 
 def test_pipeline_stage_in_process_mode():

@@ -485,3 +485,153 @@ def test_exported_model_launches_the_kernels(cuda, tmp_path):
     assert dcn_cuda.LAUNCHES == only(dcn_fwd=15, dcn_sel_fwd=1)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+# --- compiled steps (utils/graphs.py) ------------------------------------------
+
+
+def _route_inputs(route, cuda):
+    """Leaves (requiring grad) and the autograd route of one DCN kernel."""
+    if route == "fused":
+        x, om_w, om_b, wt, bias, _ = make_fused_inputs(8, 2, 40, 72, 13, 21,
+                                                       cuda)
+        return [x, om_w, om_b, wt, bias], (
+            lambda *t: dcn_cuda.dcn_v2_fused_kernel(*t)[0])
+    x, off, m, wt, bias = make_inputs(8, 2, 40, 72, 13, 21, cuda)
+    if route == "select":
+        x, wt = x.bfloat16(), wt.bfloat16()
+    kernel = {"f32": dcn_cuda.dcn_v2_kernel,
+              "select": dcn_cuda.dcn_v2_select_kernel,
+              "wide": dcn_cuda.dcn_v2_wide_kernel}[route]
+    return [x, off, m, wt, bias], kernel
+
+
+@pytest.mark.parametrize("route", ["f32", "fused", "select", "wide"])
+def test_kernels_capture_in_the_global_mode(cuda, route):
+    """Each kernel route, forward and backward, captured into a CUDA graph
+    in the global capture mode, which refuses any host call that is not
+    legal under capture (the launchers' attribute queries and
+    ``cudaFuncSetAttribute`` are legal), then replayed on new values of
+    its inputs: the replay's output and gradients within the kernels'
+    tolerance of an eager call on those values; the capture counts its
+    launches, the replay none (it runs no Python)."""
+    leaves, kernel = _route_inputs(route, cuda)
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+
+    def fn():
+        out = kernel(*leaves)
+        return (out,) + torch.autograd.grad(out.float().square().sum(),
+                                            leaves)
+
+    fn()  # eager: loads the kernels
+    graph = torch.cuda.CUDAGraph()
+    dcn_cuda.reset_launches()
+    with torch.cuda.graph(graph, capture_error_mode="global"):
+        static = fn()
+    captured = dict(dcn_cuda.LAUNCHES)
+    assert sum(captured.values()) in (1, 2)
+    gen = torch.Generator().manual_seed(9)
+    with torch.no_grad():
+        for t in leaves[:1] + leaves[3:]:
+            t.mul_((1 + 0.1 * torch.randn(t.shape, generator=gen)).to(
+                t.device, t.dtype))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert dict(dcn_cuda.LAUNCHES) == captured
+    want = fn()
+    for name, got, ref in zip(("out", "dx", "d1", "d2", "dw", "dbias"),
+                              static, want):
+        assert_close(got.detach().float(), ref.detach().float(),
+                     f"{route} {name}")
+
+
+def test_capturable_adam_replays_match_plain_adam(cuda):
+    """The port's Adam on the card is capturable: one step captured and
+    replayed for steps 2 and 3 gives plain (host-count) Adam's parameters,
+    each replay with its own step's bias correction."""
+    from centernet_uda_torch.utils.optim import make_optimizer
+
+    gen = torch.Generator().manual_seed(0)
+    p0 = torch.randn(4096, generator=gen)
+    grads = [torch.randn(4096, generator=gen).to(cuda) for _ in range(3)]
+    ref = p0.to(cuda).requires_grad_(True)
+    plain = torch.optim.Adam([ref], lr=1e-2, weight_decay=1e-4)
+    p = p0.to(cuda).requires_grad_(True)
+    opt = make_optimizer("Adam", {"lr": 1e-2, "weight_decay": 1e-4}, [p])
+    assert opt.defaults["capturable"] and not plain.defaults["capturable"]
+    ref.grad, p.grad = grads[0].clone(), grads[0].clone()
+    plain.step()
+    opt.step()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        opt.step()
+    for g in grads[1:]:
+        p.grad.copy_(g)
+        graph.replay()
+        ref.grad = g.clone()
+        plain.step()
+        torch.testing.assert_close(p, ref, rtol=1e-5, atol=1e-6)
+    assert float(opt.state[p]["step"]) == 3.0
+
+
+def _train_state(trainer):
+    out = list(trainer.backend.module.parameters()) + list(
+        trainer.backend.module.buffers())
+    for st in trainer.optimizer.state.values():
+        out += [v for v in st.values() if isinstance(v, torch.Tensor)]
+    return out
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_graphed_dla34_steps_match_eager(cuda, precision):
+    """DLA-34 at full width, 128 px, batch 2: three train steps of the
+    graphed trainer (eager, capture and replay, replay) against two eager
+    trainers from the same seed, each step from the first eager trainer's
+    state before it (copied in place; the DCN kernels add with float
+    atomics, and Adam moves an element whose gradient is below that noise
+    by +-lr either way, so trajectories part whatever runs them). Per step
+    the stats (largest difference) and the parameters (norm of the
+    difference) within 4x the two eager trainers' spread plus 1e-6 of
+    scale; each step's launches those of an eager step."""
+    from pathlib import Path
+
+    from centernet_uda_torch.bench import synthetic_batch
+    from centernet_uda_torch.config import compose
+    from centernet_uda_torch.train import build_trainer
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = compose(["experiment=baseline", f"precision={precision}",
+                   "batch_size=2", "model.backend.params.num_classes=6",
+                   "datasets.training.params.input_size=[128,128]"],
+                  config_dir=str(root / "configs"))
+    data = synthetic_batch(2, 128)
+    trainers = [build_trainer(cfg, device="cuda", graphs=g)
+                for g in (False, False, True)]
+    for t in trainers:
+        t.init_done()
+    stats = [[] for _ in trainers]
+    params = [[] for _ in trainers]
+    launches = [[] for _ in trainers]
+    for _ in range(3):
+        state = [v.detach().clone() for v in _train_state(trainers[0])]
+        for i, t in enumerate(trainers):
+            with torch.no_grad():
+                for v, want in zip(_train_state(t), state):
+                    v.copy_(want)
+            dcn_cuda.reset_launches()
+            out = t.step(data)["stats"]
+            torch.cuda.synchronize()
+            launches[i].append(dict(dcn_cuda.LAUNCHES))
+            stats[i].append(torch.stack([out[k] for k in sorted(out)]))
+            params[i].append(torch.cat([p.detach().flatten() for p in
+                                        t.backend.module.parameters()]))
+    assert trainers[2].step_graphs.calls == {"eager": 1, "captures": 1,
+                                             "replays": 2}
+    assert launches[0][0] == launches[0][1] == launches[0][2]
+    assert launches[2] == launches[0] and sum(launches[0][0].values())
+    for got, norm in ((stats, lambda t: t.abs().max()),
+                      (params, lambda t: t.norm())):
+        spread = max(float(norm(b - a)) for a, b in zip(got[0], got[1]))
+        diff = max(float(norm(g - a)) for a, g in zip(got[0], got[2]))
+        scale = max(float(norm(a)) for a in got[0])
+        assert diff <= 4 * spread + 1e-6 * scale, (diff, spread)

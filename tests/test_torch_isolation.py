@@ -31,6 +31,14 @@ def test_no_forbidden_import_statement(path):
     assert not _imported_roots(path) & set(FORBIDDEN)
 
 
+def test_the_graph_helper_is_checked():
+    """``utils/graphs.py`` (the compiled steps) is among the checked
+    files: it imports neither JAX nor the JAX package."""
+    path = ROOT / "centernet_uda_torch" / "utils" / "graphs.py"
+    assert path in PORT_FILES
+    assert "torch" in _imported_roots(path)
+
+
 def test_imports_with_jax_blocked():
     modules = [".".join(p.relative_to(ROOT).with_suffix("").parts)
                for p in PORT_FILES]
