@@ -298,7 +298,8 @@ def _scan_rates(trainer, net, data, infer_graphs, steps, sync):
         return stats["total_loss"]
 
     def train():
-        return trainer.step_graphs("train_scan", train_chunk, data)
+        return trainer.step_graphs("train_scan", train_chunk, data,
+                                   trainer.train_generators)
 
     for _ in range(2):
         train()
@@ -418,10 +419,7 @@ def main(argv=None, device: str = "cuda") -> int:
     launches = dict(dcn_cuda.LAUNCHES)
     scan = {"scan_skip_reason": (
         "no card: the *_scan rates are CUDA graphs of BENCH_CHUNK steps")}
-    if cuda and not trainer.compiled("train"):
-        scan = {"scan_skip_reason": "the train step runs eagerly on this "
-                                    "backend (uda/base.py)"}
-    elif cuda:
+    if cuda:
         dcn_cuda.reset_launches()
         scan = _scan_rates(trainer, net, data, infer_graphs, steps, sync)
         scan["scan_dcn_launches"] = dict(dcn_cuda.LAUNCHES)

@@ -23,6 +23,14 @@ its ranks, what the JAX package computes over the whole batch:
   detections are gathered to rank 0 (``gather_to_main``), which alone runs
   the evaluators and writes checkpoints, logs and ``config.yaml``.
 
+On the card the steps' collectives (``global_sum``, ``gather_rows``,
+``sum_gradients``) run inside the steps' CUDA graphs (``utils/graphs.py``):
+each is enqueued on the step's stream, waits for nothing on the host, and
+reads no host value but the rank and the world size, which a graph keeps
+as constants, and which parameters have a gradient, which a step's graph
+fixes too. ``reduce_stats`` runs after the step, outside its graph
+(``uda/base.py`` says why).
+
 Ranks come from a launcher (``torchrun``: ``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), or
 ``train.main`` starts them itself where ``mesh: {data: N}`` or ``gpu: [..]``

@@ -27,7 +27,9 @@ does not divide, it warns and trains on one device, as the JAX package does.
 Each rank takes ``batch_size / ranks`` of each batch of its host; eval
 batches are padded (``pad_last``) and their detections gathered to rank 0,
 which alone evaluates and writes ``config.yaml``, logs and checkpoints
-(under the module's own names).
+(under the module's own names). On the card every rank's steps are CUDA
+graphs as on one device, their collectives captured inside them
+(``uda/base.py``, ``utils/graphs.py``).
 """
 
 from __future__ import annotations
@@ -222,6 +224,8 @@ def _run_phase(trainer, loader, evaluators, tb_logger, stats, epoch, tag,
     (see ``main``). Under data parallelism the eval detections go to rank
     0's evaluators after the pass."""
     n_batches = 0
+    graphs = trainer.step_graphs
+    calls0 = None if graphs is None else dict(graphs.calls)
     t0 = time.perf_counter()
     wait_s = 0.0
     log_s = 0.0
@@ -323,7 +327,9 @@ def _run_phase(trainer, loader, evaluators, tb_logger, stats, epoch, tag,
     phases.append({"epoch": epoch, "tag": tag, "steps": n_batches,
                    "images": n_images, "seconds": dt,
                    "loader_wait_s": wait_s, "log_detections_s": log_s,
-                   "total_loss": loss.avg if loss is not None else None})
+                   "total_loss": loss.avg if loss is not None else None,
+                   "graph_calls": None if graphs is None else {
+                       k: n - calls0[k] for k, n in graphs.calls.items()}})
     log.info("%s epoch %d: %d steps in %.2f s, %.1f%% of it waiting for "
              "the loader", tag, epoch, n_batches, dt,
              100.0 * wait_s / max(dt, 1e-9))
@@ -353,8 +359,10 @@ def main(argv=None, device: str = "cuda",
     the device's work included), ``loader_wait_s`` (of it, the time spent
     waiting for the next batch), ``log_detections_s`` (of it, the time
     spent drawing and writing the TensorBoard detection images),
-    ``total_loss`` (its meter's mean since the meters were last reset) and,
-    for an eval phase, ``evaluate_s`` (the evaluators' time after it).
+    ``total_loss`` (its meter's mean since the meters were last reset),
+    ``graph_calls`` (the phase's compiled-step calls, ``StepGraphs.calls``
+    counted over the phase; None where the steps run eagerly) and, for an
+    eval phase, ``evaluate_s`` (the evaluators' time after it).
     """
     phases = [] if phases is None else phases
     parser = argparse.ArgumentParser(

@@ -8,7 +8,8 @@ learns source (0) against target (1).
 
 One train step computes both updates from the same pre-update state, as
 the JAX package's single jitted step does (on the card, one captured graph:
-both backwards and both optimizer steps; ``uda/base.py``):
+both backwards, under a process group the one all-reduce of both parameter
+sets' gradients, and both optimizer steps; ``uda/base.py``):
 
 - the backend's gradient of ``centernet(source) + adversarial_weight *
   BCE(D(entropy(target_hm)), 0)``, taken with respect to the backend's

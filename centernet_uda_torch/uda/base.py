@@ -26,12 +26,17 @@ its device and reseeds it before each train step from ``seed + 7919`` and
 the step count, as the JAX package folds the step into its dropout key;
 a backend that has a ``drop_generator`` attribute draws its masks from it
 in train mode. The masks' bits differ from JAX's; every rank draws the same
-ones.
+ones. A graphed train step has the generator registered with its graph,
+which reads the reseeded state at every replay, so a replayed step draws
+the eager step's masks at the same step count.
 
 Data parallelism (``parallel/ddp.py``): each rank's loss is its share of
 the global batch's, the step sums the gradients over the ranks before the
 optimizer steps, and ``step`` returns the stats reduced over the ranks (the
-global batch's losses, the largest max |dy|).
+global batch's losses, the largest max |dy|). The reduction runs after the
+step, on the copies it returns, not inside its graph: it is one all-reduce
+of a few scalars, the eager path and the eval step share it, and its result
+is read on the host anyway (the meters, the degrade).
 
 Compiled steps (``utils/graphs.py``), the counterpart of the JAX package's
 jitted step functions: on the card, ``train_step``, ``eval_step`` and
@@ -41,10 +46,13 @@ return are copies, valid however long the caller keeps them. The graphs are
 dropped where the JAX package rebuilds its step functions or a captured
 constant changes: ``maybe_degrade_dcn``, a learning-rate change in
 ``epoch_end``, ``load_model``. ``graphs=False`` gives the eager step, and the
-CPU always runs eagerly. Two steps stay eager on the card, each with one
-log line: the train step under a process group (its all-reduces are not
-captured) and the train step of a backend with a stochastic-depth
-generator (EfficientNet; the generator is reseeded on the host per step).
+CPU always runs eagerly; on the card every step is graphed, the train step
+under a process group (its collectives captured, as the JAX package's
+sharded step holds XLA's all-reduces) and EfficientNet's (its generator
+registered) too. Under a process group every rank drops its graphs at the
+same call, so the ranks' collectives stay in step: the degrade is decided
+from ``dcn_max_abs_dy``, the maximum over the ranks, every rank follows one
+schedule, and every rank loads the checkpoint.
 """
 
 from __future__ import annotations
@@ -90,7 +98,6 @@ class Model:
         self.step_graphs: Optional[StepGraphs] = (
             StepGraphs(self.device) if graphs and self.device.type == "cuda"
             else None)
-        self._eager_logged = False
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -109,6 +116,12 @@ class Model:
         n_params = sum(p.numel() for p in net.parameters())
         log.info("initialized %s: %.2fM params on %s", self.backend.name,
                  n_params / 1e6, self.device)
+
+    @property
+    def train_generators(self) -> Tuple[torch.Generator, ...]:
+        """The generators a train step draws from besides the device's
+        default one (a graph registers them)."""
+        return () if self.drop_generator is None else (self.drop_generator,)
 
     def _seed_drop_generator(self) -> None:
         """Reseed the stochastic-depth generator from the seed and the step
@@ -228,26 +241,19 @@ class Model:
                 for k, v in self._batch_tensors(data).items()}
 
     def compiled(self, name: str) -> bool:
-        """Whether ``name`` (train, eval, decode) runs as a graph."""
-        if self.step_graphs is None:
-            return False
-        why = None
-        if name == "train" and ddp.is_distributed():
-            why = "its gradient and stats all-reduces are not captured"
-        elif name == "train" and self.drop_generator is not None:
-            why = ("the stochastic-depth generator is reseeded on the host "
-                   "before every step")
-        if why and not self._eager_logged:
-            self._eager_logged = True
-            log.info("the train step runs eagerly: %s", why)
-        return why is None
+        """Whether ``name`` (train, eval, decode) runs as a graph: every
+        step does on the card, unless the trainer was built with
+        ``graphs=False``."""
+        return self.step_graphs is not None
 
-    def _run(self, name: str, fn, data):
+    def _run(self, name: str, fn, data, generators=()):
         """``fn`` on the batch's tensors: replayed from its graph where
         ``name`` is compiled (the tensors copied into the graph's static
-        inputs), else eagerly on the tensors moved to the device."""
+        inputs; ``generators`` registered with it), else eagerly on the
+        tensors moved to the device."""
         if self.compiled(name):
-            return self.step_graphs(name, fn, self._batch_tensors(data))
+            return self.step_graphs(name, fn, self._batch_tensors(data),
+                                    generators)
         return fn(self._device_batch(data))
 
     #: UDA trainers forward the target domain in every phase
@@ -263,7 +269,8 @@ class Model:
                 "training, validation and test alike)")
         if is_training:
             self._seed_drop_generator()
-            stats = self._run("train", self.train_step, data)
+            stats = self._run("train", self.train_step, data,
+                              self.train_generators)
             self.global_step += 1
             return {"stats": ddp.reduce_stats(stats)}
         outputs, stats = self._run("eval", self.eval_step, data)

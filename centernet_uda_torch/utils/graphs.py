@@ -38,19 +38,47 @@ counters (``ops.dcn_cuda.LAUNCHES``) would not move. Capture runs the
 wrappers once without launching anything; the helper takes that count back
 off and adds it again on every replay, so the counts per step are exact.
 
+Random draws: a step that draws from a ``torch.Generator`` of its own
+(EfficientNet's stochastic depth) names it in ``generators``; the graph
+registers it before capture (``CUDAGraph.register_generator_state``), so a
+replay reads the generator's seed and offset as they stand on the host at
+that replay and advances the offset as an eager call would. A generator
+reseeded before every call (``manual_seed``) thus gives a replay the draws
+of an eager call after the same seed.
+
+Collectives: under a process group the steps' NCCL collectives (the loss
+normalizers' and the gradients' all-reduces, grouped BatchNorm's
+all-gather) are captured and replayed like any kernel. The communicator
+is created by the first collective, which the first (eager) call of a
+signature runs, never a capture. Every call runs each of its collectives
+once, whether eager, captured and replayed, or replayed, so the ranks stay
+in step as long as they drop their graphs at the same call
+(``uda/base.py``).
+
+Garbage collection: a CUDA graph freed during another graph's capture
+destroys itself with calls that capture forbids, and that invalidates the
+capture (torch only warns from the destructor; the capture fails at its
+end). A dropped trainer's graphs wait for the cyclic collector where the
+trainer sits in a reference cycle, and a collection can start at any
+allocation, so ``CudaGraph.capture`` collects first and keeps the
+collector off until the capture ends.
+
 Captures of one ``StepGraphs`` share one memory pool. They run with
 ``capture_error_mode="thread_local"``: the loader's thread pins host
 memory while a step is captured, which the global mode forbids process-wide
 (the DCN wrappers' host calls are legal under the global mode too;
-``tests/test_torch_gpu.py`` captures them so). ``graph_factory`` makes the
-graph object (``capture(fn)`` returning fn's outputs, ``replay()``); the
-default is a CUDA graph, and the CPU tests inject a stand-in.
+``tests/test_torch_gpu.py`` captures them so). A capture or a replay
+that fails raises; nothing falls back to the eager step.
+``graph_factory(generators)`` makes the graph object (``capture(fn)``
+returning fn's outputs, ``replay()``); the default is a CUDA graph, and
+the CPU tests inject a stand-in.
 """
 
 from __future__ import annotations
 
+import gc
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -58,17 +86,29 @@ from centernet_uda_torch.ops import dcn_cuda
 
 
 class CudaGraph:
-    """A ``torch.cuda.CUDAGraph`` in ``pool``, behind the interface
+    """A ``torch.cuda.CUDAGraph`` in ``pool`` that draws from
+    ``generators`` (registered before capture), behind the interface
     ``StepGraphs`` calls."""
 
-    def __init__(self, pool):
+    def __init__(self, pool, generators: Sequence[torch.Generator] = ()):
         self.graph = torch.cuda.CUDAGraph()
         self.pool = pool
+        self.generators = tuple(generators)
 
     def capture(self, fn: Callable[[], Any]) -> Any:
-        with torch.cuda.graph(self.graph, pool=self.pool,
-                              capture_error_mode="thread_local"):
-            return fn()
+        for gen in self.generators:
+            self.graph.register_generator_state(gen)
+        # no graph may be freed inside the capture (module docstring)
+        gc.collect()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, pool=self.pool,
+                                  capture_error_mode="thread_local"):
+                return fn()
+        finally:
+            if enabled:
+                gc.enable()
 
     def replay(self) -> None:
         self.graph.replay()
@@ -102,8 +142,9 @@ class _Captured:
 class StepGraphs:
     """Captured steps of one trainer on ``device``, one memory pool."""
 
-    def __init__(self, device, graph_factory: Optional[Callable[[], Any]]
-                 = None, counters: Optional[Dict[str, int]] = None):
+    def __init__(self, device, graph_factory: Optional[Callable[
+                     [Sequence[torch.Generator]], Any]] = None,
+                 counters: Optional[Dict[str, int]] = None):
         self.device = torch.device(device)
         self.graph_factory = graph_factory or self._cuda_graph
         self.counters = dcn_cuda.LAUNCHES if counters is None else counters
@@ -114,10 +155,10 @@ class StepGraphs:
         # eager warm-ups, captures and replays so far
         self.calls = {"eager": 0, "captures": 0, "replays": 0}
 
-    def _cuda_graph(self):
+    def _cuda_graph(self, generators: Sequence[torch.Generator]):
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        return CudaGraph(self._pool)
+        return CudaGraph(self._pool, generators)
 
     def __len__(self) -> int:
         return len(self._graphs)
@@ -130,9 +171,11 @@ class StepGraphs:
 
     def __call__(self, name: str, fn: Callable[[Dict[str, torch.Tensor]],
                                                Any],
-                 inputs: Dict[str, torch.Tensor]):
+                 inputs: Dict[str, torch.Tensor],
+                 generators: Sequence[torch.Generator] = ()):
         """``fn(inputs)``: eager, captured or replayed (module docstring);
-        returns copies of its outputs on a replay."""
+        returns copies of its outputs on a replay. ``generators``: those
+        ``fn`` draws from besides the device's default one."""
         key = (name, self.generation, signature(inputs))
         captured = self._graphs.get(key)
         if captured is None and key not in self._seen:
@@ -141,7 +184,7 @@ class StepGraphs:
             return fn({k: v.to(self.device, non_blocking=True)
                        for k, v in inputs.items()})
         if captured is None:
-            captured = self._capture(key, fn, inputs)
+            captured = self._capture(key, fn, inputs, generators)
         else:
             for k, v in inputs.items():
                 captured.static[k].copy_(v, non_blocking=True)
@@ -151,12 +194,12 @@ class StepGraphs:
             self.counters[k] += n
         return map_tensors(torch.clone, captured.outputs)
 
-    def _capture(self, key, fn, inputs) -> _Captured:
+    def _capture(self, key, fn, inputs, generators) -> _Captured:
         static = {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
                   for k, v in inputs.items()}
         for k, v in inputs.items():
             static[k].copy_(v, non_blocking=True)
-        graph = self.graph_factory()
+        graph = self.graph_factory(generators)
         before = dict(self.counters)
         outputs = graph.capture(lambda: fn(static))
         launches = {k: n - before.get(k, 0) for k, n in self.counters.items()

@@ -110,7 +110,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
    c. ``experiment=keypoints`` with ``gpu=null`` (EfficientNet-b0 with
       skips, 5 keypoints, entropy minimization with a target batch, batch
       16) at float32 and bfloat16: 0 launches (its two-device data
-      parallelism is cut);
+      parallelism is cut); its train steps must replay their graph (the
+      stochastic-depth generator registered with it), and the graph calls
+      are printed;
    d. DLA-34 ``experiment=baseline`` with ``rotated_boxes=true``,
       ``num_keypoints=5`` and ``coco_merged``'s loss params (periodic,
       ``kp_weight`` 2.0, ``kp_indices``, ``kp_distance_weight`` 10) at
@@ -149,9 +151,12 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
       launches of the precision a step, the first step's losses equal
       within 1e-5 of the largest (or 4 times the range of 4 plain
       trainers' first steps, where that is larger), step times beside
-      each other; then
+      each other; the rank's train steps are graphed (their all-reduces
+      captured) and must replay, and its graph calls are printed; then
       ``main()`` with ``mesh.data=1`` (one NCCL rank that ``main()`` joins
-      itself) for an epoch of phase 7's set at each precision;
+      itself) for an epoch of phase 7's set at each precision, whose
+      training phase must replay its graph (each phase's graph calls
+      printed);
    d. DLA-34 at float32 with ``bn_sync`` 2 and 4: 3 steps and an eval,
       launches as in phase 4, losses finite;
    e. ``experiment=adversarial_entropy_minimization_dla`` as shipped
@@ -180,9 +185,11 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
    exactly its precision's kernels, 16 a forward for every warm-up, timed
    and inference call; both lines are printed;
 13. compiled steps (``utils/graphs.py``): DLA-34 at float32 and bfloat16
-   (batch 16) and the four UDA trainers at bfloat16 (batch 8) at 512 px,
-   each trained by two eager trainers (``graphs=False``) and one graphed
-   trainer from one seed on one batch (``GRAPH_RUNS``): 4 steps, a
+   (batch 16), each also as the trainers of a one-rank NCCL group, the
+   four UDA trainers at bfloat16 (batch 8) and ``experiment=keypoints``
+   (EfficientNet-b0, its stochastic depth on) at bfloat16 (batch 16) at
+   512 px, each trained by two eager trainers (``graphs=False``) and one
+   graphed trainer from one seed on one batch (``GRAPH_RUNS``): 3 steps, a
    MultiStepLR milestone (``epoch_end``), 2 steps; the graphed losses and
    parameters within ``GRAPH_SPREAD`` times the eager runs' spread, each
    step's launches exact, the milestone dropping the graphs and the step
@@ -192,7 +199,11 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
    and graphed; for DLA-34 at float32 the batch-1 512 px serving call
    (forward plus decode) eager and graphed, then the degrade: after
    ``maybe_degrade_dcn(PALLAS_MAX_SHIFT)`` two steps capture anew on the
-   exact op and launch no kernel.
+   exact op and launch no kernel; for the one-rank runs two eval steps of
+   the graphed trainer, the second captured (its loss normalizers'
+   all-reduces inside) and replayed; for ``keypoints`` every step's
+   stochastic-depth masks, graphed against eager at the same step count,
+   bit for bit.
 
 Before each model trains, its heads on the kernel path are held against the
 exact DCN op on the same weights and a small input. Every phase drives the
@@ -283,8 +294,9 @@ BENCH_RUNS = {
 }
 BENCH_RATE_TOL = 0.2
 BENCH_TIMEOUT_S = 400
-# phase 13, the compiled steps: (experiment, precision, batch) at TRAIN_SIZE,
-# each trained by two eager trainers and one graphed trainer from one seed,
+# phase 13, the compiled steps: (experiment, precision, batch, as the trainers
+# of a one-rank NCCL group) at TRAIN_SIZE, each trained by two eager
+# trainers and one graphed trainer from one seed,
 # GRAPH_STEPS steps, then a MultiStepLR milestone (epoch_end) and
 # GRAPH_LR_STEPS more, each step from one state (``parity_run``); a graphed
 # run's stats and parameters must lie within GRAPH_SPREAD times the two
@@ -295,9 +307,13 @@ BENCH_TIMEOUT_S = 400
 # the last step before it (the milestone's gamma is 0.1); GRAPH_TIMED more
 # steps give the median step ms, two more the profile; the batch-1 512 px
 # serving call (forward plus decode) is timed over SERVE_CALLS calls each way
-GRAPH_RUNS = (("baseline", "float32", TRAIN_BATCH),
-              ("baseline", "bfloat16", TRAIN_BATCH),
-              *((name, "bfloat16", UDA_BATCH) for name in UDA_EXPERIMENTS))
+GRAPH_RUNS = (("baseline", "float32", TRAIN_BATCH, False),
+              ("baseline", "bfloat16", TRAIN_BATCH, False),
+              *((name, "bfloat16", UDA_BATCH, False)
+                for name in UDA_EXPERIMENTS),
+              ("baseline", "float32", TRAIN_BATCH, True),
+              ("baseline", "bfloat16", TRAIN_BATCH, True),
+              ("keypoints", "bfloat16", TRAIN_BATCH, False))
 GRAPH_STEPS, GRAPH_LR_STEPS, GRAPH_TIMED = 3, 2, 3
 GRAPH_SPREAD, GRAPH_FLOOR, GRAPH_LR_RATIO = 4.0, 1e-6, 0.5
 SERVE_CALLS = 20
@@ -1120,7 +1136,39 @@ def serve_ms(net, graphs):
     return float(np.median(times)), dets
 
 
-def parity_run(trainer, data, per_step, snapshots, record):
+class DropMasks:
+    """EfficientNet's stochastic-depth masks of each train step, while
+    active (it wraps ``efficientnet.drop_connect``). ``step_done()`` after
+    a synchronised step keeps a copy of the masks of the step's last draw:
+    an eager step's, a capturing step's (the captured tensors, which its
+    replay fills), or, for a replay, which runs no Python, the captured
+    tensors again, filled by that replay."""
+
+    def __init__(self):
+        self.drawn, self.current, self.steps = [], [], []
+
+    def __enter__(self):
+        from centernet_uda_torch.models import efficientnet
+
+        self.module, self.draw = efficientnet, efficientnet.drop_connect
+
+        def recording(x, keep, mask):
+            self.drawn.append(mask)
+            return self.draw(x, keep, mask)
+
+        efficientnet.drop_connect = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.module.drop_connect = self.draw
+
+    def step_done(self):
+        if self.drawn:
+            self.current, self.drawn = self.drawn, []
+        self.steps.append([m.clone() for m in self.current])
+
+
+def parity_run(trainer, data, per_step, snapshots, record, masks=None):
     """GRAPH_STEPS train steps, ``epoch_end`` (the milestone), GRAPH_LR_STEPS
     more. Before each step the trainer's state is the first eager run's
     before that step: ``snapshots`` collects it on that run and is loaded
@@ -1129,7 +1177,8 @@ def parity_run(trainer, data, per_step, snapshots, record):
     whose gradient is below the atomics' noise by +-lr either way, and
     those steps would part the trajectories whatever runs them). Records
     each step's stats and backend parameters, and the largest parameter
-    move of the step before the milestone and of the last step."""
+    move of the step before the milestone and of the last step; with
+    ``masks`` (a ``DropMasks``), each step's stochastic-depth masks."""
     import torch
 
     n = GRAPH_STEPS + GRAPH_LR_STEPS
@@ -1147,6 +1196,8 @@ def parity_run(trainer, data, per_step, snapshots, record):
                     t.copy_(v)
         before = backend_params(trainer)
         ms, stats = timed_steps(trainer, data, 1, per_step)
+        if masks is not None:
+            masks.step_done()
         record["step_ms"] += ms
         record["stats"] += stats
         record["params"].append(backend_params(trainer))
@@ -1162,87 +1213,112 @@ def compiled_steps(n_dcn, seed):
     graphs dropped, the step captured after it at the new rate), then the
     median ms of GRAPH_TIMED more steps, the busy share (torch.profiler
     over 2 steps) and the peak memory above the trainer's resident state,
-    eager and graphed. On DLA-34 at float32 also the batch-1 serving call
-    each way, then the degrade: after ``maybe_degrade_dcn(PALLAS_MAX_SHIFT)``
-    the next steps capture anew on the exact op and launch no kernel."""
+    eager and graphed. A one-rank run trains every trainer in one NCCL
+    group of one rank, and its graphed trainer then takes two eval steps,
+    the second captured and replayed. On ``keypoints`` every step's
+    stochastic-depth masks, graphed against eager, bit for bit. On DLA-34
+    at float32 (no group) also the batch-1 serving call each way, then the
+    degrade: after ``maybe_degrade_dcn(PALLAS_MAX_SHIFT)`` the next steps
+    capture anew on the exact op and launch no kernel."""
     import numpy as np
     import torch
 
     from centernet_uda_torch.config import compose
     from centernet_uda_torch.ops.dcn import PALLAS_MAX_SHIFT
+    from centernet_uda_torch.parallel import ddp
     from centernet_uda_torch.train import build_trainer
     from centernet_uda_torch.utils.graphs import StepGraphs
 
     out = {}
-    for name, precision, batch in GRAPH_RUNS:
-        label = f"{name} {precision} B={batch}"
+    for name, precision, batch, one_rank in GRAPH_RUNS:
+        label = (f"{name} {precision} B={batch}"
+                 + (" one NCCL rank" if one_rank else ""))
         print(f"-- {label}", flush=True)
         cfg = compose([f"experiment={name}", f"seed={seed}",
                        f"precision={precision}", f"batch_size={batch}",
-                       "optimizer.scheduler.name=MultiStepLR",
-                       "optimizer.scheduler.params.milestones=[1]",
-                       "optimizer.scheduler.params.gamma=0.1"],
+                       "optimizer.scheduler={name: MultiStepLR, params: "
+                       "{milestones: [1], gamma: 0.1}}"],
                       config_dir=str(ROOT / "configs"))
+        params = cfg.model.backend.params
         rng = np.random.RandomState(seed + 13)
         data = synthetic_batch(rng, batch, TRAIN_SIZE,
-                               int(cfg.model.backend.params.num_classes),
-                               int(cfg.max_detections))
-        n = n_dcn if name == "baseline" else 2 * n_dcn
+                               int(params.num_classes),
+                               int(cfg.max_detections),
+                               num_kps=int(params.get("num_keypoints", 0)))
+        dla = cfg.model.backend.name == "dla"
+        n = (n_dcn if name == "baseline" else 2 * n_dcn) if dla else 0
         if name != "baseline":
             data = with_target_domain(data, rng)
         fwd, bwd = (("dcn_fwd", "dcn_bwd") if precision == "float32" else
                     ("dcn_fused_fwd", "dcn_fused_bwd"))
         per_step = expect(**{fwd: n, bwd: n})
         snapshots, runs, kept = [], {}, {}
-        for run, graphs in (("eager", False), ("eager2", False),
-                            ("graphed", True)):
-            trainer = build_trainer(cfg, device="cuda", graphs=graphs)
-            trainer.init_done()
-            torch.cuda.synchronize()
-            resident = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            rec = {"step_ms": [], "stats": [], "params": [], "moves": []}
-            parity_run(trainer, data, per_step, snapshots, rec)
-            before, after = rec["moves"]
-            lrs = sorted({g["lr"] for g in trainer.optimizer.param_groups})
-            if after > GRAPH_LR_RATIO * before:
-                raise AssertionError(
-                    f"{label} {run}: a step at lr {lrs} moved a parameter "
-                    f"by {after}, the last step before the milestone by "
-                    f"{before}")
-            if run != "eager2":
-                ms, _ = timed_steps(trainer, data, GRAPH_TIMED, per_step)
-                rec["median_step_ms"] = float(np.median(ms))
-                rec["peak_bytes"] = (torch.cuda.max_memory_allocated()
-                                     - resident)
-                prof = profile_train_steps(trainer, data, top=3)
-                rec["busy"] = prof["busy"]
-                if prof["dcn_kernels_ms"] <= 0:
-                    raise AssertionError(f"{label} {run}: no DCN kernel in "
-                                         "the profile")
-                rec["launches"] = {k: v * (GRAPH_STEPS + GRAPH_LR_STEPS
-                                           + GRAPH_TIMED)
-                                   for k, v in per_step.items()}
-                print(f"{label} {run}: median step "
-                      f"{rec['median_step_ms']:.2f} ms, busy "
-                      f"{rec['busy']:.1%}, peak above the resident state "
-                      f"{rec['peak_bytes'] / 2**30:.2f} GiB; lr {lrs}: "
-                      f"largest move {after:.3g} after the milestone, "
-                      f"{before:.3g} before", flush=True)
-            if graphs:
-                calls = dict(trainer.step_graphs.calls)
-                # eager, capture, replay; the milestone; eager, capture; then
-                # the timed and profiled steps replay
-                if calls["captures"] != 2 or calls["eager"] != 2:
-                    raise AssertionError(f"{label}: graph calls {calls}")
-                rec["graph_calls"] = calls
-            runs[run] = rec
-            if name == "baseline" and precision == "float32" and graphs:
-                kept["graphed"] = trainer
-            elif name == "baseline" and precision == "float32":
-                kept.setdefault("eager", trainer)
-            del trainer
-            torch.cuda.empty_cache()
+        serve = name == "baseline" and precision == "float32" and not one_rank
+        if one_rank:
+            ddp.init(ddp.Ranks(0, 1, 0, 1, port=ddp.free_port()),
+                     torch.device("cuda", 0))
+        try:
+            for run, graphs in (("eager", False), ("eager2", False),
+                                ("graphed", True)):
+                trainer = build_trainer(cfg, device="cuda", graphs=graphs)
+                trainer.init_done()
+                torch.cuda.synchronize()
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                rec = {"step_ms": [], "stats": [], "params": [], "moves": []}
+                with DropMasks() as masks:
+                    parity_run(trainer, data, per_step, snapshots, rec,
+                               masks)
+                rec["masks"] = masks.steps
+                before, after = rec["moves"]
+                lrs = sorted({g["lr"] for g in trainer.optimizer.param_groups})
+                if after > GRAPH_LR_RATIO * before:
+                    raise AssertionError(
+                        f"{label} {run}: a step at lr {lrs} moved a "
+                        f"parameter by {after}, the last step before the "
+                        f"milestone by {before}")
+                if run != "eager2":
+                    ms, _ = timed_steps(trainer, data, GRAPH_TIMED, per_step)
+                    rec["median_step_ms"] = float(np.median(ms))
+                    rec["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                                         - resident)
+                    prof = profile_train_steps(trainer, data, top=3)
+                    rec["busy"] = prof["busy"]
+                    if n and prof["dcn_kernels_ms"] <= 0:
+                        raise AssertionError(f"{label} {run}: no DCN kernel "
+                                             "in the profile")
+                    rec["launches"] = {k: v * (GRAPH_STEPS + GRAPH_LR_STEPS
+                                               + GRAPH_TIMED)
+                                       for k, v in per_step.items()}
+                    print(f"{label} {run}: median step "
+                          f"{rec['median_step_ms']:.2f} ms, busy "
+                          f"{rec['busy']:.1%}, peak above the resident state "
+                          f"{rec['peak_bytes'] / 2**30:.2f} GiB; lr {lrs}: "
+                          f"largest move {after:.3g} after the milestone, "
+                          f"{before:.3g} before", flush=True)
+                if graphs:
+                    calls = dict(trainer.step_graphs.calls)
+                    # eager, capture, replay; the milestone; eager, capture;
+                    # then the timed and profiled steps replay
+                    if calls["captures"] != 2 or calls["eager"] != 2:
+                        raise AssertionError(f"{label}: graph calls {calls}")
+                    rec["graph_calls"] = calls
+                    if one_rank:
+                        rec["eval_graph_calls"] = graphed_eval(trainer, data)
+                        print(f"{label}: eval steps' graph calls "
+                              f"{rec['eval_graph_calls']} (the second "
+                              "captured with its all-reduces, then "
+                              "replayed)", flush=True)
+                runs[run] = rec
+                if serve and graphs:
+                    kept["graphed"] = trainer
+                elif serve:
+                    kept.setdefault("eager", trainer)
+                del trainer
+                torch.cuda.empty_cache()
+        finally:
+            if one_rank:
+                ddp.shutdown()
         e, e2, g = (runs[k] for k in ("eager", "eager2", "graphed"))
         record = {
             "stats": spread_check(label, "stats", e["stats"], e2["stats"],
@@ -1251,6 +1327,13 @@ def compiled_steps(n_dcn, seed):
                                    e2["params"], g["params"], "l2"),
             "graph_calls": g["graph_calls"],
         }
+        if one_rank:
+            record["eval_graph_calls"] = g["eval_graph_calls"]
+        if any(g["masks"]):
+            record["masks"] = masks_check(label, e["masks"], e2["masks"],
+                                          g["masks"])
+        elif name == "keypoints":
+            raise AssertionError(f"{label}: no stochastic-depth mask drawn")
         for run, rec in (("eager", e), ("graphed", g)):
             record[run] = {key: rec[key] for key in (
                 "median_step_ms", "busy", "peak_bytes", "launches",
@@ -1287,6 +1370,47 @@ def compiled_steps(n_dcn, seed):
         runs.clear()
         torch.cuda.empty_cache()
     return out
+
+
+def graphed_eval(trainer, data):
+    """Two eval steps of a graphed trainer on ``data``: the first eager,
+    the second captured and replayed, with finite stats that agree (the
+    same weights on the same batch, within STAT_RTOL). Returns the two
+    steps' graph calls."""
+    import torch
+
+    before = dict(trainer.step_graphs.calls)
+    stats = [trainer.step(data, is_training=False)["stats"]
+             for _ in range(2)]
+    calls = {k: n - before[k] for k, n in trainer.step_graphs.calls.items()}
+    if calls != {"eager": 1, "captures": 1, "replays": 1}:
+        raise AssertionError(f"eval graph calls {calls}")
+    a, b = (torch.stack([s[k].float() for k in sorted(s)]) for s in stats)
+    if not (bool(torch.isfinite(b).all())
+            and bool(torch.allclose(a, b, rtol=STAT_RTOL, atol=0.0))):
+        raise AssertionError(f"eval stats eager {a} against graphed {b}")
+    return calls
+
+
+def masks_check(label, eager, eager2, graphed):
+    """Every step's stochastic-depth masks, graphed against eager (and the
+    second eager run against the first), bit for bit; returns the count of
+    steps and of masks a step and the share of samples kept."""
+    import torch
+
+    for other, run in ((eager2, "eager2"), (graphed, "graphed")):
+        for i, (a, b) in enumerate(zip(eager, other)):
+            if len(a) != len(b) or not all(torch.equal(x, y)
+                                           for x, y in zip(a, b)):
+                raise AssertionError(f"{label}: {run}'s step {i} masks "
+                                     "differ from the eager step's")
+    kept = torch.cat([m.flatten().float() for ms in eager for m in ms])
+    record = {"steps": len(eager), "masks_a_step": len(eager[0]),
+              "kept": float(kept.mean())}
+    print(f"{label}: stochastic-depth masks of {record['steps']} steps "
+          f"({record['masks_a_step']} blocks a step), graphed and eager bit "
+          f"for bit, {record['kept']:.1%} of samples kept", flush=True)
+    return record
 
 
 def kernel_line(name, src, replaces, outs, records, label, launches,
@@ -2065,9 +2189,20 @@ def backbones_rotated_keypoints(n_dcn, seed):
             record["heads_card_vs_cpu"] = check_heads_card_vs_cpu(trainer)
         net = backend.module
         before = {k: p.detach().clone() for k, p in net.named_parameters()}
+        train_calls = {}
         record["train"], record["eval"] = train_and_eval(
             trainer, cfg, data, eval_data, per_step, per_eval,
-            steps=P9_STEPS)
+            steps=P9_STEPS,
+            after_step=lambda t: train_calls.update(t.step_graphs.calls))
+        if trainer.drop_generator is not None:
+            if train_calls != {"eager": 1, "captures": 1,
+                               "replays": P9_STEPS - 1}:
+                raise AssertionError(f"{name}: train graph calls "
+                                     f"{train_calls}")
+            print(f"{name}: the train steps replayed their graph, the "
+                  f"stochastic-depth generator registered: graph calls "
+                  f"{train_calls}", flush=True)
+        record["train_graph_calls"] = train_calls
         if name == "dla_freeze_base":
             for k, p in net.named_parameters():
                 trunk = k.startswith("base.")
@@ -2546,6 +2681,7 @@ def one_rank_steps(n_dcn, seed):
                     losses.append({k: float(v) for k, v in stats.items()})
                 launches = dict(dcn_cuda.LAUNCHES)
                 distributed = ddp.is_distributed()
+                graph_calls = dict(trainer.step_graphs.calls)
             finally:
                 ddp.shutdown()
             want = expect(**{fwd: n_dcn * steps, bwd: n_dcn * steps})
@@ -2555,8 +2691,12 @@ def one_rank_steps(n_dcn, seed):
                                      f"{distributed}")
             if not all(math.isfinite(v) for s in losses for v in s.values()):
                 raise AssertionError(f"{mode} {precision}: losses {losses}")
+            if mode == "one_rank" and graph_calls != {
+                    "eager": 1, "captures": 1, "replays": P10_STEPS - 1}:
+                raise AssertionError(f"one rank {precision}: graph calls "
+                                     f"{graph_calls}")
             runs[mode] = {"step_ms": step_ms, "stats": losses,
-                          "launches": launches}
+                          "launches": launches, "graph_calls": graph_calls}
             del trainer
             torch.cuda.empty_cache()
         plain = runs["plain"]["stats"][0]
@@ -2576,7 +2716,9 @@ def one_rank_steps(n_dcn, seed):
             runs["plain"]["stats"][1:], runs["one_rank"]["stats"][1:])]
         ms = {m: sum(runs[m]["step_ms"][1:]) / (P10_STEPS - 1)
               for m in ("plain", "one_rank")}
-        print(f"one NCCL rank, DLA-34 {precision} B={cfg.batch_size}: step "
+        print(f"one NCCL rank, DLA-34 {precision} B={cfg.batch_size}: graph "
+              f"calls {runs['one_rank']['graph_calls']} (the train step "
+              f"graphed, its all-reduces captured); step "
               f"{ms['one_rank']:.1f} ms (plain {ms['plain']:.1f} ms); first "
               f"step's losses max |diff| {max(first.values()):.3g} of "
               f"{scale:.4g} ({RANK_PLAIN} plain trainers: {spread:.3g}); "
@@ -2651,6 +2793,13 @@ def ranks_through_main(n_dcn, seed):
                    for m in run["log"]):
             raise AssertionError(f"one rank {precision}: main() did not "
                                  f"run as a rank: {run['log']}")
+        calls = [(p["tag"], p["graph_calls"]) for p in run["phases"]]
+        if not all(c["replays"] > 0 for tag, c in calls
+                   if tag == "training"):
+            raise AssertionError(f"one rank {precision}: a training phase "
+                                 f"of main() replayed no graph: {calls}")
+        print(f"one rank {precision} through main(): graph calls by phase "
+              f"{calls}", flush=True)
         out[f"cli_one_rank_{precision}"] = run
     warning = ("requested 2-way data parallelism but only 1 device(s) "
                "available; running single-device")

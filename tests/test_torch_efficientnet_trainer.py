@@ -95,9 +95,9 @@ class JaxModelWithoutDropout(JaxModel):
         return super()._apply_backend(params, batch_stats, x, train, None)
 
 
-def make_batch(seed):
+def make_batch(seed, size=SIZE):
     rng = np.random.RandomState(seed)
-    out = SIZE // 4
+    out = size // 4
     per_image = []
     for _ in range(BATCH):
         n = rng.randint(2, 6)
@@ -112,7 +112,7 @@ def make_batch(seed):
             -1).astype(np.uint8)
         per_image.append(t)
     data = {k: np.stack([t[k] for t in per_image]) for k in per_image[0]}
-    data["input"] = rng.randn(BATCH, 3, SIZE, SIZE).astype(np.float32)
+    data["input"] = rng.randn(BATCH, 3, size, size).astype(np.float32)
     data["id"] = np.arange(BATCH)
     return data
 
@@ -124,25 +124,39 @@ def to_jax(data):
     return out
 
 
+def jax_trainer():
+    """The JAX trainer without stochastic depth, initialised (call under
+    ``jax_common.set_bn_groups(1)``)."""
+    jcfg = jax_config.compose(OVERRIDES)
+    jm = JaxModelWithoutDropout()
+    jm.cfg = jcfg
+    jm.backend = jax_effnet.build(3, "b0", num_keypoints=NUM_KPS,
+                                  use_skip=True)
+    jm.centernet_loss = JaxLoss(**jcfg.model.backend.loss.params.to_dict())
+    jm.optimizer_cfg = jcfg.optimizer.to_dict()
+    jm.init_done()
+    return jm
+
+
+def port_trainer(jm):
+    """The port's trainer from ``jm``'s initial weights, its backend
+    without stochastic depth."""
+    port = build_trainer(compose(OVERRIDES), device="cpu")
+    port.init_done()
+    port.backend.module.drop_generator = None
+    port.backend.module.load_state_dict(state_dict_from_jax(
+        {"params": jax.tree.map(np.asarray, jm.state.params),
+         "batch_stats": jax.tree.map(np.asarray, jm.state.batch_stats)},
+        "efficientnet-b0"))
+    return port
+
+
 def test_three_steps_match_jax_trainer():
     old = jax_common.get_bn_groups()
     jax_common.set_bn_groups(1)
     try:
-        jcfg = jax_config.compose(OVERRIDES)
-        jm = JaxModelWithoutDropout()
-        jm.cfg = jcfg
-        jm.backend = jax_effnet.build(3, "b0", num_keypoints=NUM_KPS,
-                                      use_skip=True)
-        jm.centernet_loss = JaxLoss(**jcfg.model.backend.loss.params.to_dict())
-        jm.optimizer_cfg = jcfg.optimizer.to_dict()
-        jm.init_done()
-        port = build_trainer(compose(OVERRIDES), device="cpu")
-        port.init_done()
-        port.backend.module.drop_generator = None
-        port.backend.module.load_state_dict(state_dict_from_jax(
-            {"params": jax.tree.map(np.asarray, jm.state.params),
-             "batch_stats": jax.tree.map(np.asarray, jm.state.batch_stats)},
-            "efficientnet-b0"))
+        jm = jax_trainer()
+        port = port_trainer(jm)
         previous = None
         for seed in range(3):
             data = make_batch(seed)

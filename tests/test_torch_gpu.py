@@ -635,3 +635,131 @@ def test_graphed_dla34_steps_match_eager(cuda, precision):
         diff = max(float(norm(g - a)) for a, g in zip(got[0], got[2]))
         scale = max(float(norm(a)) for a in got[0])
         assert diff <= 4 * spread + 1e-6 * scale, (diff, spread)
+
+
+def test_registered_generator_replays_draw_the_eager_draws(cuda):
+    """A step that draws from a CUDA generator of its own, the generator
+    named to ``StepGraphs`` and reseeded before every call: each call,
+    eager, captured and replayed or replayed, gives the ``torch.rand``
+    draws of an eager call after the same ``manual_seed``, bit for bit."""
+    from centernet_uda_torch.utils.graphs import StepGraphs
+
+    gen = torch.Generator(cuda)
+
+    def fn(inputs):
+        return {"a": inputs["x"] + torch.rand(1000, generator=gen,
+                                              device=cuda),
+                "b": torch.rand((16, 1, 1, 1), generator=gen, device=cuda)}
+
+    graphs = StepGraphs(cuda)
+    x = torch.zeros(1000)
+    for step in range(4):
+        gen.manual_seed(7919 + step)
+        got = graphs("step", fn, {"x": x}, (gen,))
+        gen.manual_seed(7919 + step)
+        want = fn({"x": x.to(cuda)})
+        assert torch.equal(got["a"], want["a"]), step
+        assert torch.equal(got["b"], want["b"]), step
+    assert graphs.calls == {"eager": 1, "captures": 1, "replays": 3}
+
+
+def test_one_rank_nccl_train_step_captures_and_replays(cuda):
+    """DLA-34 at full width, 128 px, batch 2, as the trainer of a one-rank
+    NCCL group: the train step is graphed (its loss normalizers' and
+    gradients' all-reduces captured), three steps run eagerly, captured
+    and replayed, then replayed, each launching the DCN kernels of the
+    eager step (at 128 px the smallest maps take the select route), with
+    finite losses that move."""
+    from pathlib import Path
+
+    from centernet_uda_torch.bench import synthetic_batch
+    from centernet_uda_torch.config import compose
+    from centernet_uda_torch.parallel import ddp
+    from centernet_uda_torch.train import build_trainer
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = compose(["experiment=baseline", "batch_size=2",
+                   "model.backend.params.num_classes=6"],
+                  config_dir=str(root / "configs"))
+    ddp.init(ddp.Ranks(0, 1, 0, 1, port=ddp.free_port()),
+             torch.device("cuda", 0))
+    try:
+        trainer = build_trainer(cfg, device="cuda")
+        trainer.init_done()
+        assert ddp.is_distributed() and trainer.compiled("train")
+        data = synthetic_batch(2, 128)
+        losses, launches = [], []
+        for _ in range(3):
+            dcn_cuda.reset_launches()
+            stats = trainer.step(data)["stats"]
+            torch.cuda.synchronize()
+            launches.append(dict(dcn_cuda.LAUNCHES))
+            losses.append(float(stats["total_loss"]))
+        assert trainer.step_graphs.calls == {"eager": 1, "captures": 1,
+                                             "replays": 2}
+        assert launches[0] == launches[1] == launches[2]
+        assert launches[0]["dcn_fwd"] + launches[0]["dcn_sel_fwd"] == 16
+    finally:
+        ddp.shutdown()
+    assert all(np.isfinite(losses)) and len(set(losses)) == 3
+
+
+def test_a_graph_the_collector_frees_does_not_break_a_capture(cuda):
+    """A graphed step dropped in a reference cycle (as a discarded
+    trainer's graphs are, until the cyclic collector runs), then another
+    step captured whose function runs the collector (as any allocation in
+    it may): the dead graph is freed before the capture, not inside it
+    (where freeing it invalidates the capture), and the new step captures
+    and replays the eager step's result."""
+    import gc
+
+    from centernet_uda_torch.utils.graphs import StepGraphs
+
+    def fn(inputs):
+        return {"y": inputs["x"] @ inputs["x"]}
+
+    def collecting(inputs):
+        gc.collect()
+        return fn(inputs)
+
+    x = torch.randn(64, 64)
+    was = gc.isenabled()
+    gc.disable()  # the cycle stays until something collects it
+    try:
+        old = StepGraphs(cuda)
+        for _ in range(2):
+            old("step", fn, {"x": x})
+        assert len(old) == 1
+        cycle = {"graphs": old}
+        cycle["self"] = cycle
+        del old, cycle
+        graphs = StepGraphs(cuda)
+        got = [graphs("step", collecting, {"x": x})["y"] for _ in range(3)]
+        torch.cuda.synchronize()
+    finally:
+        if was:
+            gc.enable()
+    assert graphs.calls == {"eager": 1, "captures": 1, "replays": 2}
+    for y in got[1:]:
+        torch.testing.assert_close(y, got[0], rtol=1e-5, atol=1e-5)
+
+
+def test_a_failed_capture_raises_and_does_not_fall_back(cuda):
+    """A step that reads a value on the host (``.item()``) cannot be
+    captured: its capture raises, and so does the next call; no call runs
+    the step eagerly in its place. (Last in the file: the failed capture
+    leaves its graph pool unusable.)"""
+    from centernet_uda_torch.utils.graphs import StepGraphs
+
+    def fn(inputs):
+        return {"y": inputs["x"] + float(inputs["x"].sum().item())}
+
+    graphs = StepGraphs(cuda)
+    x = torch.ones(4)
+    assert torch.equal(graphs("step", fn, {"x": x})["y"].cpu(), x + 4)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            graphs("step", fn, {"x": x})
+    assert graphs.calls == {"eager": 1, "captures": 0, "replays": 0}
+    assert len(graphs) == 0
+    assert float((torch.ones(3, device=cuda) * 2).sum()) == 6.0

@@ -24,6 +24,20 @@
   the largest difference is 2e-6 of an update. The optimizers are SGD with
   momentum: Adam's first steps are about lr * sign(g), so a reordering
   that flips the sign of a gradient near zero moves a parameter by 2 lr.
+- Compiled steps under two ranks: the same runs through ``StepGraphs``
+  with the CPU stand-in of a CUDA graph (``tests/torch_graph_stand_in.py``;
+  its capture runs the step's collectives, which the ranks all do at the
+  same call), for ``bn_sync: global`` (the cross-rank all-gather) and
+  ADVENT (both optimizers' gradients in one all-reduce): over 8 steps that
+  meet the three events that drop the graphs (``torch_ddp_worker.EVENTS``:
+  a degrade forced through rank 0's ``dcn_max_abs_dy``, a MultiStepLR
+  milestone, a ``load_model``), bit for bit the eager ranks' trajectory
+  through the same events, with both ranks at the same graph generation
+  and calls; over 3 steps (eager, capture and replay, replay) within the
+  bound above of one process. Longer runs part from one process by more
+  than that bound whatever runs the steps (the eager ranks do too, by the
+  eighth step, in both cases), so the 8-step runs are held to the eager
+  ranks alone.
 - ``main()`` under two ranks (as ``torchrun`` starts them) on a tiny COCO
   set: rank 0 alone writes ``config.yaml``, logs and the checkpoints (the
   module's own names), its evaluator takes both ranks' detections, and the
@@ -270,23 +284,29 @@ def global_batches(tmp_path, size, steps=2, batch=4, target=False):
     return path
 
 
-def two_ranks(tmp_path, overrides, batches):
+def two_ranks(tmp_path, overrides, batches, name="ranks", **options):
+    """Rank 0's results of two gloo ranks (``options``: the worker's spec
+    keys ``graphs`` and ``events``; with ``events`` rank 1's too, as
+    ``[rank 0's, rank 1's]``)."""
     spec = {"overrides": overrides, "batches": str(batches),
-            "out": str(tmp_path / "ranks.pt")}
-    (tmp_path / "spec.json").write_text(json.dumps(spec))
+            "out": str(tmp_path / f"{name}.pt"), **options}
+    (tmp_path / f"{name}.json").write_text(json.dumps(spec))
     port = ddp.free_port()
     results = run_procs([([sys.executable, "tests/torch_ddp_worker.py",
                            str(r), "2", str(port),
-                           str(tmp_path / "spec.json")], ROOT, env())
+                           str(tmp_path / f"{name}.json")], ROOT, env())
                          for r in range(2)])
     for rc, _, err in results:
         assert rc == 0, err[-3000:]
+    if options.get("events"):
+        return [torch.load(path, weights_only=True)
+                for path in (spec["out"], spec["out"] + ".1")]
     return torch.load(spec["out"], weights_only=True)
 
 
-def one_process(tmp_path, overrides, batches):
+def one_process(tmp_path, overrides, batches, **options):
     spec = {"overrides": overrides, "batches": str(batches),
-            "out": str(tmp_path / "single.pt")}
+            "out": str(tmp_path / "single.pt"), **options}
     torch_ddp_worker.run(0, 0, 0, spec)
     return torch.load(spec["out"], weights_only=True)
 
@@ -308,21 +328,16 @@ RANK_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(RANK_CASES))
-def test_two_ranks_match_one_process(tmp_path, case):
-    ranks_cfg, single_cfg, size = RANK_CASES[case]
-    batches = global_batches(tmp_path, size, target=case == "advent")
-    got = two_ranks(tmp_path, ranks_cfg + NARROW + SGD, batches)
-    want = one_process(tmp_path, single_cfg + NARROW + SGD, batches)
-    assert len(got["stats"]) == len(want["stats"]) == 2
+def ranks_match_one_process(got, want, steps):
+    """Every stat of every step within TOL relative, every parameter and
+    BatchNorm statistic within TOL of its tensor's scale."""
+    assert len(got["stats"]) == len(want["stats"]) == steps
     for step, (g, w) in enumerate(zip(got["stats"], want["stats"])):
         assert set(g) == set(w), step
         for k in w:
             assert math.isclose(g[k], w[k], rel_tol=TOL, abs_tol=1e-9), (
                 step, k, g[k], w[k])
     assert set(got["params"]) == set(want["params"])
-    if case == "advent":
-        assert any(k.startswith("disc.") for k in want["params"])
     moved = 0
     for k, w in want["params"].items():
         if not w.is_floating_point():  # num_batches_tracked
@@ -332,6 +347,87 @@ def test_two_ranks_match_one_process(tmp_path, case):
         moved += not torch.equal(w, want["initial"][k])
     # the steps moved nearly every tensor (two idle runs would agree too)
     assert moved >= 0.9 * len(want["params"]) - 20, moved
+
+
+@pytest.mark.parametrize("case", sorted(RANK_CASES))
+def test_two_ranks_match_one_process(tmp_path, case):
+    ranks_cfg, single_cfg, size = RANK_CASES[case]
+    batches = global_batches(tmp_path, size, target=case == "advent")
+    got = two_ranks(tmp_path, ranks_cfg + NARROW + SGD, batches)
+    want = one_process(tmp_path, single_cfg + NARROW + SGD, batches)
+    if case == "advent":
+        assert any(k.startswith("disc.") for k in want["params"])
+    ranks_match_one_process(got, want, 2)
+
+
+GRAPHED_CASES = ("global", "advent")
+# the events' run: 8 steps (EVENTS after steps 1, 3 and 5), and a DCN route
+# that the degrade can switch (on the CPU "auto" runs the exact op)
+EVENT_STEPS = 8
+EVENTS_CFG = ["dcn_impl=auto"]
+
+
+@pytest.fixture(scope="module")
+def graphed_rank_runs(tmp_path_factory):
+    """Per case of GRAPHED_CASES: through the events, the graphed ranks'
+    results and the eager ranks' (both ranks' each); without them, 3 steps
+    of the graphed ranks (rank 0's) and of one process."""
+    cache = {}
+
+    def get(case):
+        if case not in cache:
+            tmp = tmp_path_factory.mktemp(f"graphed_{case}")
+            ranks_cfg, single_cfg, size = RANK_CASES[case]
+            batches = global_batches(tmp, size, steps=EVENT_STEPS,
+                                     target=case == "advent")
+            extra = NARROW + SGD + EVENTS_CFG
+            short = global_batches(tmp_path_factory.mktemp(f"short_{case}"),
+                                   size, steps=3, target=case == "advent")
+            cache[case] = {
+                "graphed": two_ranks(tmp, ranks_cfg + extra, batches,
+                                     "graphed", graphs=True, events=True),
+                "eager": two_ranks(tmp, ranks_cfg + extra, batches,
+                                   "eager", events=True),
+                "graphed_short": two_ranks(tmp, ranks_cfg + NARROW + SGD,
+                                           short, "short", graphs=True),
+                "single_short": one_process(tmp, single_cfg + NARROW + SGD,
+                                            short)}
+        return cache[case]
+
+    return get
+
+
+@pytest.mark.parametrize("case", GRAPHED_CASES)
+def test_graphed_ranks_are_the_eager_ranks_bit_for_bit(case,
+                                                       graphed_rank_runs):
+    runs = graphed_rank_runs(case)
+    for graphed, eager in zip(runs["graphed"], runs["eager"]):
+        assert graphed["stats"] == eager["stats"]
+        assert set(graphed["params"]) == set(eager["params"])
+        for k, v in eager["params"].items():
+            assert torch.equal(graphed["params"][k], v), k
+        assert eager["graphs"] is None
+
+
+@pytest.mark.parametrize("case", GRAPHED_CASES)
+def test_graphed_ranks_match_one_process(case, graphed_rank_runs):
+    runs = graphed_rank_runs(case)
+    assert runs["graphed_short"]["graphs"] == {
+        "generation": 0, "calls": {"eager": 1, "captures": 1, "replays": 2}}
+    ranks_match_one_process(runs["graphed_short"], runs["single_short"], 3)
+
+
+@pytest.mark.parametrize("case", GRAPHED_CASES)
+def test_graphed_ranks_drop_their_graphs_in_step(case, graphed_rank_runs):
+    """Each event dropped every rank's graphs at the same call: per
+    generation one eager call, one capture and one replay."""
+    runs = graphed_rank_runs(case)["graphed"]
+    rank0, rank1 = (r["graphs"] for r in runs)
+    assert rank0 == rank1 == {
+        "generation": 3, "calls": {"eager": 4, "captures": 4, "replays": 4}}
+    # the degrade forced on rank 0 reached rank 1 through the maximum
+    dys = [[s["dcn_max_abs_dy"] for s in r["stats"]] for r in runs]
+    assert dys[0] == dys[1] and dys[1][1] == max(dys[1]) > 0
 
 
 # --------------------------------------------------------------------------

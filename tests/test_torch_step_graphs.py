@@ -1,13 +1,13 @@
 """The compiled steps (``centernet_uda_torch/utils/graphs.py``) on the CPU.
 
 A CUDA graph needs a card, so ``StepGraphs`` gets a stand-in for it here
-(``StandInGraph``): capture runs the step once and puts back every state
-tensor it changed (a real capture records and runs nothing), and a replay
-runs the step again on the static inputs, writes its results into the
-captured outputs and puts the launch counters back (a real replay runs no
-Python). With it the helper's own logic runs as on the card: the first
-call of a signature eager, the second capturing and replaying once, later
-ones replaying; copies returned; invalidation; launch accounting.
+(``tests/torch_graph_stand_in.py``). With it the helper's own logic runs
+as on the card: the first call of a signature eager, the second capturing
+and replaying once, later ones replaying; copies returned; invalidation;
+launch accounting; the generators a step draws from handed to the graph;
+a failed capture raised, never run eagerly instead. ``CudaGraph`` itself,
+with torch's graph calls stood in: the collector runs before a capture and
+not during it.
 
 Trajectories: a narrow DLA-34 at 64 px (``tests/test_torch_slice.py``'s
 config, Adam at lr 1e-3) and ADVENT at 128 px
@@ -18,6 +18,9 @@ of the JAX package's jitted steps, the bound of
 ``test_torch_slice.py::test_loss_trajectory_matches_jax``.
 """
 
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -25,72 +28,14 @@ import torch
 from centernet_uda_torch.config import compose
 from centernet_uda_torch.ops.dcn import PALLAS_MAX_SHIFT
 from centernet_uda_torch.train import build_trainer
-from centernet_uda_torch.utils.graphs import StepGraphs, map_tensors
+from centernet_uda_torch.utils import graphs as graphs_lib
+from centernet_uda_torch.utils.graphs import StepGraphs
 from tests import test_torch_slice as sl
 from tests import test_torch_uda_twins as tw
+from tests.torch_graph_stand_in import (StandInGraph, stand_in_graphs,
+                                        state_of)
 
 torch.set_num_threads(2)
-
-
-class StandInGraph:
-    """A CUDA graph's behaviour on the CPU (see the module docstring).
-    ``state()`` gives the tensors a step updates in place; ``counters`` the
-    launch counters a replay must leave alone."""
-
-    def __init__(self, state=lambda: (), counters=None):
-        self.state = state
-        self.counters = counters
-        self.fn = self.outputs = None
-
-    def capture(self, fn):
-        tensors = list(self.state())
-        saved = [t.detach().clone() for t in tensors]
-        self.fn = fn
-        self.outputs = fn()
-        with torch.no_grad():
-            for t, v in zip(tensors, saved):
-                t.copy_(v)
-        return self.outputs
-
-    def replay(self):
-        counts = None if self.counters is None else dict(self.counters)
-        new = iter(_leaves(self.fn()))
-        for dst in _leaves(self.outputs):
-            src = next(new)
-            with torch.inference_mode(dst.is_inference()), torch.no_grad():
-                dst.copy_(src)
-        if counts is not None:
-            self.counters.update(counts)
-
-
-def _leaves(tree):
-    out = []
-    map_tensors(out.append, tree)
-    return out
-
-
-def state_of(trainer):
-    """The tensors a train step updates in place: the backend's (and the
-    discriminator's) parameters and buffers and the optimizers' state."""
-    tensors = []
-    modules = [trainer.backend.module, getattr(trainer, "discriminator",
-                                               None)]
-    optims = [trainer.optimizer, getattr(trainer, "disc_optimizer", None)]
-    for m in filter(None, modules):
-        tensors += list(m.parameters()) + list(m.buffers())
-    for opt in filter(None, optims):
-        for st in opt.state.values():
-            tensors += [v for v in st.values() if isinstance(v, torch.Tensor)]
-    return tensors
-
-
-def stand_in_graphs(trainer, counters=None):
-    """Give ``trainer`` compiled steps on the CPU, through the stand-in."""
-    trainer.step_graphs = StepGraphs(
-        "cpu", graph_factory=lambda: StandInGraph(lambda: state_of(trainer),
-                                                  counters),
-        counters={} if counters is None else counters)
-    return trainer.step_graphs
 
 
 # ---------------------------------------------------------------------------
@@ -106,7 +51,8 @@ def test_first_call_eager_then_capture_then_replay_and_new_shapes():
         state.add_(1)
         return {"y": inputs["x"] * 2 + state}
 
-    graphs = StepGraphs("cpu", lambda: StandInGraph(lambda: [state]),
+    graphs = StepGraphs("cpu", lambda gens: StandInGraph(gens,
+                                                         lambda: [state]),
                         counters={})
     x = torch.arange(3.0)
     out = graphs("step", fn, {"x": x})
@@ -153,8 +99,8 @@ def test_launch_accounting_adds_a_replay_exactly():
         counters["dcn_bwd"] += 2
         return {"y": inputs["x"] + 1}
 
-    graphs = StepGraphs("cpu", lambda: StandInGraph(counters=counters),
-                        counters=counters)
+    graphs = StepGraphs("cpu", lambda gens: StandInGraph(
+        gens, counters=counters), counters=counters)
     for step in range(1, 6):
         graphs("step", fn, {"x": torch.zeros(2)})
         assert counters == {"dcn_fwd": 3 * step, "dcn_bwd": 2 * step}
@@ -171,6 +117,126 @@ def test_invalidate_drops_every_graph():
     assert len(graphs) == 0 and graphs.generation == 1
     graphs("a", lambda i: i["x"] + 1, {"x": torch.zeros(1)})
     assert graphs.calls["eager"] == 3 and len(graphs) == 0
+
+
+def test_the_generators_reach_the_graph_and_each_replay_redraws():
+    """A step that draws from a generator of its own names it; the graph
+    gets it, and a replay after ``manual_seed`` draws what an eager call
+    after the same seed draws (a registered CUDA generator's replay reads
+    its host seed and offset)."""
+    gen = torch.Generator()
+    made = []
+
+    def factory(generators):
+        made.append(generators)
+        return StandInGraph(generators)
+
+    def fn(inputs):
+        return {"y": inputs["x"] + torch.rand(5, generator=gen),
+                "z": torch.rand(2, 3, generator=gen)}
+
+    graphs = StepGraphs("cpu", factory, counters={})
+    for step in range(4):
+        gen.manual_seed(100 + step)
+        got = graphs("step", fn, {"x": torch.zeros(5)}, (gen,))
+        gen.manual_seed(100 + step)
+        want = fn({"x": torch.zeros(5)})
+        assert torch.equal(got["y"], want["y"]), step
+        assert torch.equal(got["z"], want["z"]), step
+    assert made == [(gen,)]
+    assert graphs.calls == {"eager": 1, "captures": 1, "replays": 3}
+
+
+class FailingGraph(StandInGraph):
+    """A capture that fails, as one that calls ``.item()`` does on the
+    card."""
+
+    def capture(self, fn):
+        raise RuntimeError("operation not permitted when stream is "
+                           "capturing")
+
+
+def test_a_failed_capture_raises_and_does_not_fall_back():
+    runs = []
+
+    def fn(inputs):
+        runs.append(1)
+        return {"y": inputs["x"] + 1}
+
+    graphs = StepGraphs("cpu", FailingGraph, counters={})
+    graphs("step", fn, {"x": torch.zeros(2)})
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="capturing"):
+            graphs("step", fn, {"x": torch.zeros(2)})
+    # the eager call ran the step; the failed captures ran nothing instead
+    assert len(runs) == 1 and len(graphs) == 0
+    assert graphs.calls == {"eager": 1, "captures": 0, "replays": 0}
+
+
+class _Node:
+    """A weakly referable object for a reference cycle."""
+
+
+@pytest.mark.parametrize("fails", [False, True])
+@pytest.mark.parametrize("collector_on", [True, False])
+def test_a_cuda_capture_collects_first_and_not_during_it(monkeypatch, fails,
+                                                         collector_on):
+    """``CudaGraph.capture`` (torch's graph and capture context stood in):
+    garbage in a reference cycle, as a dropped trainer's graphs are, is
+    collected before the captured function runs; the collector is off while
+    it runs (a graph it frees there would break the capture) and after the
+    capture, failed or not, on or off as it was before."""
+    seen = []
+
+    class Graph:
+        def register_generator_state(self, gen):
+            seen.append(("generator", gen))
+
+    class Capture:
+        def __init__(self, graph, pool=None, capture_error_mode=None):
+            seen.append(("mode", capture_error_mode))
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", Capture)
+    gen = torch.Generator()
+
+    def fn():
+        seen.append(("dead", ref() is None))
+        seen.append(("collector on", gc.isenabled()))
+        if fails:
+            raise RuntimeError("operation not permitted when stream is "
+                               "capturing")
+        return "outputs"
+
+    was = gc.isenabled()
+    gc.disable()  # the cycle stays until something collects it
+    try:
+        node = _Node()
+        node.self = node
+        ref = weakref.ref(node)
+        del node
+        if collector_on:
+            gc.enable()
+        graph = graphs_lib.CudaGraph(None, (gen,))
+        if fails:
+            with pytest.raises(RuntimeError, match="capturing"):
+                graph.capture(fn)
+        else:
+            assert graph.capture(fn) == "outputs"
+        assert gc.isenabled() == collector_on
+    finally:
+        if was:
+            gc.enable()
+        else:
+            gc.disable()
+    assert seen == [("generator", gen), ("mode", "thread_local"),
+                    ("dead", True), ("collector on", False)]
 
 
 # ---------------------------------------------------------------------------
@@ -354,3 +420,110 @@ def test_advent_discriminator_schedule_drops_the_graphs():
     moved = np.isfinite([float(v) for v in
                          trainer.step(data)["stats"].values()]).all()
     assert moved
+
+
+# ---------------------------------------------------------------------------
+# EfficientNet: its stochastic-depth generator inside the graph
+
+
+def drop_blocks(net):
+    from centernet_uda_torch.models.efficientnet import MBConv
+
+    return sum(1 for m in net.modules() if isinstance(m, MBConv)
+               and m.use_res and m.drop_rate > 0)
+
+
+@pytest.fixture(scope="module")
+def effnet_runs():
+    """EfficientNet-b0 (``experiment=keypoints`` on the baseline trainer)
+    at 64 px, its stochastic depth on: 3 train steps of an eager and of a
+    graphed trainer from one seed, with each step's masks (those of its
+    last forward) and stats, and both trainers."""
+    from centernet_uda_torch.models import efficientnet
+    from tests import test_torch_efficientnet_trainer as ek
+
+    drawn = []
+    draw = efficientnet.drop_connect
+
+    def recording(x, keep, mask):
+        drawn.append(mask.clone())
+        return draw(x, keep, mask)
+
+    runs = {}
+    mp = pytest.MonkeyPatch()
+    mp.setattr(efficientnet, "drop_connect", recording)
+    try:
+        for run in ("eager", "graphed"):
+            trainer = build_trainer(compose(ek.OVERRIDES), device="cpu")
+            trainer.init_done()
+            if run == "graphed":
+                stand_in_graphs(trainer)
+            blocks = drop_blocks(trainer.backend.module)
+            steps = []
+            for seed in range(3):
+                stats = trainer.step(ek.make_batch(seed, 64))["stats"]
+                steps.append(({k: v.item() for k, v in stats.items()},
+                              drawn[-blocks:]))
+            runs[run] = (trainer, steps)
+    finally:
+        mp.undo()
+    return runs
+
+
+def test_efficientnet_graphed_trajectory_is_the_eager_one_bit_for_bit(
+        effnet_runs):
+    (eager, e_steps), (graphed, g_steps) = (effnet_runs["eager"],
+                                            effnet_runs["graphed"])
+    assert graphed.compiled("train") and graphed.drop_generator is not None
+    assert graphed.step_graphs.calls == {"eager": 1, "captures": 1,
+                                         "replays": 2}
+    for (g, g_masks), (e, e_masks) in zip(g_steps, e_steps):
+        assert g == e
+        assert len(g_masks) == len(e_masks) > 5
+        for a, b in zip(g_masks, e_masks):
+            assert torch.equal(a, b)
+    # the masks drop samples, and another step count draws other masks
+    masks = [torch.cat([m.flatten() for m in ms]) for _, ms in e_steps]
+    assert not all(bool(m.all()) for m in masks)
+    assert not torch.equal(masks[0], masks[1])
+    for a, b in zip(state_of(graphed), state_of(eager)):
+        assert torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def effnet_jax_runs():
+    """``tests/test_torch_efficientnet_trainer.py``'s three steps (128 px,
+    Adam at lr 1e-4, stochastic depth off on both sides) with the port's
+    trainer graphed."""
+    from centernet_uda_tpu.models import common as jax_common
+    from tests import test_torch_efficientnet_trainer as ek
+
+    old = jax_common.get_bn_groups()
+    jax_common.set_bn_groups(1)
+    try:
+        jm = ek.jax_trainer()
+        port = ek.port_trainer(jm)
+        stand_in_graphs(port)
+        steps = []
+        for seed in range(3):
+            data = ek.make_batch(seed)
+            want = jm.step(ek.to_jax(data), is_training=True)["stats"]
+            got = port.step(data, is_training=True)["stats"]
+            steps.append(({k: float(v) for k, v in got.items()},
+                          {k: float(v) for k, v in want.items()}))
+    finally:
+        jax_common.set_bn_groups(old)
+    assert port.step_graphs.calls == {"eager": 1, "captures": 1,
+                                      "replays": 2}
+    return steps
+
+
+@pytest.mark.parametrize("step", [0, 1, 2])
+def test_efficientnet_graphed_trajectory_matches_jax(step, effnet_jax_runs):
+    got, want = effnet_jax_runs[step]
+    assert set(got) == set(want)
+    for k in ("hm_loss", "wh_loss", "off_loss", "kp_loss", "total_loss"):
+        assert got[k] == pytest.approx(want[k], rel=1e-3), k
+    if step:
+        assert got["total_loss"] != effnet_jax_runs[step - 1][0][
+            "total_loss"]

@@ -14,6 +14,16 @@ without a group), and rank 0 saves the stats of every step and the
 parameters before and after the steps (backend with its BatchNorm
 statistics, and the discriminator where the trainer has one) with
 ``torch.save``. It imports neither JAX nor the JAX package.
+
+With ``"graphs": true`` in the spec the trainer's steps go through
+``StepGraphs`` with the CPU stand-in of a CUDA graph
+(``tests/torch_graph_stand_in.py``). With ``"events": true`` the run also
+meets the three events that drop the graphs, each after the step named in
+``EVENTS``: a degrade forced through rank 0's own ``dcn_max_abs_dy`` (the
+other ranks report 0; every rank degrades on the maximum, as ``train.py``
+reads it), a MultiStepLR milestone (``epoch_end``), and a ``load_model`` of
+a checkpoint each rank writes; every rank then saves its graph counts,
+rank r > 0 to ``<out>.<r>``.
 """
 
 import json
@@ -21,6 +31,10 @@ import sys
 
 import numpy as np
 import torch
+
+
+# step after which each event happens (``"events": true``)
+EVENTS = {1: "degrade", 3: "learning_rate", 5: "load_model"}
 
 
 def batches(path):
@@ -40,12 +54,45 @@ def state(trainer):
     return params
 
 
+def forced_dy(ddp, rank, steps):
+    """``ddp.reduce_stats`` that first sets this rank's ``dcn_max_abs_dy``:
+    the kernels' clamp on rank 0 at the degrade's step, else 0."""
+    from centernet_uda_torch.ops.dcn import PALLAS_MAX_SHIFT
+
+    reduce = ddp.reduce_stats
+    degrade = next(s for s, e in EVENTS.items() if e == "degrade")
+
+    def reduce_stats(stats):
+        dy = PALLAS_MAX_SHIFT if rank == 0 and len(steps) == degrade else 0.0
+        return reduce({**stats, "dcn_max_abs_dy": torch.tensor(float(dy))})
+
+    return reduce_stats
+
+
+def meet(trainer, event, stats, path):
+    """One of ``EVENTS`` on ``trainer``, after a step that returned
+    ``stats``."""
+    if event == "degrade":
+        trainer.maybe_degrade_dcn(float(stats["dcn_max_abs_dy"]))
+    elif event == "learning_rate":
+        milestone = trainer.scheduler.milestones[0]
+        trainer.epoch = milestone - 1
+        trainer.epoch_end()
+    else:
+        trainer.save_model(path, trainer.epoch, with_optimizer=True)
+        trainer.load_model(path, resume=True)
+
+
 def run(rank: int, world: int, port: int, spec: dict) -> None:
+    from pathlib import Path
+
     from centernet_uda_torch.config import compose
     from centernet_uda_torch.parallel import ddp
     from centernet_uda_torch.train import build_trainer
+    from tests.torch_graph_stand_in import stand_in_graphs
 
     torch.set_num_threads(1)
+    reduce_stats = ddp.reduce_stats
     if world:
         ddp.init(ddp.Ranks(rank=rank, world=world, local_rank=rank,
                            local_world=world, port=port),
@@ -57,8 +104,14 @@ def run(rank: int, world: int, port: int, spec: dict) -> None:
             if hasattr(mod, "compute_dtype"):
                 mod.compute_dtype = torch.float64
         trainer.init_done()
+        if spec.get("graphs"):
+            stand_in_graphs(trainer)
         initial = state(trainer)
         stats = []
+        if spec.get("events"):
+            ddp.reduce_stats = forced_dy(ddp, rank, stats)
+            ckpt = Path(spec["out"]).parent / f"rank{rank}" / "model.ckpt"
+            ckpt.parent.mkdir(exist_ok=True)
         for data in batches(spec["batches"]):
             data = {k: v.astype(np.float64) if "input" in k else v
                     for k, v in data.items()}
@@ -68,10 +121,20 @@ def run(rank: int, world: int, port: int, spec: dict) -> None:
                         for k, v in data.items()}
             out = trainer.step(data, is_training=True)["stats"]
             stats.append({k: float(v) for k, v in out.items()})
+            if spec.get("events") and len(stats) - 1 in EVENTS:
+                meet(trainer, EVENTS[len(stats) - 1], out, ckpt)
+        graphs = trainer.step_graphs
+        result = {"stats": stats, "initial": initial,
+                  "params": state(trainer),
+                  "graphs": None if graphs is None else {
+                      "generation": graphs.generation,
+                      "calls": dict(graphs.calls)}}
         if rank == 0:
-            torch.save({"stats": stats, "initial": initial,
-                        "params": state(trainer)}, spec["out"])
+            torch.save(result, spec["out"])
+        elif spec.get("events"):
+            torch.save(result, f"{spec['out']}.{rank}")
     finally:
+        ddp.reduce_stats = reduce_stats
         ddp.shutdown()
 
 
