@@ -31,15 +31,11 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// One gradient of a sampling position: stored by its one writer, or, where
-// the backward's data kernel splits Cin across blocks, added by an atomic
-// into a zeroed buffer.
-__device__ __forceinline__ void put_grad(float* p, float v, bool accumulate) {
-  if (accumulate)
-    atomicAdd(p, v);
-  else
-    *p = v;
-}
+// The gradients of the sampling positions have one writer each: the
+// backward's data kernel stores them, `part` elements past the geometry's
+// pointers. Where that kernel splits Cin across blocks, slice s writes its
+// share to its own plane (`part` = s times the plane's size) and a pass in
+// slice order adds the planes (dcn_sample_bwd.cuh).
 
 // Offsets and mask as two tensors (the explicit-offset layer). The backward
 // writes doffset and dmask.
@@ -65,11 +61,11 @@ struct OffsetMask {
                                               size_t pix, bool dy_live,
                                               float m, float gy, float gx,
                                               float dm,
-                                              bool accumulate) const {
-    float* o = doff + (size_t)b * 2 * kTaps * plane + pix;
-    put_grad(o + (size_t)(2 * t) * plane, dy_live ? m * gy : 0.f, accumulate);
-    put_grad(o + (size_t)(2 * t + 1) * plane, m * gx, accumulate);
-    put_grad(dmask + ((size_t)b * kTaps + t) * plane + pix, dm, accumulate);
+                                              size_t part) const {
+    float* o = doff + part + (size_t)b * 2 * kTaps * plane + pix;
+    o[(size_t)(2 * t) * plane] = dy_live ? m * gy : 0.f;
+    o[(size_t)(2 * t + 1) * plane] = m * gx;
+    dmask[part + ((size_t)b * kTaps + t) * plane + pix] = dm;
   }
 };
 
@@ -97,12 +93,11 @@ struct OffsetConv {
                                               size_t pix, bool dy_live,
                                               float m, float gy, float gx,
                                               float dm,
-                                              bool accumulate) const {
-    float* o = dz + (size_t)b * kOm * plane + pix;
-    put_grad(o + (size_t)(2 * t) * plane, dy_live ? m * gy : 0.f, accumulate);
-    put_grad(o + (size_t)(2 * t + 1) * plane, m * gx, accumulate);
-    put_grad(o + (size_t)(2 * kTaps + t) * plane, dm * m * (1.f - m),
-             accumulate);
+                                              size_t part) const {
+    float* o = dz + part + (size_t)b * kOm * plane + pix;
+    o[(size_t)(2 * t) * plane] = dy_live ? m * gy : 0.f;
+    o[(size_t)(2 * t + 1) * plane] = m * gx;
+    o[(size_t)(2 * kTaps + t) * plane] = dm * m * (1.f - m);
   }
 };
 

@@ -206,6 +206,17 @@ __host__ cudaError_t prepare_launch(Kernel kernel, size_t dyn_smem) {
                               (int)dyn_smem);
 }
 
+// Blocks of a grid-stride elementwise pass over n elements: one per
+// kThreads elements, at most 8 per SM (each thread then takes several). A
+// negative value is a cudaError_t.
+__host__ inline long long elementwise_blocks(long long n) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return -(long long)err;
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  return blocks < 8LL * sms ? blocks : 8LL * sms;
+}
+
 // Blocks that put "about two" on every SM: at least 1.9 per SM.
 __host__ inline bool too_few_blocks(long long blocks, int sms) {
   return blocks * 10 < 19LL * sms;

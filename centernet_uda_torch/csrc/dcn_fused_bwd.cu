@@ -1,62 +1,67 @@
 // DCNv2 backward with the offset conv fused in, for Hopper (sm_90a): the
-// bfloat16 layer. Four kernels, launched back to back on one stream.
+// bfloat16 layer. Six kernels and fixed-order sums, launched back to back
+// on one stream; no float is added by an atomic, so every call on the same
+// inputs gives the same bits.
 //
 // Replaces the TPU kernel `_dcn_fused_bwd_kernel`
 // (centernet_uda_tpu/ops/dcn_pallas.py, driven by
 // `dcn_v2_pallas_bwd_lanes_fused`), which recomputes om, runs the sampling
 // backward of `_dcn_bwd_params_kernel`, and then the offset conv's own
 // backward, with one whole-image dx accumulator resident in VMEM across its
-// sequential grid. Hopper blocks run in parallel, so the work splits by
-// what each product reduces over. Every product runs on the tensor cores
-// (ldmatrix + mma.sync m16n8k16, bf16 operands, f32 accumulators):
+// sequential grid. Hopper blocks run in parallel and in no order, so the
+// work splits by what each product reduces over, and each sum gets one
+// owner. Every product runs on the tensor cores (ldmatrix + mma.sync
+// m16n8k16, bf16 operands, f32 accumulators):
 //
 // 1. dcn_fused_om_kernel: om (B, 27, H, W) f32 by the tile routine of
 //    dcn_fused.cuh, one block per 8 x 8 tile.
 // 2. dcn_sample_data_kernel<OffsetConv> (dcn_sample_bwd.cuh, shared with
 //    the explicit-offset backward): one block per (tile, image, slice of
 //    Cin). The tile's g stays in shared memory; per tap and chunk of 64
-//    channels, gcol_t = g . W_t^T on mma.sync, rounded to bf16; then the
-//    corner contraction e_k = x_corner . gcol and dx += m * corner weight *
-//    gcol by 16-byte vector reductions (red.global.add.v4.f32) into a
-//    zeroed channels-last f32 scratch. From e_k, dz = d(loss)/d(om) (B, 27,
-//    H, W) f32: the dy gradient zeroed where |dy_raw| >= max_shift, the dx
-//    gradient, the mask gradient times sigmoid (1 - sigmoid). Where B *
-//    tiles gives too few blocks, Cin is split across blocks and each adds
-//    its share of dz into a zeroed dz by atomics.
-// 3. dcn_sample_weight_kernel<OffsetConv>: split-K over the B*H*W pixels.
+//    channels, gcol_t = g . W_t^T on mma.sync, rounded to bf16 and stored
+//    to a (B, H, W, 9, Cp) scratch; then the corner contraction e_k =
+//    x_corner . gcol, and from it dz = d(loss)/d(om) (B, 27, H, W) f32: the
+//    dy gradient zeroed where |dy_raw| >= max_shift, the dx gradient, the
+//    mask gradient times sigmoid (1 - sigmoid). Where B * tiles gives too
+//    few blocks, Cin is split across blocks; each slice stores its share of
+//    dz in its own plane and dcn_sum_planes_kernel adds them in order.
+// 3. dcn_sample_bucket_kernel<OffsetConv>: each source tile's samples in
+//    segments by the destination tiles of their corners, at ranks fixed by
+//    the shape and the data.
+// 4. dcn_sample_dx_kernel<OffsetConv>: dx into a channels-last f32
+//    scratch, each element written once by the block that owns its (tile,
+//    64 channels): m * corner weight * gcol added over its segments'
+//    samples whose corners fall in the tile, in segment order.
+// 5. dcn_sample_weight_kernel<OffsetConv>: split-K over the B*H*W pixels.
 //    A block owns (tap, Cin tile of 64, slice of pixels) and a group of up
 //    to 256 output channels, stages the sampled columns u_t = m * sample
 //    (bf16), g, and, in the blocks of the first channel group, the
 //    tap-shifted plain x and bf16-rounded dz, and runs u^T . g -> dW[t] and
-//    x_t^T . dz -> dW_om[t]; the f32 partials go out by atomics. One column
-//    of blocks sums dz, unrounded, for db_om.
-// 4. dcn_fused_om_dgrad_kernel: dx += conv_transpose(dz, W_om), the
+//    x_t^T . dz -> dW_om[t]; one block a slice sums dz, unrounded, for
+//    db_om. Each slice stores its record, and dcn_sum_planes_kernel adds the
+//    records in slice order.
+// 6. dcn_fused_om_dgrad_kernel: dx += conv_transpose(dz, W_om), the
 //    implicit GEMM [64 pixels x 9*32] . [9*32 x 64 channels] over a 10 x 10
 //    halo of bf16-rounded dz, added into the same dx scratch after launch
-//    2 (one owner per element, no atomics).
+//    4 (one owner per element).
 // dx is rounded to bf16 once, by the wrapper, after both parts are in. As
 // on the TPU, dz is rounded to bf16 for the two offset-conv products and
 // enters db_om unrounded, and the W_om operand is bf16.
 //
 // What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py):
 // the contractions, 2*N*9*Cin*(2*Cout+2*27) FLOP, over the bf16
-// tensor-core rate take 0.056 ms at 64 -> 64 @128, batch 16; the four
-// launches take 0.10 (om), 1.62 (data), 0.96 (weight) and 0.16 (om
-// dgrad) ms there, 3.11 ms with the wrapper's staging, against 8.13 for
-// the CUDA-core version they replace and 0.38 for cuDNN's backward of the
-// bf16 conv of Cin -> Cout + 27.
-// - The data kernel is bound by its dx reductions: 151 M 16-byte
-//   reductions a call at that shape (tools/fused_dcn_ablation.py times a
-//   copy without them). Two ways to make fewer were tried and were slower
-//   at 64 -> 64 @128 and 256 -> 256 @64: a shared f32 dx accumulator over
-//   the tile and 3 pixels around it, filled by atomicAdd (a shared f32
-//   atomicAdd compiles to a compare-and-swap loop, ATOMS.CAST.SPIN, on
-//   sm_90a), and one whose channels each warp owns, its lanes taking turns
-//   where they meet (its 8-byte corner loads and 32-channel blocks cost
-//   more than the reductions saved). A third, merging into one reduction
-//   the corners that neighbouring pixels of a warp share, saved under a
-//   tenth of the kernel's time even with smooth offsets, and was dropped
-//   too.
+// tensor-core rate take 0.056 ms at 64 -> 64 @128, batch 16; the seven
+// launches take 0.10 (om), 0.71 (data), 0.08 (bucket), 0.64 (dx), 0.97
+// (weight), 0.008 (sum) and 0.16 (om dgrad) ms there, 2.87 ms with the
+// wrapper's staging, against 0.38 for cuDNN's backward of the bf16 conv of
+// Cin -> Cout + 27.
+// - The dx kernel is bound by its adds: one 128-byte gcol load per corner
+//   (tools/fused_dcn_ablation.py times a copy without the adds, and one
+//   without the data kernel's gcol store). Its work does not grow with the
+//   offsets' spread: 0.61-0.62 ms at std 2 to 8 px and 0.51 at 16
+//   (tools/dcn_offset_spread.py). Slower designs (PERF.md): one hit at a
+//   time on 8 lanes of 32 (2.35 ms), every source tile whose corners
+//   reach the tile as candidates (0.88 ms at std 2, 1.92 at 16).
 // - The weight kernel is bound by the latency of its 64-pixel steps
 //   (tables, then staging and gather, then mma, each behind a barrier).
 // PERF.md has every path shape.
@@ -102,7 +107,7 @@ constexpr size_t kDgradBytes =
 
 // One block per (tile, Cin tile of 64, image); warps 4 along the pixels x
 // 2 along the channels (32 each). Each (pixel, channel) of dx has one owner,
-// and the data kernel's reductions finished before this launch.
+// and the dx kernel finished it before this launch.
 __global__ void __launch_bounds__(kThreads)
     dcn_fused_om_dgrad_kernel(const float* __restrict__ dz,  // (B,27,H,W)
                               const __nv_bfloat16* __restrict__ wom,
@@ -192,15 +197,33 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// Launches the four backward kernels on `stream`; returns the first
-// cudaError_t. x, wom and wt in the layouts of dcn_fused.cuh (Cp a multiple
-// of 8); om and dz are (B, 27, H, W) f32 scratch, dz zeroed; dx (B, H, W,
-// Cp), dw (9, Cp, Cout), dwom (9, Cp, 27) and dbom (27) f32, zeroed.
-// `pix_per_block` is the weight kernel's split-K slice, a multiple of 64.
+// Channels of Cin per block of the data kernel for this shape (less than Cp
+// where it splits Cin, and dz then goes through `dz_parts`), or minus a
+// cudaError_t.
+int dcn_fused_bwd_data_cin_per_block(int B, int H, int W, int Cp) {
+  return dcn::data_cin_per_block(B, H, W, Cp);
+}
+
+// 32-bit words of the bucket scratch for this shape, or -1 where max_shift
+// is not a finite number below 2^20.
+long long dcn_fused_bwd_bucket_words(int B, int H, int W, float max_shift) {
+  return dcn::bucket_words(B, H, W, max_shift);
+}
+
+// Launches the backward on `stream`; returns the first cudaError_t. x, wom
+// and wt in the layouts of dcn_fused.cuh (Cp a multiple of 8); om and dz
+// are (B, 27, H, W) f32 scratch, dz_parts one such plane per Cin slice
+// where the data kernel splits Cin; dx (B, H, W, Cp) f32; dw receives dW
+// (9, Cp, Cout), dW_om (9, Cp, 27) and db_om (27), f32, one after the
+// other, and dw_parts one such record per slice of `pix_per_block` pixels
+// (a multiple of 64); gcol (B, H, W, 9, Cp) bf16 scratch; bucket
+// dcn_fused_bwd_bucket_words 32-bit words of scratch. No output needs
+// zeroing.
 int dcn_fused_bwd(const void* x, const void* wom, const void* bom,
-                  const void* wt, const void* g, void* om, void* dz, void* dx,
-                  void* dw, void* dwom, void* dbom, int B, int H, int W,
-                  int Cp, int Cout, float max_shift, int pix_per_block,
+                  const void* wt, const void* g, void* om, void* dz,
+                  void* dz_parts, void* dx, void* dw, void* dw_parts,
+                  void* gcol, void* bucket, int B, int H, int W, int Cp,
+                  int Cout, float max_shift, int pix_per_block,
                   void* stream) {
   using namespace dcn;
   if (B == 0 || H == 0 || W == 0 || Cp == 0 || Cout == 0)
@@ -210,12 +233,20 @@ int dcn_fused_bwd(const void* x, const void* wom, const void* bom,
   const cudaStream_t s = (cudaStream_t)stream;
   const __nv_bfloat16* xb = (const __nv_bfloat16*)x;
   const __nv_bfloat16* gb = (const __nv_bfloat16*)g;
+  __nv_bfloat16* gcolb = (__nv_bfloat16*)gcol;
   const int tiles_x = (W + kTileW - 1) / kTileW;
   const long long tiles = (long long)tiles_x * ((H + kTileH - 1) / kTileH);
   const int ci_tiles = (Cp + kWc64 - 1) / kWc64;
   if (tiles > 0x7fffffffLL || B > 65535)
     return (int)cudaErrorInvalidConfiguration;
+  const int per_block = data_cin_per_block(B, H, W, Cp);
+  if (per_block < 0) return -per_block;
+  const bool split = per_block < Cp;
+  if (split && dz_parts == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t n_dz = (size_t)B * kOm * H * W;
+  // the data kernel writes dz, or its slices' planes; the rest read dz
   const OffsetConv geom{(const float*)om, (float*)dz};
+  const OffsetConv to{(const float*)om, (float*)(split ? dz_parts : dz)};
 
   cudaError_t err = prepare_launch(dcn_fused_om_kernel, kOmKernelBytes);
   if (err == cudaSuccess)
@@ -228,12 +259,19 @@ int dcn_fused_bwd(const void* x, const void* wom, const void* bom,
                              tiles_x);
   err = cudaGetLastError();
   if (err == cudaSuccess)
-    err = launch_sample_data(xb, geom, (const __nv_bfloat16*)wt, gb,
-                             (float*)dx, B, H, W, Cp, Cout, max_shift, s);
+    err = launch_sample_data(xb, to, (const __nv_bfloat16*)wt, gb, gcolb, B,
+                             H, W, Cp, Cout, per_block, n_dz, max_shift, s);
+  if (err == cudaSuccess && split)
+    err = launch_sum_planes((const float*)dz_parts,
+                            (Cp + per_block - 1) / per_block,
+                            (long long)n_dz, (float*)dz, s);
   if (err == cudaSuccess)
-    err = launch_sample_weight(xb, geom, gb, (float*)dw, (float*)dwom,
-                               (float*)dbom, B, H, W, Cp, Cout, max_shift,
-                               pix_per_block, s);
+    err = launch_sample_dx(geom, gcolb, (int*)bucket, (float*)dx, B, H, W,
+                           Cp, max_shift, s);
+  if (err == cudaSuccess)
+    err = launch_sample_weight(xb, geom, gb, (float*)dw_parts, (float*)dw,
+                               B, H, W, Cp, Cout, max_shift, pix_per_block,
+                               s);
   if (err != cudaSuccess) return (int)err;
 
   dcn_fused_om_dgrad_kernel<<<dim3((unsigned)tiles, ci_tiles, B), kThreads,

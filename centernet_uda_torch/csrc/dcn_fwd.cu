@@ -35,16 +35,17 @@ int dcn_fwd_cin_per_block(int B, int H, int W, int Cp, int Cout) {
   return dcn::fwd_cin_per_block(B, H, W, Cp, Cout);
 }
 
-// Launches the forward on `stream`; returns the cudaError_t of the launch.
-// x (B, H, W, Cp) and wt (9, Cp, Cop) bf16 as dcn_sample_fwd.cuh stages
-// them; out (B, Cout, H, W) f32. Where `cin_per_block` < Cp, the slices add
-// into `sums` (f32, zeroed; it may be `out`) instead.
+// Launches the forward on `stream`; returns the first cudaError_t. x (B,
+// H, W, Cp) and wt (9, Cp, Cop) bf16 as dcn_sample_fwd.cuh stages them;
+// out (B, Cout, H, W) f32. Where `cin_per_block` < Cp, the slices store
+// their planes of `parts` ((slices, B, Cout, H, W) f32, not zeroed) and a
+// second launch adds them into out in slice order.
 int dcn_fwd(const void* x, const void* offset, const void* mask,
-            const void* wt, const void* bias, void* out, void* sums, int B,
+            const void* wt, const void* bias, void* out, void* parts, int B,
             int H, int W, int Cp, int Cout, int cin_per_block,
             float max_shift, void* stream) {
   return dcn::launch_explicit_fwd<float>(x, offset, mask, wt, bias, out,
-                                         sums, B, H, W, Cp, Cout,
+                                         parts, B, H, W, Cp, Cout,
                                          cin_per_block, max_shift, stream);
 }
 

@@ -7,10 +7,7 @@
 //   cp_async16, cp_async_commit, cp_async_wait<N>
 //                                    16-byte global -> shared copies that
 //                                    bypass the registers (zero-filled when
-//                                    the predicate is false);
-//   red_add_v4                       one vector f32 reduction to global
-//                                    memory (red.global.add.v4.f32, sm_90),
-//                                    16 bytes per instruction.
+//                                    the predicate is false).
 // Fragment layouts follow the PTX ISA (lane l, g = l / 4, q = l % 4):
 //   ldmatrix: lane l gives the address of row l % 8 of tile l / 8; register
 //     j receives row g, columns 2q and 2q + 1 of tile j (of the transposed
@@ -88,15 +85,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// p 16-byte aligned, in global memory
-__device__ __forceinline__ void red_add_v4(float* p, float a, float b,
-                                           float c, float d) {
-  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n"
-               :
-               : "l"(p), "f"(a), "f"(b), "f"(c), "f"(d)
-               : "memory");
 }
 
 }  // namespace dcn

@@ -29,10 +29,12 @@
 //      staged as [channel][pixel] in shared memory, NCHW rows of 8 pixels
 //      out. An f32 output is never rounded to bf16, a bf16 one once.
 // Where B * tiles gives too few blocks for the card, the explicit geometry
-// first splits Cin across blocks (`fwd_cin_per_block`): each slice adds its
-// partial sums, the bias with the first slice's, by f32 atomics into a
-// zeroed (B, Cout, H, W) f32 buffer, which the wrapper rounds once where the
-// output is bf16; every sample is still gathered once. Then, and alone for
+// first splits Cin across blocks (`fwd_cin_per_block`): each slice stores
+// its f32 partial sums in its own plane of a (slices, B, Cout, H, W) f32
+// workspace, and a second launch, dcn_fwd_sum_kernel, adds the planes in
+// slice order, then the bias, and rounds once to the output type; every
+// sample is still gathered once, and no sum depends on the order in which
+// blocks run, so every launch gives the same bits. Then, and alone for
 // the fused geometry (its om needs all of Cin), the channel group narrows,
 // down to 32, until about two blocks fall on every SM; each group then
 // gathers the tile again.
@@ -120,7 +122,8 @@ __global__ void __launch_bounds__(kThreads)
                           const __nv_bfloat16* __restrict__ wt,  // (9,Cp,Cop)
                           const float* __restrict__ bias,        // (Cout)
                           OutT* __restrict__ out,  // (B, Cout, H, W)
-                          float* __restrict__ sums,  // the same, f32, zeroed
+                          // (slices, B, Cout, H, W) f32 where Cin is split
+                          float* __restrict__ parts,
                           int H, int W, int Cp, int Cout, int tiles_x,
                           int groups, int cin_per_block, float max_shift) {
   constexpr bool kOm = kTileOm<Geom>;
@@ -259,7 +262,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const int g = lane >> 2, q = lane & 3;
   if constexpr (!kOm) {
-    if ((int)gridDim.y > groups) {  // Cin is split: add this slice's share
+    if ((int)gridDim.y > groups) {  // Cin is split: this slice's plane
+      float* plane = parts + (size_t)slice * gridDim.z * Cout * HW;
 #pragma unroll
       for (int n = 0; n < kNT; ++n)
 #pragma unroll
@@ -268,9 +272,8 @@ __global__ void __launch_bounds__(kThreads)
           const int co = co0 + 8 * kNT * wn + 8 * n + 2 * q + (i & 1);
           const int y = y0 + p / kTileW, xx = x0 + p % kTileW;
           if (co < Cout && y < H && xx < W)
-            atomicAdd(sums + ((size_t)b * Cout + co) * HW +
-                          (size_t)y * W + xx,
-                      acc[n][i] + (slice == 0 ? bias[co] : 0.f));
+            plane[((size_t)b * Cout + co) * HW + (size_t)y * W + xx] =
+                acc[n][i];
         }
       return;
     }
@@ -294,6 +297,22 @@ __global__ void __launch_bounds__(kThreads)
     if (co < Cout && y < H && xx < W)
       out[((size_t)b * Cout + co) * HW + (size_t)y * W + xx] =
           s_out[col * L::kOutPitch + p];
+  }
+}
+
+// The split forward's second launch: out = (the planes added in slice
+// order) + bias, rounded once to OutT; each element by one thread.
+template <typename OutT, typename Tag = void>
+__global__ void __launch_bounds__(kThreads)
+    dcn_fwd_sum_kernel(const float* __restrict__ parts,  // (slices, n)
+                       const float* __restrict__ bias,   // (Cout)
+                       OutT* __restrict__ out,           // (B, Cout, H, W)
+                       int slices, int Cout, long long HW, long long n) {
+  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < n;
+       i += (long long)gridDim.x * kThreads) {
+    float v = parts[i];
+    for (int s = 1; s < slices; ++s) v += parts[s * n + i];
+    store(out + i, v + bias[(i / HW) % Cout]);
   }
 }
 
@@ -324,7 +343,7 @@ template <typename Geom, typename OutT, int kKs, bool kClampDx, typename Tag,
           int kNT>
 __host__ cudaError_t launch_sample_fwd_group(
     const __nv_bfloat16* x, const Geom& geom, const __nv_bfloat16* wt,
-    const float* bias, OutT* out, float* sums, int B, int H, int W, int Cp,
+    const float* bias, OutT* out, float* parts, int B, int H, int W, int Cp,
     int Cout, int tiles_x, int tiles, int slices, int cin_per_block,
     float max_shift, cudaStream_t s) {
   auto kernel = dcn_sample_fwd_kernel<Geom, OutT, kNT, kKs, kClampDx, Tag>;
@@ -333,21 +352,22 @@ __host__ cudaError_t launch_sample_fwd_group(
   if (err != cudaSuccess) return err;
   const int groups = (Cout + 16 * kNT - 1) / (16 * kNT);
   kernel<<<dim3(tiles, groups * slices, B), kThreads, smem, s>>>(
-      x, geom, wt, bias, out, sums, H, W, Cp, Cout, tiles_x, groups,
+      x, geom, wt, bias, out, parts, H, W, Cp, Cout, tiles_x, groups,
       cin_per_block, max_shift);
   return cudaGetLastError();
 }
 
-// The forward on `s` over slices of `cin_per_block` channels (a multiple of
-// 8; `sums` zeroed where that is less than Cp), its channel group fitted to
-// Cout and narrowed while the grid is short.
+// The sampling forward on `s` over slices of `cin_per_block` channels (a
+// multiple of 8; where that is less than Cp, each slice stores its plane of
+// `parts` and `out` is not written), its channel group fitted to Cout and
+// narrowed while the grid is short.
 template <typename Geom, typename OutT, int kKs, bool kClampDx = false,
           typename Tag = void>
 __host__ cudaError_t launch_sample_fwd(const __nv_bfloat16* x,
                                        const Geom& geom,
                                        const __nv_bfloat16* wt,
                                        const float* bias, OutT* out,
-                                       float* sums, int B, int H, int W,
+                                       float* parts, int B, int H, int W,
                                        int Cp, int Cout, int cin_per_block,
                                        float max_shift, cudaStream_t s) {
   int sms = 0;
@@ -368,45 +388,60 @@ __host__ cudaError_t launch_sample_fwd(const __nv_bfloat16* x,
   switch (nt) {
     case 16:
       return launch_sample_fwd_group<Geom, OutT, kKs, kClampDx, Tag, 16>(
-          x, geom, wt, bias, out, sums, B, H, W, Cp, Cout, tiles_x,
+          x, geom, wt, bias, out, parts, B, H, W, Cp, Cout, tiles_x,
           (int)tiles, slices, cin_per_block, max_shift, s);
     case 8:
       return launch_sample_fwd_group<Geom, OutT, kKs, kClampDx, Tag, 8>(
-          x, geom, wt, bias, out, sums, B, H, W, Cp, Cout, tiles_x,
+          x, geom, wt, bias, out, parts, B, H, W, Cp, Cout, tiles_x,
           (int)tiles, slices, cin_per_block, max_shift, s);
     case 4:
       return launch_sample_fwd_group<Geom, OutT, kKs, kClampDx, Tag, 4>(
-          x, geom, wt, bias, out, sums, B, H, W, Cp, Cout, tiles_x,
+          x, geom, wt, bias, out, parts, B, H, W, Cp, Cout, tiles_x,
           (int)tiles, slices, cin_per_block, max_shift, s);
     default:
       return launch_sample_fwd_group<Geom, OutT, kKs, kClampDx, Tag, 2>(
-          x, geom, wt, bias, out, sums, B, H, W, Cp, Cout, tiles_x,
+          x, geom, wt, bias, out, parts, B, H, W, Cp, Cout, tiles_x,
           (int)tiles, slices, cin_per_block, max_shift, s);
   }
 }
 
 // The explicit-offset forward (dcn_fwd.cu, dcn_sel_fwd.cu,
-// dcn_wide_fwd.cu): one launch over the `OffsetMask` geometry, with
-// `cin_per_block` from fwd_cin_per_block. Where that is less than Cp, the
-// slices add into `sums` ((B, Cout, H, W) f32, zeroed) and `out` is not
-// written. Returns the cudaError_t.
+// dcn_wide_fwd.cu) over the `OffsetMask` geometry, with `cin_per_block`
+// from fwd_cin_per_block: one launch where that is Cp; else the slices
+// store their planes of `parts` ((slices, B, Cout, H, W) f32, slices =
+// ceil(Cp / cin_per_block)) and dcn_fwd_sum_kernel adds them into `out`.
+// Returns the first cudaError_t.
 template <typename OutT, bool kClampDx = false, typename Tag = void>
 __host__ int launch_explicit_fwd(const void* x, const void* offset,
                                  const void* mask, const void* wt,
-                                 const void* bias, void* out, void* sums,
+                                 const void* bias, void* out, void* parts,
                                  int B, int H, int W, int Cp, int Cout,
                                  int cin_per_block, float max_shift,
                                  void* stream) {
   if (B == 0 || H == 0 || W == 0 || Cout == 0) return (int)cudaSuccess;
   if (Cp <= 0 || Cp % 8 != 0 || cin_per_block <= 0 ||
-      cin_per_block % 8 != 0 || (cin_per_block < Cp && sums == nullptr))
+      cin_per_block % 8 != 0 || (cin_per_block < Cp && parts == nullptr))
     return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
   const OffsetMask geom{(const float*)offset, (const float*)mask, nullptr,
                         nullptr};
-  return (int)launch_sample_fwd<OffsetMask, OutT, kFwdChunk, kClampDx, Tag>(
-      (const __nv_bfloat16*)x, geom, (const __nv_bfloat16*)wt,
-      (const float*)bias, (OutT*)out, (float*)sums, B, H, W, Cp, Cout,
-      cin_per_block, max_shift, (cudaStream_t)stream);
+  cudaError_t err =
+      launch_sample_fwd<OffsetMask, OutT, kFwdChunk, kClampDx, Tag>(
+          (const __nv_bfloat16*)x, geom, (const __nv_bfloat16*)wt,
+          (const float*)bias, (OutT*)out, (float*)parts, B, H, W, Cp, Cout,
+          cin_per_block, max_shift, s);
+  if (err != cudaSuccess || cin_per_block >= Cp) return (int)err;
+  const long long HW = (long long)H * W;
+  const long long n = (long long)B * Cout * HW;
+  const long long blocks = elementwise_blocks(n);
+  if (blocks < 0) return (int)(-blocks);
+  auto kernel = dcn_fwd_sum_kernel<OutT, Tag>;
+  err = check_launch(kernel);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
+      (const float*)parts, (const float*)bias, (OutT*)out,
+      (Cp + cin_per_block - 1) / cin_per_block, Cout, HW, n);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace dcn

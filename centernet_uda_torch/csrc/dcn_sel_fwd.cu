@@ -26,8 +26,9 @@
 // Cout = 48.3 GFLOP) over the bf16 tensor-core rate (0.049 ms) is above the
 // HBM time of x, offsets, mask and out. The grid is short there (4 tiles x
 // 32 images for 132 SMs; 16 x 4 at the 800 px eval): the design splits Cin
-// across blocks, so every sample is gathered once and the slices meet in an
-// f32 buffer by atomics, rather than narrow the channel group, which
+// across blocks, so every sample is gathered once and the slices meet in
+// their own f32 planes, added in slice order by a second launch, rather
+// than narrow the channel group, which
 // gathers the tile once per group (0.54 against 0.79 ms there, 0.26
 // against 0.65 at the eval shape; tools/fwd_dcn_variants.py). The kernel
 // then takes 0.43 ms on the card (113 TFLOP/s), bound by the gather of
@@ -43,21 +44,20 @@ int dcn_sel_fwd_cin_per_block(int B, int H, int W, int Cp, int Cout) {
   return dcn::fwd_cin_per_block(B, H, W, Cp, Cout);
 }
 
-// Launches the forward on `stream`; returns the cudaError_t of the launch.
-// Operands as dcn_fwd's; `out_bf16` selects a bf16 (B, Cout, H, W) output,
-// else f32. Where `cin_per_block` < Cp, the slices add into `sums` (f32,
-// zeroed) and the caller rounds it to the output.
+// Launches the forward on `stream`; returns the first cudaError_t.
+// Operands as dcn_fwd's, `parts` too; `out_bf16` selects a bf16 (B, Cout,
+// H, W) output, else f32.
 int dcn_sel_fwd(const void* x, const void* offset, const void* mask,
-                const void* wt, const void* bias, void* out, void* sums,
+                const void* wt, const void* bias, void* out, void* parts,
                 int B, int H, int W, int Cp, int Cout, int cin_per_block,
                 float max_shift, int out_bf16, void* stream) {
   using namespace dcn;
   if (out_bf16)
     return launch_explicit_fwd<__nv_bfloat16, false, Select>(
-        x, offset, mask, wt, bias, out, sums, B, H, W, Cp, Cout,
+        x, offset, mask, wt, bias, out, parts, B, H, W, Cp, Cout,
         cin_per_block, max_shift, stream);
   return launch_explicit_fwd<float, false, Select>(
-      x, offset, mask, wt, bias, out, sums, B, H, W, Cp, Cout, cin_per_block,
+      x, offset, mask, wt, bias, out, parts, B, H, W, Cp, Cout, cin_per_block,
       max_shift, stream);
 }
 

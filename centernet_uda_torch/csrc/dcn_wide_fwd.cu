@@ -41,16 +41,16 @@ int dcn_wide_fwd_cin_per_block(int B, int H, int W, int Cp, int Cout) {
 // Launches the forward on `stream`; returns the cudaError_t of the launch.
 // Operands as dcn_sel_fwd's.
 int dcn_wide_fwd(const void* x, const void* offset, const void* mask,
-                 const void* wt, const void* bias, void* out, void* sums,
+                 const void* wt, const void* bias, void* out, void* parts,
                  int B, int H, int W, int Cp, int Cout, int cin_per_block,
                  float max_shift, int out_bf16, void* stream) {
   using namespace dcn;
   if (out_bf16)
     return launch_explicit_fwd<__nv_bfloat16, true>(
-        x, offset, mask, wt, bias, out, sums, B, H, W, Cp, Cout,
+        x, offset, mask, wt, bias, out, parts, B, H, W, Cp, Cout,
         cin_per_block, max_shift, stream);
   return launch_explicit_fwd<float, true>(x, offset, mask, wt, bias, out,
-                                          sums, B, H, W, Cp, Cout,
+                                          parts, B, H, W, Cp, Cout,
                                           cin_per_block, max_shift, stream);
 }
 

@@ -25,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from centernet_uda_torch.ops.conv import conv2d
 from centernet_uda_torch.parallel import ddp
 
 # torch BatchNorm2d(momentum=0.1) is flax BatchNorm(momentum=0.9)
@@ -133,7 +134,9 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` computing in ``dtype`` (flax ``nn.Conv(dtype=...)``):
-    input and weight cast to ``dtype``, the bias added after the conv."""
+    input and weight cast to ``dtype``, the bias added after the conv, zero
+    padding only; its float32 gradients on the card by ``ops.conv``'s
+    fixed-order routes where cuDNN's are slow."""
 
     def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
         super().__init__(*args, **kwargs)
@@ -141,7 +144,8 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        y = conv2d(x.to(dt), self.weight.to(dt), self.stride, self.padding,
+                   self.dilation, self.groups)
         if self.bias is not None:
             y = y + self.bias.to(dt).view(1, -1, 1, 1)
         return y

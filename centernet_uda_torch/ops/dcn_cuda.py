@@ -6,36 +6,45 @@ forward runs the tensor-core sampling forward of ``dcn_sample_fwd.cuh``
 shared tile, ``mma.sync`` with W), a template over the geometry: the
 explicit layer's offset and mask tensors, or the fused layer's offset conv,
 computed per tile by ``dcn_fused.cuh``. Every backward runs the tensor-core
-sampling kernels of ``dcn_sample_bwd.cuh`` (a data kernel for dx and the
-sampling gradients, a split-K weight kernel for dW) over the same two
-geometries. All the inline PTX (``ldmatrix``, ``mma.sync``, ``cp.async``,
-vector reductions) is in ``dcn_mma.cuh``:
+sampling kernels of ``dcn_sample_bwd.cuh`` (a data kernel for gcol and the
+sampling gradients, a dx kernel, a split-K weight kernel for dW) over the
+same two geometries. All the inline PTX (``ldmatrix``, ``mma.sync``,
+``cp.async``) is in ``dcn_mma.cuh``.
 
-- ``dcn_fwd`` (``csrc/dcn_fwd.cu``, one launch), the float32 layer's
-  forward, replaces the TPU kernel ``_dcn_kernel``
+No kernel adds a float by an atomic: every sum that crosses blocks has one
+owner and a fixed order (a split's parts go to planes of their own, which
+a fixed-order pass adds), so every call on the same inputs gives the same
+bits, split or not, eager or inside a CUDA graph, as the JAX package's
+kernels do. The launches of one call (a split adds its sum's):
+
+- ``dcn_fwd`` (``csrc/dcn_fwd.cu``, one launch; two where Cin splits), the
+  float32 layer's forward, replaces the TPU kernel ``_dcn_kernel``
   (``centernet_uda_tpu/ops/dcn_pallas.py``, via ``dcn_v2_pallas_lanes``).
-- ``dcn_bwd`` (``csrc/dcn_bwd.cu``, two launches: sampling gradients + dx,
-  then dW, on the tensor cores; g rounded to bf16 once by the wrapper, as
-  the TPU kernel rounds it) replaces ``_dcn_bwd_params_kernel`` (same file,
-  via ``_bwd_params_call`` / ``dcn_v2_pallas_bwd_lanes``).
+- ``dcn_bwd`` (``csrc/dcn_bwd.cu``, five launches: gcol and the sampling
+  gradients, the samples bucketed by destination tile, dx, dW, the sum of
+  dW's slices; six where the data kernel splits Cin; g rounded to bf16
+  once by the wrapper, as the TPU kernel rounds it) replaces ``_dcn_bwd_params_kernel`` (same file, via
+  ``_bwd_params_call`` / ``dcn_v2_pallas_bwd_lanes``).
 - ``dcn_fused_fwd`` (``csrc/dcn_fused_fwd.cu``, one launch: the offset
   conv, sampling and contraction of a pixel tile), the bfloat16 layer's
   forward with its offset conv inside, replaces ``_dcn_fused_kernel`` (via
   ``dcn_v2_pallas_lanes_fused``).
-- ``dcn_fused_bwd`` (``csrc/dcn_fused_bwd.cu``, four launches: om
-  recompute, sampling data, dW with dW_om and db_om, dx from dz) replaces
+- ``dcn_fused_bwd`` (``csrc/dcn_fused_bwd.cu``, seven launches: om
+  recompute, gcol and dz, the buckets, dx, dW with dW_om and db_om, their
+  slices' sum, dx from dz; eight where the data kernel splits Cin) replaces
   ``_dcn_fused_bwd_kernel`` (via ``dcn_v2_pallas_bwd_lanes_fused``).
-- ``dcn_sel_fwd`` (``csrc/dcn_sel_fwd.cu``, one launch), the forward at the
-  "select" shapes (Cin > 512, W > 256, W < 8), x and out in float32 or
-  bfloat16, replaces ``_sel_fwd_kernel`` (via ``dcn_v2_pallas_select``).
-- ``dcn_sel_bwd`` (``csrc/dcn_sel_bwd.cu``, the same two launches as
-  ``dcn_bwd``), its backward, g in x's dtype (rounded to bf16 for the
-  kernels), dx rounded once to x's dtype, dW in the weight's dtype,
-  replaces ``_sel_bwd_kernel`` (via ``dcn_v2_pallas_bwd_select``).
-- ``dcn_wide_fwd`` (``csrc/dcn_wide_fwd.cu``, one launch), the forward with
-  dx clamped too (forced "lanes" at W > 256), replaces ``_dcn_kernel`` in
-  panel mode (via ``_dcn_v2_pallas_wide``). Its backward is the exact op's
-  on clipped offsets, as in the JAX package.
+- ``dcn_sel_fwd`` (``csrc/dcn_sel_fwd.cu``, one launch; two where Cin
+  splits), the forward at the "select" shapes (Cin > 512, W > 256, W < 8),
+  x and out in float32 or bfloat16, replaces ``_sel_fwd_kernel`` (via
+  ``dcn_v2_pallas_select``).
+- ``dcn_sel_bwd`` (``csrc/dcn_sel_bwd.cu``, the launches of ``dcn_bwd``),
+  its backward, g in x's dtype (rounded to bf16 for the kernels), dx
+  rounded once to x's dtype, dW in the weight's dtype, replaces
+  ``_sel_bwd_kernel`` (via ``dcn_v2_pallas_bwd_select``).
+- ``dcn_wide_fwd`` (``csrc/dcn_wide_fwd.cu``, one launch; two where Cin
+  splits), the forward with dx clamped too (forced "lanes" at W > 256),
+  replaces ``_dcn_kernel`` in panel mode (via ``_dcn_v2_pallas_wide``). Its
+  backward is the exact op's on clipped offsets, as in the JAX package.
 
 Each source notes what bounds it on the H100 and what its design does about
 that. Their plain versions are ``ops.dcn.dcn_v2_twin`` and
@@ -64,7 +73,8 @@ reads it to show which path ran. A CUDA graph's replay runs no wrapper:
 
 Every launch may be captured into a CUDA graph (the compiled steps,
 ``utils/graphs.py``): a wrapper allocates with ``torch.empty``/``torch.zeros``
-and launches on ``torch.cuda.current_stream()``, and the launchers' host
+(every workspace sized from the shape alone) and launches on
+``torch.cuda.current_stream()``, and the launchers' host
 calls (``cudaFuncGetAttributes``, ``cudaDeviceGetAttribute``,
 ``cudaFuncSetAttribute``, ``cudaGetLastError``) are legal under capture in
 the global mode (``tests/test_torch_gpu.py`` captures each route so). A
@@ -99,8 +109,10 @@ SOURCES = {"dcn_fwd": "dcn_fwd.cu", "dcn_bwd": "dcn_bwd.cu",
            "dcn_wide_fwd": "dcn_wide_fwd.cu"}
 _HEADERS = ("dcn_common.cuh", "dcn_mma.cuh", "dcn_fused.cuh",
             "dcn_sample_fwd.cuh", "dcn_sample_bwd.cuh")
-# the explicit-offset forwards, each with a ``<name>_cin_per_block`` query
+# the explicit-offset forwards, each with a ``<name>_cin_per_block`` query,
+# and the backwards, each with ``<name>_data_cin_per_block``
 _EXPLICIT_FWD = ("dcn_fwd", "dcn_sel_fwd", "dcn_wide_fwd")
+_BWD = ("dcn_bwd", "dcn_sel_bwd", "dcn_fused_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -110,7 +122,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 # the backward's weight kernel splits the B*H*W reduction so that about
 # this many blocks are in flight: its blocks cover all of Cout (up to 256),
-# so about four per SM keep its atomics few
+# so about four per SM keep its per-slice records, and their sum, small
 _DW_TARGET_BLOCKS = 528
 
 
@@ -181,11 +193,11 @@ def _lib(name: str) -> ctypes.CDLL:
     fn = getattr(lib, name)
     fn.argtypes = {
         "dcn_fwd": [vp] * 7 + [i32] * 6 + [f32, vp],
-        "dcn_bwd": [vp] * 9 + [i32] * 5 + [f32, i32, vp],
+        "dcn_bwd": [vp] * 12 + [i32] * 5 + [f32, i32, vp],
         "dcn_fused_fwd": [vp] * 7 + [i32] * 5 + [f32, vp],
-        "dcn_fused_bwd": [vp] * 11 + [i32] * 5 + [f32, i32, vp],
+        "dcn_fused_bwd": [vp] * 13 + [i32] * 5 + [f32, i32, vp],
         "dcn_sel_fwd": [vp] * 7 + [i32] * 6 + [f32, i32, vp],
-        "dcn_sel_bwd": [vp] * 9 + [i32] * 5 + [f32, i32, vp],
+        "dcn_sel_bwd": [vp] * 12 + [i32] * 5 + [f32, i32, vp],
         "dcn_wide_fwd": [vp] * 7 + [i32] * 6 + [f32, i32, vp],
     }[name]
     fn.restype = i32
@@ -193,6 +205,13 @@ def _lib(name: str) -> ctypes.CDLL:
         query = getattr(lib, f"{name}_cin_per_block")
         query.argtypes = [i32] * 5
         query.restype = i32
+    if name in _BWD:
+        query = getattr(lib, f"{name}_data_cin_per_block")
+        query.argtypes = [i32] * 4
+        query.restype = i32
+        query = getattr(lib, f"{name}_bucket_words")
+        query.argtypes = [i32] * 3 + [f32]
+        query.restype = ctypes.c_longlong
     err_fn = getattr(lib, f"{name}_error_string")
     err_fn.argtypes = [i32]
     err_fn.restype = ctypes.c_char_p
@@ -420,11 +439,49 @@ def _dw_pixels_per_block(n_pix: int, cp: int, cout: int) -> int:
     return max(64, -(-per // 64) * 64)
 
 
+def _bwd_workspace(name, b, h, w, cp, cout, om, max_shift, device):
+    """The scratch of one backward call, every piece sized from the shape
+    (and the clamp) alone, so that a CUDA graph's capture stays valid:
+    ``gcol`` (B, H, W, 9, Cp) bf16; ``bucket``, 32-bit words: per image and
+    8 x 8 source tile, the offsets of its samples' segments by destination
+    tile, then its segments (up to 4 x 576 samples a tile), none of it
+    zeroed; where the data kernel splits Cin, ``grad_parts``, one plane of
+    the sampling gradients (B * 27 * H * W floats) per slice, else None;
+    ``dw_parts``, one record of the weight kernel (dW, and with ``om``
+    dW_om and db_om) per slice of its split-K; and that split,
+    ``pix_per_block``."""
+    lib = _lib(name)
+    per_block = getattr(lib, f"{name}_data_cin_per_block")(b, h, w, cp)
+    _raise_on(max(-per_block, 0), name)
+    words = getattr(lib, f"{name}_bucket_words")(b, h, w, float(max_shift))
+    if words < 0:
+        raise ValueError(f"{name}: max_shift {max_shift} is not a finite "
+                         f"number below 2^20")
+    slices = -(-cp // per_block)
+    n_grads = b * 27 * h * w
+    ppb = _dw_pixels_per_block(b * h * w, cp, cout)
+    record = 9 * cp * cout + (9 * cp * 27 + 27 if om else 0)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "gcol": torch.empty((b, h, w, 9, cp), dtype=torch.bfloat16,
+                            device=device),
+        "bucket": torch.empty(words, dtype=torch.int32, device=device),
+        "grad_parts": (torch.empty(slices * n_grads, **f32) if slices > 1
+                       else None),
+        "dw_parts": torch.empty(-(-(b * h * w) // ppb) * record, **f32),
+        "pix_per_block": ppb,
+    }
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _explicit_backward_launch(name, x, offset, mask, weight, g, max_shift,
                               stream):
-    """One call of ``dcn_bwd`` or ``dcn_sel_bwd`` (same operands, two
-    launches): dx in x's dtype, doffset and dmask float32, dW in the
-    weight's dtype."""
+    """One call of ``dcn_bwd`` or ``dcn_sel_bwd`` (same operands, five
+    launches, six where the data kernel splits Cin): dx in x's dtype,
+    doffset and dmask float32, dW in the weight's dtype."""
     b, cin, h, w = x.shape
     cout = weight.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -433,23 +490,26 @@ def _explicit_backward_launch(name, x, offset, mask, weight, g, max_shift,
     wt = _stage_weight_padded(weight, cp, -(-cout // 16) * 16)
     gs = _stage_g(g)
     offset, mask = offset.contiguous(), mask.contiguous()
-    # all zeroed: where the data kernel splits Cin, doffset and dmask are
-    # sums of atomics too
-    dx = torch.zeros((b, h, w, cp), **f32)
-    doff = torch.zeros_like(offset)
-    dmask = torch.zeros_like(mask)
-    dw = torch.zeros((9, cp, cout), **f32)
+    ws = _bwd_workspace(name, b, h, w, cp, cout, False, max_shift,
+                        x.device)
+    # every element of these has one writer: none is zeroed
+    dx = torch.empty((b, h, w, cp), **f32)
+    grads = torch.empty(b * 27 * h * w, **f32)
+    dw = torch.empty((9, cp, cout), **f32)
     err = getattr(_lib(name), name)(
         xs.data_ptr(), offset.data_ptr(), mask.data_ptr(), wt.data_ptr(),
-        gs.data_ptr(), dx.data_ptr(), doff.data_ptr(), dmask.data_ptr(),
-        dw.data_ptr(), b, h, w, cp, cout, float(max_shift),
-        _dw_pixels_per_block(b * h * w, cp, cout), stream)
+        gs.data_ptr(), dx.data_ptr(), grads.data_ptr(),
+        _ptr(ws["grad_parts"]), dw.data_ptr(), ws["dw_parts"].data_ptr(),
+        ws["gcol"].data_ptr(), ws["bucket"].data_ptr(), b, h, w, cp, cout,
+        float(max_shift), ws["pix_per_block"], stream)
     _raise_on(err, name)
     LAUNCHES[name] += 1
-    # dx rounded to x's dtype once, after every reduction is in
+    # dx rounded to x's dtype once, after its sums are in
     dx_out = torch.empty((b, cin, h, w), dtype=x.dtype, device=x.device)
     dx_out.copy_(dx[..., :cin].permute(0, 3, 1, 2))
-    return (dx_out, doff, dmask,
+    n_off = b * 18 * h * w
+    return (dx_out, grads[:n_off].view(b, 18, h, w),
+            grads[n_off:].view(b, 9, h, w),
             _dw_to_oihw(dw[:, :cin], cout).to(weight.dtype))
 
 
@@ -549,24 +609,28 @@ def _fused_backward_launch(x, om_weight, om_bias, weight, g, max_shift,
     wom, wt = _stage_fused_weights(om_weight, weight, cp)
     g = _stage_g(g)
     om_bias = om_bias.contiguous()
+    ws = _bwd_workspace("dcn_fused_bwd", b, h, w, cp, cout, True, max_shift,
+                        dev)
+    # every element of these has one writer: none is zeroed
     om = torch.empty((b, 27, h, w), **f32)
-    dz = torch.zeros((b, 27, h, w), **f32)
-    dx = torch.zeros((b, h, w, cp), **f32)
-    dw = torch.zeros((9, cp, cout), **f32)
-    dwom = torch.zeros((9, cp, 27), **f32)
-    dbom = torch.zeros(27, **f32)
+    dz = torch.empty((b, 27, h, w), **f32)
+    dx = torch.empty((b, h, w, cp), **f32)
+    n_dw = 9 * cp * cout
+    dw = torch.empty(n_dw + 9 * cp * 27 + 27, **f32)
     err = _lib("dcn_fused_bwd").dcn_fused_bwd(
         xs.data_ptr(), wom.data_ptr(), om_bias.data_ptr(), wt.data_ptr(),
-        g.data_ptr(), om.data_ptr(), dz.data_ptr(), dx.data_ptr(),
-        dw.data_ptr(), dwom.data_ptr(), dbom.data_ptr(), b, h, w, cp, cout,
-        float(max_shift), _dw_pixels_per_block(b * h * w, cp, cout), stream)
+        g.data_ptr(), om.data_ptr(), dz.data_ptr(), _ptr(ws["grad_parts"]),
+        dx.data_ptr(), dw.data_ptr(), ws["dw_parts"].data_ptr(),
+        ws["gcol"].data_ptr(), ws["bucket"].data_ptr(), b, h, w, cp, cout,
+        float(max_shift), ws["pix_per_block"], stream)
     _raise_on(err, "dcn_fused_bwd")
     LAUNCHES["dcn_fused_bwd"] += 1
     # dx rounded to bf16 once, after both of its parts are in
     dx_out = torch.empty((b, cin, h, w), dtype=torch.bfloat16, device=dev)
     dx_out.copy_(dx[..., :cin].permute(0, 3, 1, 2))
-    return (dx_out, _dw_to_oihw(dwom[:, :cin], 27), dbom,
-            _dw_to_oihw(dw[:, :cin], cout))
+    dwom = dw[n_dw:n_dw + 9 * cp * 27].view(9, cp, 27)
+    return (dx_out, _dw_to_oihw(dwom[:, :cin], 27), dw[-27:],
+            _dw_to_oihw(dw[:n_dw].view(9, cp, cout)[:, :cin], cout))
 
 
 class _DCNFusedFn(torch.autograd.Function):
@@ -639,9 +703,10 @@ def _explicit_forward_launch(name, x, offset, mask, weight, bias,
     the sources built for the CPU.
 
     Where the grid is short, the kernel splits Cin across blocks (the
-    library's ``<name>_cin_per_block`` says so): the slices then add into a
-    zeroed f32 buffer, ``out`` itself for a float32 output, else rounded
-    to bf16 once here."""
+    library's ``<name>_cin_per_block`` says so): each slice then stores its
+    f32 partial sums in its own plane of a workspace, and a second launch
+    adds the planes in slice order, the bias, and rounds once to ``out``,
+    so that every call gives the same bits."""
     b, cin, h, w = x.shape
     cout = weight.shape[0]
     xs = _stage_x_padded(x)
@@ -652,23 +717,18 @@ def _explicit_forward_launch(name, x, offset, mask, weight, bias,
     lib = _lib(name)
     per_block = getattr(lib, f"{name}_cin_per_block")(b, h, w, cp, cout)
     _raise_on(max(-per_block, 0), name)
-    f32 = x.dtype == torch.float32
     out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
-    sums = None
+    parts = None
     if per_block < cp:
-        sums = (out.zero_() if f32 else
-                torch.zeros((b, cout, h, w), dtype=torch.float32,
-                            device=x.device))
-    flag = [] if name == "dcn_fwd" else [int(not f32)]
+        parts = torch.empty((-(-cp // per_block), b, cout, h, w),
+                            dtype=torch.float32, device=x.device)
+    flag = [] if name == "dcn_fwd" else [int(x.dtype != torch.float32)]
     err = getattr(lib, name)(
         xs.data_ptr(), offset.data_ptr(), mask.data_ptr(), wt.data_ptr(),
-        bias.data_ptr(), out.data_ptr(),
-        None if sums is None else sums.data_ptr(), b, h, w, cp, cout,
+        bias.data_ptr(), out.data_ptr(), _ptr(parts), b, h, w, cp, cout,
         per_block, float(max_shift), *flag, stream)
     _raise_on(err, name)
     LAUNCHES[name] += 1
-    if sums is not None and not f32:
-        out.copy_(sums)
     return out
 
 

@@ -95,6 +95,12 @@ def build_trainer(cfg, device="cuda", graphs: bool = True) -> Model:
     # loss and optimizer in float32): no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # one seed, one trajectory, as the JAX package gives: the DCN kernels
+    # repeat bit for bit, and cuDNN keeps to its deterministic algorithms
+    # (a float32 convolution's backward otherwise may take one that adds
+    # with atomics; where the deterministic one is slow, the models' Conv2d
+    # takes its gradient by a route of ops/conv.py)
+    torch.backends.cudnn.deterministic = True
     if not ddp.is_distributed():
         n_ranks, why_not = ddp.plan_ranks(cfg, device)
         if why_not:

@@ -12,20 +12,25 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
    (``csrc/host_encoder.cpp``, ``g++``) and loads it;
 3. kernels: each kernel against its plain PyTorch twin on the same inputs
    (atol 5e-2 * max(1, max|twin|), rtol 5e-2: the bound of the Pallas
-   kernels' own tests; max |dy| to 1e-5 relative), timed beside its twin
-   and a cuDNN yardstick:
+   kernels' own tests; max |dy| to 1e-5 relative), launched twice at every
+   shape with every output bit for bit the same (each ``kernels`` entry
+   says ``"repeatable": true``), timed beside its twin and a cuDNN
+   yardstick:
    - the float32 pair and the fused bfloat16 pair at every DCN shape of
      DLA-34's 512 px train path (batch 16, and batch 8, the UDA configs'
      batch) and 800 px eval path (batch 4), and the fused pair at
      MobileNetV2's 256 -> 256 shapes (@32 and @64, batch 32); one call of
      the fused pair at the largest DLA-34 shape is
-     profiled for its launches (1 forward, 4 backward) and each launch's
-     device time, and so is one call of the float32 pair there (1 forward,
-     2 backward);
+     profiled for its launches (1 forward, 7 backward: om, data, bucket,
+     dx, weight, the sum of the weight kernel's slices, the offset conv's
+     dgrad) and each launch's device time, and so is one call of the
+     float32 pair there (1 forward, 5 backward; ``call_launches`` adds a
+     sum where a shape splits Cin);
    - the "select" pair, in float32 and in bfloat16, at MobileNetV2's
      1280 -> 256 DCN shapes (512 px train, batch 32: 16 x 16; 800 px eval,
      batch 4: 25 x 25) and at 2 x 300 x 300 x 64; one bfloat16 call of the
-     pair at the train shape is profiled (1 forward, 2 backward launches);
+     pair at the train shape is profiled (2 forward, 6 backward launches:
+     both split Cin there);
    - the wide forward (dx clamped too), in both dtypes, at 2 x 300 x 300 x
      64 and at DLA-34's 64 -> 64 @272, batch 4 (the 1088 px eval);
 4. DLA-34 train and eval: ``experiment=baseline`` (full width, ``dcn_impl:
@@ -139,19 +144,20 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
       score within that bound and the same box (where no partner has it,
       the eager heads' box at a pixel the pool may keep, of the row's
       class and score, within the max-pool window of the pixel that
-      decodes a partner: a max-pool near-tie may keep either); or within
-      4 times the
-      eager module's own spread over 4 more calls, where that is larger:
-      the DCN forward is not bitwise repeatable); ms per call, eager and
-      artifact;
+      decodes a partner: a max-pool near-tie may keep either); the eager
+      module must repeat bit for bit over 4 more calls (eager vs eager 0),
+      and whether each artifact's outputs are bit for bit eager's is
+      printed and recorded; ms per call, eager and artifact;
    b. MobileNetV2 with ``use_dcn=true`` (seeded init) exported at 512 px
       the same way: 1 ``dcn_sel_fwd`` and 2 ``dcn_fwd`` per call;
    c. DLA-34 at float32 and bfloat16 takes 3 steps on one batch as a plain
       trainer and as the trainer of a one-rank NCCL group: 16 + 16
       launches of the precision a step, the first step's losses equal
       within 1e-5 of the largest (or 4 times the range of 4 plain
-      trainers' first steps, where that is larger), step times beside
-      each other; the rank's train steps are graphed (their all-reduces
+      trainers' first steps, where that is larger), and bit for bit: the
+      4 plain trainers' first steps alike and every one-rank step's
+      losses the plain step's; step times beside each other; the rank's
+      train steps are graphed (their all-reduces
       captured) and must replay, and its graph calls are printed; then
       ``main()`` with ``mesh.data=1`` (one NCCL rank that ``main()`` joins
       itself) for an epoch of phase 7's set at each precision, whose
@@ -191,13 +197,16 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
    512 px, each trained by two eager trainers (``graphs=False``) and one
    graphed trainer from one seed on one batch (``GRAPH_RUNS``): 3 steps, a
    MultiStepLR milestone (``epoch_end``), 2 steps; the graphed losses and
-   parameters within ``GRAPH_SPREAD`` times the eager runs' spread, each
+   parameters within ``GRAPH_SPREAD`` times the eager runs' spread and,
+   with the second eager run's, bit for bit the first eager run's (the
+   spread printed as eager vs eager, 0), each
    step's launches exact, the milestone dropping the graphs and the step
    captured after it moving the parameters at the new rate; the median
    step ms, busy share (torch.profiler over 2 steps, whose kernel names
    hold the DCN kernels inside graph replays too) and peak memory eager
    and graphed; for DLA-34 at float32 the batch-1 512 px serving call
-   (forward plus decode) eager and graphed, then the degrade: after
+   (forward plus decode) eager and graphed, bit for bit alike, then the
+   degrade: after
    ``maybe_degrade_dcn(PALLAS_MAX_SHIFT)`` two steps capture anew on the
    exact op and launch no kernel; for the one-rank runs two eval steps of
    the graphed trainer, the second captured (its loss normalizers'
@@ -300,13 +309,15 @@ BENCH_TIMEOUT_S = 400
 # GRAPH_STEPS steps, then a MultiStepLR milestone (epoch_end) and
 # GRAPH_LR_STEPS more, each step from one state (``parity_run``); a graphed
 # run's stats and parameters must lie within GRAPH_SPREAD times the two
-# eager runs' spread, plus GRAPH_FLOOR of their scale (for a spread of 0:
-# the stats of a deterministic forward; the DCN backwards add with float
-# atomics, so the parameters always part); the step after the milestone
-# may move no parameter by more than GRAPH_LR_RATIO of the largest move of
-# the last step before it (the milestone's gamma is 0.1); GRAPH_TIMED more
-# steps give the median step ms, two more the profile; the batch-1 512 px
-# serving call (forward plus decode) is timed over SERVE_CALLS calls each way
+# eager runs' spread, plus GRAPH_FLOOR of their scale, and the second eager
+# and the graphed run's must equal the first eager run's bit for bit (the
+# DCN kernels repeat bit for bit and cuDNN keeps to its deterministic
+# algorithms, so the spread is 0 and the bound its floor); the step after
+# the milestone may move no parameter by more than GRAPH_LR_RATIO of the
+# largest move of the last step before it (the milestone's gamma is 0.1);
+# GRAPH_TIMED more steps give the median step ms, two more the profile; the
+# batch-1 512 px serving call (forward plus decode) is timed over
+# SERVE_CALLS calls each way, its detections graphed and eager bit for bit
 GRAPH_RUNS = (("baseline", "float32", TRAIN_BATCH, False),
               ("baseline", "bfloat16", TRAIN_BATCH, False),
               *((name, "bfloat16", UDA_BATCH, False)
@@ -452,6 +463,36 @@ def make_fused_operands(seed, b, cin, cout, h, w, device):
     return t
 
 
+def same_bits(name, first, second):
+    """Raises unless two calls gave the same bits: ``first`` and ``second``
+    are tensors, or tuples, lists or dicts of them."""
+    import torch
+
+    def parts(out):
+        if isinstance(out, torch.Tensor):
+            return [out]
+        if isinstance(out, dict):
+            return [out[k] for k in sorted(out)]
+        return list(out)
+
+    if isinstance(first, dict) and sorted(first) != sorted(second):
+        raise AssertionError(f"{name}: outputs {sorted(first)} against "
+                             f"{sorted(second)}")
+    first, second = parts(first), parts(second)
+    if len(first) != len(second):
+        raise AssertionError(f"{name}: {len(first)} outputs against "
+                             f"{len(second)}")
+    for i, (a, b) in enumerate(zip(first, second)):
+        a, b = a.detach().contiguous(), b.detach().contiguous()
+        if a.is_floating_point():
+            view = {8: torch.int64, 4: torch.int32, 2: torch.int16}[
+                a.element_size()]
+            a, b = a.view(view), b.view(view)
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"{name}: output {i} is not bit for bit "
+                                 "the same")
+
+
 def compare(name, got, want):
     """(max abs error, error relative to max|want|); raises past TOL."""
     import torch
@@ -533,12 +574,15 @@ def check_kernels(shapes, batch, device, label, pair="f32",
                                                device)
         x, wt, g = x.to(dt), wt.to(dt), g.to(dt)
         out = fwd(x, off, m, wt, bias)
+        same_bits(f"{pair} {dtype} forward", out, fwd(x, off, m, wt, bias))
         ref = dcn_cuda.dcn_v2_twin(x, off, m, wt, bias)
         if out.dtype != dt:
             raise AssertionError(f"{pair} forward gave {out.dtype}")
         errs = {"out": compare("out", out, ref)}
         del out, ref
-        got = bwd(x, off, m, wt, g) + (g.float().sum((0, 2, 3)),)
+        got = bwd(x, off, m, wt, g)
+        same_bits(f"{pair} {dtype} backward", got, bwd(x, off, m, wt, g))
+        got += (g.float().sum((0, 2, 3)),)
         leaves = [t.clone().requires_grad_(True) for t in (x, off, m, wt,
                                                            bias)]
         with torch.enable_grad():
@@ -593,6 +637,7 @@ def check_kernels(shapes, batch, device, label, pair="f32",
             "cout": cout, "h": h, "w": w, "layers": layers,
             "max_abs_err": {k: v[0] for k, v in errs.items()},
             "max_rel_err": {k: v[1] for k, v in errs.items()},
+            "repeatable": True,
             "fwd_bound_ms": fb, "fwd_bound_by": fk,
             "bwd_bound_ms": bb, "bwd_bound_by": bk, **t})
         print_record(f"{pair} {dtype} {label}", batch, cin, cout, h, w,
@@ -623,6 +668,8 @@ def check_wide_kernel(shapes, batch, device, label, dtype="float32",
         off[:, 1::2] *= 8.0
         x = x.to(dt)
         out = dcn_cuda.dcn_wide_forward(x, off, m, wt, bias)
+        same_bits(f"wide {dtype} forward", out,
+                  dcn_cuda.dcn_wide_forward(x, off, m, wt, bias))
         ref = dcn_cuda.dcn_v2_twin(x, off, m, wt, bias, clamp_dx=True)
         if out.dtype != dt:
             raise AssertionError(f"wide forward gave {out.dtype}")
@@ -651,6 +698,7 @@ def check_wide_kernel(shapes, batch, device, label, dtype="float32",
             "cout": cout, "h": h, "w": w, "layers": layers,
             "max_abs_err": {k: v[0] for k, v in errs.items()},
             "max_rel_err": {k: v[1] for k, v in errs.items()},
+            "repeatable": True,
             "fwd_bound_ms": fb, "fwd_bound_by": fk, **t})
         print(f"wide {dtype} {label} B={batch} {cin}->{cout} @{h}x{w} "
               f"(x{layers}): err {errs['out'][0]:.3g}/{errs['out'][1]:.2g} "
@@ -680,6 +728,8 @@ def check_fused_kernels(shapes, batch, device, label, parent=None):
         x, om_w, om_b, wt, bias, g = make_fused_operands(
             100 + i, batch, cin, cout, h, w, device)
         out, stat = dcn_cuda.dcn_fused_forward(x, om_w, om_b, wt, bias)
+        same_bits("fused forward", (out, stat),
+                  dcn_cuda.dcn_fused_forward(x, om_w, om_b, wt, bias))
         ref, ref_stat = dcn_cuda.dcn_v2_fused_twin(x, om_w, om_b, wt, bias)
         errs = {"out": compare("out", out, ref)}
         stat_err = abs(float(stat) - float(ref_stat))
@@ -689,8 +739,10 @@ def check_fused_kernels(shapes, batch, device, label, parent=None):
                                  f"{float(ref_stat)}")
         errs["stat"] = (stat_err, stat_err / float(ref_stat))
         del out, ref
-        got = dcn_cuda.dcn_fused_backward(x, om_w, om_b, wt, g) + (
-            g.float().sum((0, 2, 3)),)
+        got = dcn_cuda.dcn_fused_backward(x, om_w, om_b, wt, g)
+        same_bits("fused backward", got,
+                  dcn_cuda.dcn_fused_backward(x, om_w, om_b, wt, g))
+        got += (g.float().sum((0, 2, 3)),)
         leaves = [t.clone().requires_grad_(True) for t in (x, om_w, om_b,
                                                            wt, bias)]
         with torch.enable_grad():
@@ -740,6 +792,7 @@ def check_fused_kernels(shapes, batch, device, label, parent=None):
             "w": w, "layers": layers,
             "max_abs_err": {k: v[0] for k, v in errs.items()},
             "max_rel_err": {k: v[1] for k, v in errs.items()},
+            "repeatable": True,
             "fwd_bound_ms": fb, "fwd_bound_by": fk,
             "bwd_bound_ms": bb, "bwd_bound_by": bk, **t})
         print_record(label, batch, cin, cout, h, w, layers, errs, t, fb, fk,
@@ -778,9 +831,31 @@ def profile_launches(label, fn, want):
     return launches
 
 
+def call_launches(name, batch, cin, cout, h, w):
+    """Kernel launches of one call of the wrapper of ``name`` at this shape,
+    by the library's own split queries: a forward 1, and the sum of its
+    slices' planes where it splits Cin (the fused one never does); an
+    explicit backward 5 (data, bucket, dx, weight, the sum of the weight
+    kernel's slices), the fused one 7 (om before them, the offset conv's
+    dgrad after), and each the sum of the sampling gradients' planes where
+    the data kernel splits Cin."""
+    from centernet_uda_torch.ops import dcn_cuda
+
+    cp = -(-cin // 8) * 8
+    lib = dcn_cuda._lib(name)
+    if name == "dcn_fused_fwd":
+        return 1
+    if name.endswith("_fwd"):
+        per = getattr(lib, f"{name}_cin_per_block")(batch, h, w, cp, cout)
+        return 1 + int(per < cp)
+    per = getattr(lib, f"{name}_data_cin_per_block")(batch, h, w, cp)
+    return (7 if name == "dcn_fused_bwd" else 5) + int(per < cp)
+
+
 def profile_fused_call(shape, batch, device):
     """One call of each fused wrapper at ``shape`` under torch.profiler:
-    the forward must launch 1 kernel, the backward 4."""
+    each must launch ``call_launches``' kernels (1 forward, 7 backward at
+    DLA-34's largest shape)."""
     import torch
 
     from centernet_uda_torch.ops import dcn_cuda
@@ -792,10 +867,12 @@ def profile_fused_call(shape, batch, device):
     record = {
         "fwd": profile_launches(
             f"fused fwd {where}",
-            lambda: dcn_cuda.dcn_fused_forward(x, om_w, om_b, wt, bias), 1),
+            lambda: dcn_cuda.dcn_fused_forward(x, om_w, om_b, wt, bias),
+            call_launches("dcn_fused_fwd", batch, *shape)),
         "bwd": profile_launches(
             f"fused bwd {where}",
-            lambda: dcn_cuda.dcn_fused_backward(x, om_w, om_b, wt, g), 4)}
+            lambda: dcn_cuda.dcn_fused_backward(x, om_w, om_b, wt, g),
+            call_launches("dcn_fused_bwd", batch, *shape))}
     del x, om_w, om_b, wt, bias, g
     torch.cuda.empty_cache()
     return record
@@ -803,8 +880,10 @@ def profile_fused_call(shape, batch, device):
 
 def profile_explicit_pair(pair, dtype, shape, batch, device):
     """One call of each wrapper of the explicit-offset ``pair`` ("f32" or
-    "select") in ``dtype`` at ``shape`` under torch.profiler: the forward
-    must launch 1 kernel, the backward 2."""
+    "select") in ``dtype`` at ``shape`` under torch.profiler: each must
+    launch ``call_launches``' kernels (f32 at DLA-34's largest shape 1
+    forward, 5 backward; select at MobileNetV2's 1280 -> 256 @16, batch 32,
+    where both split Cin, 2 and 6)."""
     import torch
 
     from centernet_uda_torch.ops import dcn_cuda
@@ -815,11 +894,15 @@ def profile_explicit_pair(pair, dtype, shape, batch, device):
     x, wt, g = x.to(dt), wt.to(dt), g.to(dt)
     fwd, bwd = (getattr(dcn_cuda, n) for n in EXPLICIT_PAIRS[pair])
     where = f"{pair} {dtype} B={batch} {cin}->{cout} @{h}x{w}"
+    names = {"f32": ("dcn_fwd", "dcn_bwd"),
+             "select": ("dcn_sel_fwd", "dcn_sel_bwd")}[pair]
     record = {
         "fwd": profile_launches(f"{where} fwd",
-                                lambda: fwd(x, off, m, wt, bias), 1),
+                                lambda: fwd(x, off, m, wt, bias),
+                                call_launches(names[0], batch, *shape)),
         "bwd": profile_launches(f"{where} bwd",
-                                lambda: bwd(x, off, m, wt, g), 2)}
+                                lambda: bwd(x, off, m, wt, g),
+                                call_launches(names[1], batch, *shape))}
     del x, off, m, wt, bias, g
     torch.cuda.empty_cache()
     return record
@@ -827,13 +910,20 @@ def profile_explicit_pair(pair, dtype, shape, batch, device):
 
 def load_parent(path):
     """Another checkout's ``ops/dcn_cuda.py`` as a module of its own: its
-    kernel sources, built into that checkout's ``build/kernels/``."""
-    import importlib.util
+    kernel sources, built into that checkout's ``build/kernels/``, and its
+    forward custom ops registered under ``centernet_uda_parent::`` (under
+    this checkout's names they would replace this checkout's ops, and
+    every forward of the run would launch the parent's kernels)."""
+    import types
 
     src = Path(path).resolve() / "centernet_uda_torch" / "ops" / "dcn_cuda.py"
-    spec = importlib.util.spec_from_file_location("parent_dcn_cuda", src)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
+    text = src.read_text().replace(
+        "centernet_uda::", "centernet_uda_parent::").replace(
+        "torch.ops.centernet_uda.", "torch.ops.centernet_uda_parent.")
+    module = types.ModuleType("parent_dcn_cuda")
+    module.__file__ = str(src)
+    sys.modules[module.__name__] = module
+    exec(compile(text, str(src), "exec"), module.__dict__)
     t0 = time.time()
     module.build_kernels()
     print(f"parent checkout {path}: kernels built in {time.time() - t0:.1f} "
@@ -1070,7 +1160,9 @@ def spread_check(label, what, eager, eager2, graphed, norm):
     ``eager`` (lists of tensors, one a step), by ``norm`` (``max``: the
     largest element difference; ``l2``: the norm of the difference); the
     largest graphed difference within GRAPH_SPREAD times the largest eager
-    one plus GRAPH_FLOOR of the scale."""
+    one plus GRAPH_FLOOR of the scale, and, since the kernels repeat bit
+    for bit, both runs equal to ``eager`` bit for bit (which makes both
+    differences 0)."""
     import torch
 
     def size(t):
@@ -1087,7 +1179,12 @@ def spread_check(label, what, eager, eager2, graphed, norm):
             and diff <= bound):
         raise AssertionError(f"{label} {what}: graphed off eager by {diff} "
                              f"> {bound}")
-    return {"graphed_vs_eager": diff, "eager_vs_eager": spread}
+    for run, other in (("second eager", eager2), ("graphed", graphed)):
+        for i, (e, o) in enumerate(zip(eager, other)):
+            same_bits(f"{label} {what}: the {run} run's step {i} against "
+                      "the first eager run's", e, o)
+    return {"graphed_vs_eager": diff, "eager_vs_eager": spread,
+            "bitwise": True}
 
 
 def timed_steps(trainer, data, steps, per_step):
@@ -1173,9 +1270,10 @@ def parity_run(trainer, data, per_step, snapshots, record, masks=None):
     more. Before each step the trainer's state is the first eager run's
     before that step: ``snapshots`` collects it on that run and is loaded
     (in place: a graph's state tensors keep their addresses) on the others,
-    so that each step is compared from one state (Adam moves an element
-    whose gradient is below the atomics' noise by +-lr either way, and
-    those steps would part the trajectories whatever runs them). Records
+    so that each step is compared from one state (a step that parted could
+    not carry its difference into the next; the runs are also held bit for
+    bit after every step, so on a correct tree the load changes no bit, and
+    the spread bounds sit at their floors). Records
     each step's stats and backend parameters, and the largest parameter
     move of the step before the milestone and of the last step; with
     ``masks`` (a ``DropMasks``), each step's stochastic-depth masks."""
@@ -1349,6 +1447,8 @@ def compiled_steps(n_dcn, seed):
             if not all(bool(torch.isfinite(t).all()) for t in
                        (dets_e, dets_g)):
                 raise AssertionError("non-finite served detections")
+            same_bits("the graphed serving call against the eager one",
+                      dets_e, dets_g)
             graphed = kept["graphed"]
             kept.clear()
             if not graphed.maybe_degrade_dcn(PALLAS_MAX_SHIFT):
@@ -1436,6 +1536,7 @@ def kernel_line(name, src, replaces, outs, records, label, launches,
     return {
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "launches": launches,
+        "repeatable": all(r["repeatable"] for r in records),
         "max_abs_err": max(r["max_abs_err"][o] for r in records
                            for o in outs),
         "ms": per_step(f"{pre}_ms"),
@@ -2241,22 +2342,22 @@ EXPORT_RUNS = (("dla34_512", 512, 1, True), ("dla34_800_wd", 800, 4, False))
 # row by one output pixel, 4.0 px, with its scores 1.1e-6 from eager's, in
 # a run on one H100; such a row's box is held against the eager heads' box
 # at a pixel the pool may keep within the pool window of its partner's
-# pixel). The DCN forward is not bitwise repeatable:
-# where a grid is short it splits Cin across blocks that add with float
-# atomics, and it stages x in bf16, so a last-bit change upstream can flip
-# a rounding (two eager calls of DLA-34 at 800 px part by 1.1e-3 of the reg
-# head's scale, measured on one H100; at 512 px, a pair of calls that agreed
-# bitwise was followed by an artifact call 7e-7 off in the sorted scores
-# that reordered near-equal rows). Where SPREAD_CALLS more eager calls on
-# the same input part from the first by more than SERVE_TOL, the bound is
-# SPREAD_FACTOR times their largest spread.
+# pixel). An artifact runs the ops of its exported graph, which need not
+# round as the eager module's do (it stages x in bf16 for the DCN forward,
+# so a last-bit change upstream can flip a rounding: at 512 px an artifact
+# call 7e-7 off in the sorted scores reordered near-equal rows, in a run on
+# one H100); whether it is bit for bit eager's is recorded. The eager
+# module itself must repeat bit for bit over SPREAD_CALLS more calls (its
+# kernels sum in a fixed order); the bound is SERVE_TOL, or SPREAD_FACTOR
+# times that spread where larger, which a spread of 0 leaves at SERVE_TOL.
 SERVE_TOL, SPREAD_FACTOR, SPREAD_CALLS = 1e-5, 4.0, 4
 # the one-rank step against the plain step: the first step's losses within
 # RANK_TOL of the largest loss, or SPREAD_FACTOR times the range of
-# RANK_PLAIN plain trainers' first-step losses where that is larger (the
-# DCN forward is not bitwise repeatable, see SERVE_TOL: two plain f32
-# trainers' first losses on one batch parted by 3.3e-5 to 3.0e-4 of 18.7
-# in runs on one H100; one pair is too few to bound a third sample)
+# RANK_PLAIN plain trainers' first-step losses where that is larger; and,
+# since a sum over one rank and a division by 1 are exact and the kernels
+# repeat bit for bit, the plain trainers' first steps all alike and every
+# one-rank step's losses (the first eager, the later graphed) the plain
+# trainer's, bit for bit
 RANK_TOL, RANK_PLAIN = 1e-5, 4
 P10_STEPS = 3
 BN_SYNC_GROUPS = (2, 4)
@@ -2530,9 +2631,13 @@ def serve_artifacts(n_dcn, seed):
             want = serving(x)
             eager = (eager_candidates(serving, x) if serving.with_decode
                      else None)
-            spread = served_spread(
-                want, [serving(x) for _ in range(SPREAD_CALLS)], eager)
+            again = [serving(x) for _ in range(SPREAD_CALLS)]
+            spread = served_spread(want, again, eager)
             eager_ms = time_ms(lambda: serving(x))
+        # the eager module repeats bit for bit (its DCN forward does)
+        for other in again:
+            same_bits(f"{name}: eager serving call against the first", want,
+                      other)
         program = export.load_artifact(path).module()
         dcn_cuda.reset_launches()
         with torch.no_grad():
@@ -2543,6 +2648,11 @@ def serve_artifacts(n_dcn, seed):
             raise AssertionError(f"{name}: artifact launches {launches} != "
                                  f"{per_call}")
         errs = served_errors(name, got, want, spread, eager)
+        try:
+            same_bits(name, got, want)
+            bitwise = True
+        except AssertionError:
+            bitwise = False
         with torch.no_grad():
             ms = time_ms(lambda: program(x))
         np.save(SERVE_DIR / f"{name}.in.npy", x.cpu().numpy())
@@ -2550,6 +2660,7 @@ def serve_artifacts(n_dcn, seed):
                      "input": str(SERVE_DIR / f"{name}.in.npy"),
                      "output": str(SERVE_DIR / f"{name}.out.pt")})
         served[name] = {"launches": launches, "errs": errs, "ms": ms,
+                        "bitwise_eager": bitwise,
                         "eager_spread": spread, "eager_ms": eager_ms,
                         "want": want, "eager": eager, "per_call": per_call,
                         "bytes": path.stat().st_size}
@@ -2557,9 +2668,9 @@ def serve_artifacts(n_dcn, seed):
               f"{ms:.3f} ms/call, eager {eager_ms:.3f} ms/call, launches "
               f"{ {k: v for k, v in launches.items() if v} }, max |err| "
               + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
-              + " (eager's own spread " + " ".join(
-                  f"{k}={v:.3g}" for k, v in spread.items()) + ")",
-              flush=True)
+              + " (eager vs eager " + " ".join(
+                  f"{k}={v:.3g}" for k, v in spread.items())
+              + f"); bit for bit eager's: {bitwise}", flush=True)
 
     dla = expect(dcn_fwd=n_dcn)
     for name, size, batch, decode in EXPORT_RUNS:
@@ -2712,6 +2823,13 @@ def one_rank_steps(n_dcn, seed):
             raise AssertionError(f"{precision}: the one-rank step's losses "
                                  f"part from the plain step's: {first}, "
                                  f"{RANK_PLAIN} plain trainers by {spread}")
+        plain_runs = [runs[m]["stats"][0] for m in modes if m != "one_rank"]
+        if spread != 0 or any(r != plain for r in plain_runs) or (
+                runs["one_rank"]["stats"] != runs["plain"]["stats"]):
+            raise AssertionError(f"{precision}: the plain trainers' first "
+                                 f"steps part by {spread}, or a one-rank "
+                                 "step's losses are not the plain step's bit "
+                                 "for bit")
         later = [max(abs(a[k] - b[k]) for k in a) for a, b in zip(
             runs["plain"]["stats"][1:], runs["one_rank"]["stats"][1:])]
         ms = {m: sum(runs[m]["step_ms"][1:]) / (P10_STEPS - 1)
@@ -2721,9 +2839,9 @@ def one_rank_steps(n_dcn, seed):
               f"graphed, its all-reduces captured); step "
               f"{ms['one_rank']:.1f} ms (plain {ms['plain']:.1f} ms); first "
               f"step's losses max |diff| {max(first.values()):.3g} of "
-              f"{scale:.4g} ({RANK_PLAIN} plain trainers: {spread:.3g}); "
-              f"later "
-              f"steps' {['%.3g' % d for d in later]}", flush=True)
+              f"{scale:.4g} (plain vs plain, {RANK_PLAIN} trainers: "
+              f"{spread:.3g}); later steps' {['%.3g' % d for d in later]}; "
+              "every step bit for bit the plain step's", flush=True)
         out[precision] = {"runs": runs, "first_step_max_abs_diff":
                           max(first.values()), "plain_spread": spread,
                           "later_max_abs_diff": later, "step_ms": ms}

@@ -11,6 +11,10 @@ loads them in place of the ``nvcc`` builds, and runs them through the
 wrappers' launch helpers on CPU tensors at tiny shapes. That holds the
 kernels' indexing, tiling, masking and arithmetic against the twins on every
 CPU run; the card runs show that ``nvcc`` builds them and what they cost.
+The emulation runs a grid's blocks in the order ``DCN_EMU_BLOCK_ORDER``
+names (in order, reversed, or a seeded permutation), and the last tests run
+all seven kernels in three orders: every output must have the same bits in
+each, as a kernel whose sums have one order gives them on the card.
 
 Tolerance: that of the card tests, atol 5e-2 * max(1, max|twin|) and rtol
 5e-2, and max |dy| to 1e-5 relative; the operands are the card tests' own
@@ -36,31 +40,42 @@ LAUNCH = re.compile(r"([A-Za-z_]\w*)<<<(.*?)>>>\(", re.S)
 # written into the build directory as cuda_emulation.h
 EMULATION_HEADER = r"""// CPU emulation of the CUDA subset that centernet_uda_torch/csrc uses.
 //
-// A launch runs one block at a time on a pool of blockDim threads;
-// __syncthreads is a barrier of that pool, __shared__ variables are statics
-// (one instance per kernel, reused block after block, which is safe because
-// every kernel writes its shared memory before it reads it), dynamic shared
-// memory is one buffer of the launch's size, and atomics are
-// std::atomic_ref. The warp-wide operations go through a buffer between
-// two barriers of the warp's 32 threads (every lane must reach them, as on
-// the card): a shuffle, and the dcn_mma.cuh primitives with the per-lane
-// fragment layouts of the PTX ISA (ldmatrix x4 and its .trans form, mma
-// m16n8k16 with bf16 operands and f32 accumulation). cp.async is a plain
-// copy (its waits no-ops) and the vector reduction four atomic adds.
-// bf16 conversions round to nearest even, as __float2bfloat16 does. Device
+// A launch runs one block at a time on a pool of blockDim threads, the
+// blocks in the order that DCN_EMU_BLOCK_ORDER names when the launch starts:
+// unset or "forward" in order (x fastest), "reverse", or a number, the seed
+// of a permutation; __syncthreads is a barrier of that pool, __shared__
+// variables are statics (one instance per kernel, reused block after block,
+// which is safe because every kernel writes its shared memory before it
+// reads it), dynamic shared memory is one buffer of the launch's size, and
+// the integer atomics are std::atomic_ref (the kernels add no float by an
+// atomic, so this header offers none). The warp-wide operations go through
+// a buffer between two barriers of the warp's 32 threads (every lane must
+// reach them, as on the card): the shuffles, the ballot, __match_any_sync,
+// __syncwarp (one barrier), and the
+// dcn_mma.cuh primitives with the per-lane fragment layouts of the PTX ISA
+// (ldmatrix x4 and its .trans form, mma m16n8k16 with bf16 operands and f32
+// accumulation). cp.async is a plain copy (its waits no-ops). bf16
+// conversions round to nearest even, as __float2bfloat16 does. Device
 // limits and errors are stubs: every launch "succeeds", on a card of 2 SMs.
 #pragma once
 
+#include <algorithm>
 #include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <deque>
 #include <math.h>
+#include <numeric>
+#include <random>
 #include <thread>
 #include <vector>
+
+using std::max;
+using std::min;
 
 #define __global__
 #define __device__
@@ -158,6 +173,13 @@ inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.bits; }
 struct alignas(16) uint4 {
   unsigned x, y, z, w;
 };
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
+inline int __ffs(int v) { return __builtin_ffs(v); }
 
 namespace emu {
 inline unsigned char* dynamic_smem = nullptr;
@@ -178,9 +200,47 @@ T __shfl_xor_sync(unsigned, T v, int lane_mask) {
   return r;
 }
 
-inline float atomicAdd(float* p, float v) {
-  return std::atomic_ref<float>(*p).fetch_add(v);
+template <class T>
+T __shfl_up_sync(unsigned, T v, unsigned delta) {
+  static T buf[1024];
+  const unsigned tid = threadIdx.x;
+  buf[tid] = v;
+  emu::warp_barrier->arrive_and_wait();
+  const T r = (tid & 31u) >= delta ? buf[tid - delta] : v;
+  emu::warp_barrier->arrive_and_wait();
+  return r;
 }
+
+inline unsigned __ballot_sync(unsigned, int pred) {
+  static int buf[1024];
+  const unsigned tid = threadIdx.x, base = tid & ~31u;
+  buf[tid] = pred != 0;
+  emu::warp_barrier->arrive_and_wait();
+  unsigned r = 0;
+  for (unsigned l = 0; l < 32; ++l) r |= buf[base + l] ? 1u << l : 0u;
+  emu::warp_barrier->arrive_and_wait();
+  return r;
+}
+
+inline unsigned __match_any_sync(unsigned, int v) {
+  static int buf[1024];
+  const unsigned tid = threadIdx.x, base = tid & ~31u;
+  buf[tid] = v;
+  emu::warp_barrier->arrive_and_wait();
+  unsigned r = 0;
+  for (unsigned l = 0; l < 32; ++l) r |= buf[base + l] == v ? 1u << l : 0u;
+  emu::warp_barrier->arrive_and_wait();
+  return r;
+}
+
+inline void __syncwarp() { emu::warp_barrier->arrive_and_wait(); }
+
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+
+inline int atomicAdd(int* p, int v) {
+  return std::atomic_ref<int>(*p).fetch_add(v);
+}
+
 inline unsigned atomicMax(unsigned* p, unsigned v) {
   std::atomic_ref<unsigned> a(*p);
   unsigned old = a.load();
@@ -264,13 +324,6 @@ inline void cp_async16(void* dst, const void* src, bool pred) {
 inline void cp_async_commit() {}
 template <int N>
 inline void cp_async_wait() {}
-
-inline void red_add_v4(float* p, float a, float b, float c, float d) {
-  std::atomic_ref<float>(p[0]).fetch_add(a);
-  std::atomic_ref<float>(p[1]).fetch_add(b);
-  std::atomic_ref<float>(p[2]).fetch_add(c);
-  std::atomic_ref<float>(p[3]).fetch_add(d);
-}
 }  // namespace dcn
 
 namespace emu {
@@ -280,6 +333,15 @@ template <class... P, class... A>
 void launch(void (*kernel)(P...), dim3 grid, dim3 block, size_t smem,
             cudaStream_t, A... args) {
   const unsigned n = block.x * block.y * block.z;  // a multiple of 32
+  std::vector<unsigned> order(grid.x * grid.y * grid.z);
+  std::iota(order.begin(), order.end(), 0u);
+  const char* how = std::getenv("DCN_EMU_BLOCK_ORDER");
+  if (how != nullptr && std::strcmp(how, "reverse") == 0) {
+    std::reverse(order.begin(), order.end());
+  } else if (how != nullptr && *how && std::strcmp(how, "forward") != 0) {
+    std::mt19937 rng((unsigned)std::atoi(how));
+    std::shuffle(order.begin(), order.end(), rng);
+  }
   std::vector<uint64_t> dyn(smem / 8 + 4);
   dynamic_smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(dyn.data()) + 15) & ~(uintptr_t)15);
@@ -296,13 +358,12 @@ void launch(void (*kernel)(P...), dim3 grid, dim3 block, size_t smem,
                    t / (block.x * block.y)};
       blockDim = block;
       gridDim = grid;
-      for (unsigned z = 0; z < grid.z; ++z)
-        for (unsigned y = 0; y < grid.y; ++y)
-          for (unsigned x = 0; x < grid.x; ++x) {
-            blockIdx = {x, y, z};
-            kernel(static_cast<P>(args)...);
-            bar.arrive_and_wait();  // the block is done before the next
-          }
+      for (const unsigned id : order) {
+        blockIdx = {id % grid.x, id / grid.x % grid.y,
+                    id / (grid.x * grid.y)};
+        kernel(static_cast<P>(args)...);
+        bar.arrive_and_wait();  // the block is done before the next
+      }
     });
   for (auto& th : pool) th.join();
 }
@@ -565,3 +626,164 @@ def test_emulated_forward_edges_match_twin(emulated, shape, split, name,
     if dtype == torch.float32:
         assert_not_bf16(out)
     assert dcn_cuda.LAUNCHES == {k: int(k == name) for k in dcn_cuda.LAUNCHES}
+
+
+# Bitwise repeatability. The card runs a grid's blocks in no fixed order;
+# the emulation runs them one by one in the order DCN_EMU_BLOCK_ORDER names
+# (and a block's threads concurrently, in whatever order the host's
+# scheduler picks). A kernel whose sums had an order that depends on which
+# block runs first (a float added by an atomic) gives other bits in
+# another order; these kernels must give the same bits in all of them.
+ORDERS = ("forward", "reverse", "7")
+
+
+def bits(t):
+    """``t``'s bit pattern, so that -0.0 and 0.0 differ, as on the card."""
+    t = t.detach().contiguous()
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def in_orders(monkeypatch, call):
+    """``call()`` (a tuple of tensors) once per launch order; asserts that
+    every output has the same bits in each, and returns the first run's."""
+    runs = []
+    for order in ORDERS:
+        monkeypatch.setenv("DCN_EMU_BLOCK_ORDER", order)
+        runs.append(call())
+    for order, run in zip(ORDERS[1:], runs[1:]):
+        for i, (a, b) in enumerate(zip(runs[0], run)):
+            assert torch.equal(bits(a), bits(b)), (
+                f"output {i} differs between the forward and the {order} "
+                f"launch order by up to {float((a.double() - b.double()).abs().max())}")
+    return runs[0]
+
+
+# (row, kernel, x dtype), and for each an unsplit shape and one whose Cin
+# splits into four slices on the emulated card of 2 SMs (two slices would
+# add alike in either order: a float sum of two terms commutes)
+REPEAT_FWD_ROWS = [
+    pytest.param(1, "dcn_fwd", torch.float32, id="row1-f32"),
+    pytest.param(2, "dcn_wide_fwd", torch.float32, id="row2-f32"),
+    pytest.param(2, "dcn_wide_fwd", torch.bfloat16, id="row2-bf16"),
+    pytest.param(6, "dcn_sel_fwd", torch.float32, id="row6-f32"),
+    pytest.param(6, "dcn_sel_fwd", torch.bfloat16, id="row6-bf16"),
+]
+REPEAT_FWD_SHAPES = [
+    pytest.param((1, 20, 40, 9, 13), False, id="unsplit"),
+    pytest.param((1, 256, 40, 4, 6), True, id="cin-split"),
+]
+
+
+@pytest.mark.parametrize("shape,split", REPEAT_FWD_SHAPES)
+@pytest.mark.parametrize("row,name,dtype", REPEAT_FWD_ROWS)
+def test_emulated_forwards_repeat_bitwise(emulated, monkeypatch, row, name,
+                                          dtype, shape, split):
+    """Rows 1, 2 and 6: the same bits in three launch orders, split or not,
+    and within tolerance of the twin; a split call makes two launches (the
+    slices' planes, then their sum in slice order)."""
+    x, off, m, wt, bias = make_inputs(11, *shape, "cpu")
+    clamp_dx = name == "dcn_wide_fwd"
+    if clamp_dx:
+        off[:, 1::2] *= 8.0
+    x, wt = x.to(dtype), wt.to(dtype)
+    b, cin, h, w = x.shape
+    per_block = getattr(dcn_cuda._lib(name), f"{name}_cin_per_block")(
+        b, h, w, -(-cin // 8) * 8, shape[2])
+    assert (per_block < cin) == split
+    out, = in_orders(monkeypatch, lambda: (dcn_cuda._explicit_forward_launch(
+        name, x, off, m, wt, bias, PALLAS_MAX_SHIFT, 0),))
+    assert out.dtype == dtype
+    assert_close(out, dcn_cuda.dcn_v2_twin(x, off, m, wt, bias,
+                                           clamp_dx=clamp_dx), "out")
+    assert dcn_cuda.LAUNCHES[name] == len(ORDERS)
+
+
+@pytest.mark.parametrize("shape", [
+    pytest.param((2, 8, 8, 12, 12), id="one-group"),
+    pytest.param((1, 384, 16, 4, 8), id="narrowed-group"),
+])
+def test_emulated_fused_forward_repeats_bitwise(emulated, monkeypatch, shape):
+    """Row 4, which never splits Cin: at a full and at a narrowed channel
+    group, the same output and max |dy| in three launch orders (max |dy| is
+    folded by an integer atomicMax, which no order changes)."""
+    x, om_w, om_b, wt, bias, _ = make_fused_inputs(12, *shape, "cpu")
+    out, stat = in_orders(monkeypatch, lambda: dcn_cuda._fused_forward_launch(
+        x, om_w, om_b, wt, bias, PALLAS_MAX_SHIFT, 0))
+    ref, ref_stat = dcn_cuda.dcn_v2_fused_twin(x, om_w, om_b, wt, bias)
+    assert_close(out, ref, "out")
+    assert float(stat) == pytest.approx(float(ref_stat), rel=1e-5)
+
+
+# the backward's splits: none; Cin split across the data kernel's blocks
+# (its sampling gradients then summed over the slices' planes); the weight
+# kernel's split-K over pixels (REPEAT_DW_BLOCKS blocks wanted: 5 slices of
+# 64 pixels here); offsets whose dx reaches tiles two and more away, so a
+# source tile's samples land in many destination tiles across the row; and
+# a map of six tile rows (the last one partial) with dy up to the clamp, so
+# each destination tile takes samples from up to two tile rows above and
+# below and the window of source rows is cut at both edges
+REPEAT_BWD_SHAPES = [
+    pytest.param((2, 8, 8, 12, 12), "unsplit", id="unsplit"),
+    pytest.param((1, 384, 16, 4, 8), "cin-split", id="cin-split"),
+    pytest.param((2, 16, 16, 12, 12), "split-k", id="split-k"),
+    pytest.param((1, 16, 24, 12, 28), "far", id="far-offsets"),
+    pytest.param((1, 8, 8, 44, 12), "tall", id="tall-map"),
+]
+REPEAT_DW_BLOCKS = 64
+REPEAT_BWD_ROWS = [
+    pytest.param(3, "dcn_bwd", torch.float32, id="row3-f32"),
+    pytest.param(7, "dcn_sel_bwd", torch.float32, id="row7-f32"),
+    pytest.param(7, "dcn_sel_bwd", torch.bfloat16, id="row7-bf16"),
+    pytest.param(5, "dcn_fused_bwd", torch.bfloat16, id="row5-bf16"),
+]
+
+
+def bwd_splits(name, shape):
+    """(the data kernel splits Cin, slices of the weight kernel's split-K)
+    for ``shape`` as the wrapper sizes them."""
+    b, cin, cout, h, w = shape[:5]
+    cp = -(-cin // 8) * 8
+    per_block = getattr(dcn_cuda._lib(name), f"{name}_data_cin_per_block")(
+        b, h, w, cp)
+    ppb = dcn_cuda._dw_pixels_per_block(b * h * w, cp, cout)
+    return per_block < cp, -(-(b * h * w) // ppb)
+
+
+@pytest.mark.parametrize("shape,kind", REPEAT_BWD_SHAPES)
+@pytest.mark.parametrize("row,name,dtype", REPEAT_BWD_ROWS)
+def test_emulated_backwards_repeat_bitwise(emulated, monkeypatch, row, name,
+                                           dtype, shape, kind):
+    """Rows 3, 7 and 5: every gradient has the same bits in three launch
+    orders, and lies within tolerance of autograd through the twin; the
+    shape's splits are the ones its id names."""
+    if kind == "split-k":
+        monkeypatch.setattr(dcn_cuda, "_DW_TARGET_BLOCKS", REPEAT_DW_BLOCKS)
+    cin_split, k_slices = bwd_splits(name, shape)
+    assert cin_split == (kind == "cin-split")
+    assert (k_slices > 1) == (kind == "split-k")
+    if name == "dcn_fused_bwd":
+        x, om_w, om_b, wt, _, g = make_fused_inputs(13, *shape, "cpu")
+        if kind == "far":
+            om_w[1::2] *= 4.0
+        if kind == "tall":
+            om_w[0:18:2] *= 6.0
+        got = in_orders(monkeypatch, lambda: dcn_cuda._fused_backward_launch(
+            x, om_w, om_b, wt, g, PALLAS_MAX_SHIFT, 0))
+        want = dcn_cuda.dcn_fused_backward_plain(x, om_w, om_b, wt, g)
+        names = ("dx", "d om_w", "d om_b", "dw")
+    else:
+        x, off, m, wt, _, g = explicit_inputs(13, shape)
+        if kind == "far":
+            off[:, 1::2] *= 8.0
+        if kind == "tall":
+            off[:, 0::2] *= 6.0
+        x, wt, g = x.to(dtype), wt.to(dtype), g.to(dtype)
+        got = in_orders(monkeypatch,
+                        lambda: dcn_cuda._explicit_backward_launch(
+                            name, x, off, m, wt, g, PALLAS_MAX_SHIFT, 0))
+        want = dcn_cuda.dcn_backward_plain(x, off, m, wt, g)
+        names = ("dx", "doff", "dmask", "dw")
+    assert got[0].dtype == dtype
+    for grad, a, b in zip(names, got, want):
+        assert_close(a, b, grad)
+    assert dcn_cuda.LAUNCHES[name] == len(ORDERS)

@@ -6,9 +6,10 @@ nor the JAX package, so on a machine without JAX it runs with
 
 Tolerance: atol 5e-2 * max(1, max|reference|) and rtol 5e-2, the bound of
 the Pallas kernels' own tests (tests/test_dcn_pallas.py). Kernel and twin
-stage the same bf16 values; they differ by f32 summation order (and the dx
-and dW atomics, whose order changes from run to run), which can flip a
-bf16 rounding of a sample or of g . W^T.
+stage the same bf16 values; they differ by f32 summation order, which can
+flip a bf16 rounding of a sample or of g . W^T. Between two calls of a
+kernel on the same inputs there is no tolerance: every sum has a fixed
+order, so they give the same bits.
 """
 
 import numpy as np
@@ -426,6 +427,105 @@ def test_freeze_base_keeps_the_trunk_on_the_card(cuda):
             assert not torch.equal(p, before[k]), k
 
 
+# --- bitwise repeatability ----------------------------------------------------
+
+
+def bits(t):
+    """``t``'s bit pattern (-0.0 and 0.0 differ; a NaN equals itself)."""
+    t = t.detach().contiguous()
+    if not t.is_floating_point():
+        return t
+    return t.view({8: torch.int64, 4: torch.int32,
+                   2: torch.int16}[t.element_size()])
+
+
+REPEAT_CALLS = 5
+
+
+def _row_call(row, dtype, shape, cuda):
+    """(call, want, split) of one row at ``shape`` (B, Cin, Cout, H, W):
+    ``call()`` gives the row's outputs as a tuple, ``want`` its twin's, and
+    ``split`` whether the shape splits Cin on this card (the forward's
+    slices, or the backward's data kernel)."""
+    b, cin, cout, h, w = shape
+    cp = -(-cin // 8) * 8
+    if row in (4, 5):
+        x, om_w, om_b, wt, bias, g = make_fused_inputs(21, *shape, cuda)
+        if row == 4:
+            return ((lambda: dcn_cuda.dcn_fused_forward(x, om_w, om_b, wt,
+                                                        bias)),
+                    dcn_cuda.dcn_v2_fused_twin(x, om_w, om_b, wt, bias),
+                    False)
+        per = dcn_cuda._lib("dcn_fused_bwd").dcn_fused_bwd_data_cin_per_block(
+            b, h, w, cp)
+        return ((lambda: dcn_cuda.dcn_fused_backward(x, om_w, om_b, wt, g)),
+                dcn_cuda.dcn_fused_backward_plain(x, om_w, om_b, wt, g),
+                per < cp)
+    x, off, m, wt, bias = make_inputs(21, *shape, cuda)
+    g = torch.randn(b, cout, h, w, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(22))
+    x, wt, g = x.to(dtype), wt.to(dtype), g.to(dtype)
+    if row in (1, 2, 6):
+        name = {1: "dcn_fwd", 2: "dcn_wide_fwd", 6: "dcn_sel_fwd"}[row]
+        fn = {1: dcn_cuda.dcn_forward, 2: dcn_cuda.dcn_wide_forward,
+              6: dcn_cuda.dcn_sel_forward}[row]
+        per = getattr(dcn_cuda._lib(name), f"{name}_cin_per_block")(
+            b, h, w, cp, cout)
+        return ((lambda: (fn(x, off, m, wt, bias),)),
+                (dcn_v2_twin(x, off, m, wt, bias, clamp_dx=row == 2),),
+                per < cp)
+    name = {3: "dcn_bwd", 7: "dcn_sel_bwd"}[row]
+    fn = {3: dcn_cuda.dcn_backward, 7: dcn_cuda.dcn_sel_backward}[row]
+    per = getattr(dcn_cuda._lib(name), f"{name}_data_cin_per_block")(
+        b, h, w, cp)
+    return ((lambda: fn(x, off, m, wt, g)),
+            dcn_cuda.dcn_backward_plain(x, off, m, wt, g), per < cp)
+
+
+# each row at its DLA-34 or MobileNetV2 path shape and at one that splits
+# Cin on an H100 (132 SMs): the f32 and fused rows at DLA-34's 64 -> 64
+# @128 and 512 -> 256 @16 (batch 16, 512 px); the wide forward at its 1088
+# px layer (batch 4) and a short map; the select rows at MobileNetV2's
+# 1280 -> 256 @16 (batch 32) and a 300 px wide map. The fused forward
+# never splits Cin: its second shape narrows the channel group.
+REPEAT_ROWS = [
+    pytest.param(row, dtype, shape, split,
+                 id=f"row{row}-{str(dtype)[6:]}-{'x'.join(map(str, shape))}")
+    for row, dtypes, shapes in (
+        (1, [torch.float32], [((16, 64, 64, 128, 128), False),
+                              ((16, 512, 256, 16, 16), True)]),
+        (2, [torch.float32, torch.bfloat16],
+         [((4, 64, 64, 272, 272), False), ((1, 512, 64, 16, 264), True)]),
+        (3, [torch.float32], [((16, 64, 64, 128, 128), False),
+                              ((16, 512, 256, 16, 16), True)]),
+        (4, [torch.bfloat16], [((16, 64, 64, 128, 128), False),
+                               ((16, 512, 256, 16, 16), False)]),
+        (5, [torch.bfloat16], [((16, 64, 64, 128, 128), False),
+                               ((16, 512, 256, 16, 16), True)]),
+        (6, [torch.float32, torch.bfloat16],
+         [((32, 1280, 256, 16, 16), True), ((2, 16, 24, 8, 300), False)]),
+        (7, [torch.float32, torch.bfloat16],
+         [((32, 1280, 256, 16, 16), True), ((2, 16, 24, 8, 300), False)]),
+    )
+    for dtype in dtypes for shape, split in shapes]
+
+
+@pytest.mark.parametrize("row,dtype,shape,split", REPEAT_ROWS)
+def test_rows_repeat_bitwise(cuda, row, dtype, shape, split):
+    """Each of the seven rows, called REPEAT_CALLS times on the same
+    inputs: every output bit for bit the first call's, split or not, and
+    within tolerance of its twin."""
+    call, want, is_split = _row_call(row, dtype, shape, cuda)
+    assert is_split == split
+    first = call()
+    for _ in range(REPEAT_CALLS - 1):
+        again = call()
+        for i, (a, b) in enumerate(zip(first, again)):
+            assert torch.equal(bits(a), bits(b)), (row, i)
+    for i, (a, b) in enumerate(zip(first, want)):
+        assert_close(a.float(), b.float(), f"row {row} output {i}")
+
+
 # --- the forward kernels as custom ops, and an exported model ------------------
 
 
@@ -512,9 +612,10 @@ def test_kernels_capture_in_the_global_mode(cuda, route):
     in the global capture mode, which refuses any host call that is not
     legal under capture (the launchers' attribute queries and
     ``cudaFuncSetAttribute`` are legal), then replayed on new values of
-    its inputs: the replay's output and gradients within the kernels'
-    tolerance of an eager call on those values; the capture counts its
-    launches, the replay none (it runs no Python)."""
+    its inputs: the replay's output and gradients equal to an eager call
+    on those values, bit for bit (the wide route's gradients, autograd
+    through the exact op, within the kernels' tolerance); the capture
+    counts its launches, the replay none (it runs no Python)."""
     leaves, kernel = _route_inputs(route, cuda)
     leaves = [t.detach().requires_grad_(True) for t in leaves]
 
@@ -543,6 +644,12 @@ def test_kernels_capture_in_the_global_mode(cuda, route):
                               static, want):
         assert_close(got.detach().float(), ref.detach().float(),
                      f"{route} {name}")
+        # the wide route has no backward kernel: its gradients are
+        # autograd through the exact op, whose gathers' gradients add with
+        # atomics on the card, so they do not repeat bit for bit (ROADMAP
+        # Queue C, C7, with its spread from tools/dcn_offset_spread.py)
+        if route != "wide" or name == "out":
+            assert torch.equal(bits(got), bits(ref)), f"{route} {name}"
 
 
 def test_capturable_adam_replays_match_plain_adam(cuda):
@@ -587,12 +694,12 @@ def test_graphed_dla34_steps_match_eager(cuda, precision):
     """DLA-34 at full width, 128 px, batch 2: three train steps of the
     graphed trainer (eager, capture and replay, replay) against two eager
     trainers from the same seed, each step from the first eager trainer's
-    state before it (copied in place; the DCN kernels add with float
-    atomics, and Adam moves an element whose gradient is below that noise
-    by +-lr either way, so trajectories part whatever runs them). Per step
-    the stats (largest difference) and the parameters (norm of the
-    difference) within 4x the two eager trainers' spread plus 1e-6 of
-    scale; each step's launches those of an eager step."""
+    state before it (copied in place, so that a step that parted could not
+    carry its difference into the next). Per step the stats (largest
+    difference) and the parameters (norm of the difference) within 4x the
+    two eager trainers' spread plus 1e-6 of scale, and, since the DCN
+    kernels repeat bit for bit, equal to the first eager trainer's bit for
+    bit; each step's launches those of an eager step."""
     from pathlib import Path
 
     from centernet_uda_torch.bench import synthetic_batch
@@ -635,6 +742,95 @@ def test_graphed_dla34_steps_match_eager(cuda, precision):
         diff = max(float(norm(g - a)) for a, g in zip(got[0], got[2]))
         scale = max(float(norm(a)) for a in got[0])
         assert diff <= 4 * spread + 1e-6 * scale, (diff, spread)
+        for i in (1, 2):
+            for step, (a, b) in enumerate(zip(got[0], got[i])):
+                assert torch.equal(bits(a), bits(b)), (i, step)
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_two_dla34_trainers_stay_bitwise_equal(cuda, precision):
+    """Two eager DLA-34 trainers at full width (128 px, batch 2) from one
+    seed, each trained on its own for three steps on one batch, no state
+    copied between them: every step's stats and, after the last step, the
+    whole train state (parameters, buffers and Adam's moments) bit for
+    bit."""
+    from pathlib import Path
+
+    from centernet_uda_torch.bench import synthetic_batch
+    from centernet_uda_torch.config import compose
+    from centernet_uda_torch.train import build_trainer
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = compose(["experiment=baseline", f"precision={precision}",
+                   "batch_size=2", "model.backend.params.num_classes=6",
+                   "datasets.training.params.input_size=[128,128]"],
+                  config_dir=str(root / "configs"))
+    data = synthetic_batch(2, 128)
+    trainers = [build_trainer(cfg, device="cuda", graphs=False)
+                for _ in range(2)]
+    stats = [[], []]
+    for i, t in enumerate(trainers):
+        t.init_done()
+        for _ in range(3):
+            out = t.step(data)["stats"]
+            stats[i].append(torch.stack([out[k] for k in sorted(out)]))
+    torch.cuda.synchronize()
+    for step, (a, b) in enumerate(zip(*stats)):
+        assert torch.equal(bits(a), bits(b)), step
+    a, b = (_train_state(t) for t in trainers)
+    assert len(a) == len(b)
+    for i, (u, v) in enumerate(zip(a, b)):
+        assert torch.equal(bits(u), bits(v)), i
+
+
+_FRESH_PROCESS_RUN = """
+import hashlib, sys
+import torch
+from centernet_uda_torch.bench import synthetic_batch
+from centernet_uda_torch.config import compose
+from centernet_uda_torch.train import build_trainer
+
+cfg = compose(["experiment=baseline", "precision=" + sys.argv[1],
+               "model.backend.params.num_classes=6"], config_dir="configs")
+t = build_trainer(cfg, device="cuda")
+t.init_done()
+data = synthetic_batch(16, 512)
+for _ in range(3):
+    t.step(data)
+torch.cuda.synchronize()
+state = list(t.backend.module.parameters()) + list(t.backend.module.buffers())
+for st in t.optimizer.state.values():
+    state += [v for v in st.values() if isinstance(v, torch.Tensor)]
+h = hashlib.sha256()
+for v in state:
+    h.update(v.detach().contiguous().view(-1).view(torch.uint8).cpu()
+             .numpy())
+calls = t.step_graphs.calls if t.step_graphs is not None else None
+print(len(state), h.hexdigest(), calls)
+"""
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_two_processes_train_dla34_to_the_same_bits(cuda, precision):
+    """Two fresh processes, each building DLA-34 (``experiment=baseline``,
+    full width, 512 px, batch 16, graphed steps) from the config's seed and
+    training it three steps on one seeded batch: the same hash of the whole
+    train state (parameters, buffers and Adam's moments). A process picks
+    its cuDNN algorithms and kernel splits anew, so this is what a user
+    comparing two runs sees."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    runs = [subprocess.run([sys.executable, "-c", _FRESH_PROCESS_RUN,
+                            precision], cwd=root, capture_output=True,
+                           text=True, timeout=600) for _ in range(2)]
+    for r in runs:
+        assert r.returncode == 0, r.stderr[-2000:]
+    lines = [r.stdout.strip().splitlines()[-1] for r in runs]
+    assert "replays" in lines[0], lines[0]
+    assert lines[0] == lines[1], lines
 
 
 def test_registered_generator_replays_draw_the_eager_draws(cuda):

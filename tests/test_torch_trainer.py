@@ -157,3 +157,18 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Model()
     assert build_trainer(cfg, device="cpu").device == torch.device("cpu")
+
+
+def test_build_trainer_keeps_cudnn_to_deterministic_algorithms():
+    """One seed, one trajectory: ``build_trainer`` keeps cuDNN to its
+    deterministic algorithms (on the card a float32 convolution's backward
+    may otherwise take one that adds with atomics, and two trainers from
+    one seed part after a step), whatever the process set before."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False
+    try:
+        build_trainer(compose(["experiment=baseline"] + NARROW),
+                      device="cpu")
+        assert torch.backends.cudnn.deterministic
+    finally:
+        torch.backends.cudnn.deterministic = was

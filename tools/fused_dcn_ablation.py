@@ -13,10 +13,13 @@ training steps). Variants, each a copy of ``centernet_uda_torch/csrc``
 built under ``build/ablation/``:
 
 - ``tree``: the sources as they are;
-- ``no_dx_reductions``: the backward's data kernel
-  (``dcn_sample_bwd.cuh``, shared with the explicit-offset backwards)
-  without its dx reductions (dx comes out wrong; the time says what the
-  reductions cost).
+- ``no_gcol_store``: the backward's data kernel (``dcn_sample_bwd.cuh``,
+  shared with the explicit-offset backwards) without its store of gcol,
+  which the dx kernel reads (dx comes out wrong; the time says what the
+  store costs the data kernel);
+- ``dx_no_hits``: the dx kernel without adding its hits (it still finds
+  them; dx comes out zero; the time says what the adds cost, gcol's loads
+  included).
 
 The kernels' results are held against their twins by ``chip_smoke.py``, not
 here.
@@ -38,11 +41,12 @@ SHAPES = [  # ((cin, cout, h, w), batch): DLA-34 and MobileNetV2 path shapes
     ((512, 256, 16, 16), 16), ((256, 256, 64, 64), 32)]
 VARIANTS = {
     "tree": [],
-    "no_dx_reductions": [(
+    "no_gcol_store": [(
         "dcn_sample_bwd.cuh",
-        r"if \(w != 0\.f\) \{\s*red_add_v4\(dxb \+ at,.*?"
-        r"red_add_v4\(dxb \+ at \+ 4,.*?\);\s*\}",
-        "(void)w;")],
+        r"\*\(uint4\*\)\(gcolb \+ .*?\) = gq;",
+        "(void)gcolb;")],
+    "dx_no_hits": [(
+        "dcn_sample_bwd.cuh", r"while \(hits\) \{", "while (false) {")],
 }
 
 
