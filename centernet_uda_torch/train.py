@@ -59,6 +59,7 @@ from centernet_uda_torch.parallel import ddp
 from centernet_uda_torch.uda.base import _HOST_KEYS, Model
 from centernet_uda_torch.utils import optim as optim_util
 from centernet_uda_torch.utils.meters import AverageMeter
+from centernet_uda_torch.utils.spans import span
 from centernet_uda_torch.utils.tensorboard import TensorboardLogger
 
 log = logging.getLogger("uda")
@@ -233,8 +234,7 @@ def _run_phase(trainer, loader, evaluators, tb_logger, stats, epoch, tag,
     graphs = trainer.step_graphs
     calls0 = None if graphs is None else dict(graphs.calls)
     t0 = time.perf_counter()
-    wait_s = 0.0
-    log_s = 0.0
+    timed: Dict[str, float] = {}  # the record's host seconds, by span
     n_images = 0
     prof = None
     clamp_warned = False
@@ -271,17 +271,18 @@ def _run_phase(trainer, loader, evaluators, tb_logger, stats, epoch, tag,
 
     batches = iter(loader)
     while True:
-        t_next = time.perf_counter()
-        data = next(batches, None)
-        if data is None:
+        try:
+            with span("phase.batch_wait", timed):
+                data = next(batches)
+        except StopIteration:
             break
-        wait_s += time.perf_counter() - t_next
         # torch.profiler trace of the first N train steps of the first
         # epoch (the reference has no tracing at all)
         if (profile_steps and is_training and epoch == 1 and n_batches == 0
                 and ddp.is_main()):
             prof = _start_profiler(trainer.device)
-        outputs = trainer.step(data, is_training=is_training)
+        with span("phase.step"):
+            outputs = trainer.step(data, is_training=is_training)
         n_batches += 1
         # a padded final eval batch carries the real sample count
         n_real = int(data.get("_num_real", len(data["input"])))
@@ -292,53 +293,63 @@ def _run_phase(trainer, loader, evaluators, tb_logger, stats, epoch, tag,
 
         pending.append((outputs["stats"], n_real))
         if not is_training or len(pending) >= STATS_FLUSH:
-            if flush_pending() and not is_training:
+            with span("phase.stats_flush"):
+                degraded = flush_pending()
+            if degraded and not is_training:
                 # this batch's outputs were computed on the truncating
                 # kernels — recompute on the exact op the degrade just
                 # installed so its detections are correct (the truncated
                 # stats were already logged; one batch of loss meters is
                 # noise, the detections are not)
-                outputs = trainer.step(data, is_training=False)
+                with span("phase.step"):
+                    outputs = trainer.step(data, is_training=False)
 
         if not is_training:
-            detections = trainer.get_detections(outputs, data)
-            if n_real < len(data["input"]):
-                # drop padded duplicates before they reach the evaluator
-                detections = {k: v[:n_real] for k, v in detections.items()}
+            with span("phase.detections"):
+                detections = trainer.get_detections(outputs, data)
+                if n_real < len(data["input"]):
+                    # drop padded duplicates before they reach the evaluator
+                    detections = {k: v[:n_real]
+                                  for k, v in detections.items()}
             detections["image_shape"] = tuple(data["input"].shape[1:])
             if ddp.is_distributed():
                 if n_real:
                     rank_detections.append(detections)
             else:
-                for ev in evaluators:
-                    ev.add_batch(**detections)
+                with span("phase.add_batch"):
+                    for ev in evaluators:
+                        ev.add_batch(**detections)
             if tb_logger is not None:
-                t_log = time.perf_counter()
-                tb_logger.log_detections(data, detections, epoch, tag=tag)
-                log_s += time.perf_counter() - t_log
+                with span("phase.log_detections", timed):
+                    tb_logger.log_detections(data, detections, epoch,
+                                             tag=tag)
 
     if prof is not None:
         _stop_profiler(prof, trainer.device, n_batches)
     if not is_training and ddp.is_distributed():
         for part in ddp.gather_to_main(rank_detections) or []:
             for detections in part:
-                for ev in evaluators:
-                    ev.add_batch(**detections)
+                with span("phase.add_batch"):
+                    for ev in evaluators:
+                        ev.add_batch(**detections)
 
-    flush_pending()
+    with span("phase.stats_flush"):
+        flush_pending()
     dt = time.perf_counter() - t0
     if n_batches:
         stats[f"{tag}/images_per_sec"] = n_images / dt
     loss = stats.get(f"{tag}/total_loss")
     phases.append({"epoch": epoch, "tag": tag, "steps": n_batches,
                    "images": n_images, "seconds": dt,
-                   "loader_wait_s": wait_s, "log_detections_s": log_s,
+                   "loader_wait_s": timed.get("phase.batch_wait", 0.0),
+                   "log_detections_s": timed.get("phase.log_detections",
+                                                 0.0),
                    "total_loss": loss.avg if loss is not None else None,
                    "graph_calls": None if graphs is None else {
                        k: n - calls0[k] for k, n in graphs.calls.items()}})
     log.info("%s epoch %d: %d steps in %.2f s, %.1f%% of it waiting for "
              "the loader", tag, epoch, n_batches, dt,
-             100.0 * wait_s / max(dt, 1e-9))
+             100.0 * phases[-1]["loader_wait_s"] / max(dt, 1e-9))
     return stats
 
 
@@ -348,10 +359,11 @@ def _run_eval(trainer, loader, evaluators, tb_logger, stats, epoch, tag,
     the phase's record gets the evaluators' time."""
     stats = _run_phase(trainer, loader, evaluators, tb_logger, stats, epoch,
                        tag, False, phases)
-    t0 = time.perf_counter()
-    for ev in evaluators:
-        stats = {**stats, **ev.evaluate()}
-    phases[-1]["evaluate_s"] = time.perf_counter() - t0
+    timed: Dict[str, float] = {}
+    with span("phase.evaluate", timed):
+        for ev in evaluators:
+            stats = {**stats, **ev.evaluate()}
+    phases[-1]["evaluate_s"] = timed["phase.evaluate"]
     return stats
 
 
@@ -368,7 +380,13 @@ def main(argv=None, device: str = "cuda",
     ``total_loss`` (its meter's mean since the meters were last reset),
     ``graph_calls`` (the phase's compiled-step calls, ``StepGraphs.calls``
     counted over the phase; None where the steps run eagerly) and, for an
-    eval phase, ``evaluate_s`` (the evaluators' time after it).
+    eval phase, ``evaluate_s`` (the evaluators' time after it). The three
+    times are the sums of the spans ``phase.batch_wait``,
+    ``phase.log_detections`` and ``phase.evaluate``; those and the phase
+    loop's other spans (``phase.step``, ``phase.stats_flush``,
+    ``phase.detections``, ``phase.add_batch``) mark a ``torch.profiler``
+    trace while one records (``utils/spans.py``): ``profile_steps`` writes
+    one.
     """
     phases = [] if phases is None else phases
     parser = argparse.ArgumentParser(

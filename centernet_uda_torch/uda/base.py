@@ -70,6 +70,7 @@ from centernet_uda_torch.parallel import ddp
 from centernet_uda_torch.utils import checkpoint as ckpt
 from centernet_uda_torch.utils import optim as optim_util
 from centernet_uda_torch.utils.graphs import StepGraphs
+from centernet_uda_torch.utils.spans import span
 
 log = logging.getLogger(__name__)
 
@@ -302,10 +303,12 @@ class Model:
         rotated = self.backend.rotated_boxes
         dets = self.decode(outputs["source_domain"])
         has_kps = isinstance(dets, tuple)
-        if has_kps:
-            dets, kps = dets
-            kps = kps.cpu().numpy() * down_ratio
-        dets = dets.cpu().numpy().copy()
+        # the host waits here for the eval and decode steps' kernels
+        with span("detections.to_host"):
+            if has_kps:
+                dets, kps = dets
+                kps = kps.cpu().numpy() * down_ratio
+            dets = dets.cpu().numpy().copy()
         dets[:, :, :4] *= down_ratio
 
         def host(v):

@@ -72,6 +72,14 @@ that fails raises; nothing falls back to the eager step.
 ``graph_factory(generators)`` makes the graph object (``capture(fn)``
 returning fn's outputs, ``replay()``); the default is a CUDA graph, and
 the CPU tests inject a stand-in.
+
+Spans (``utils/spans.py``; in a profiler's trace only): ``graphs.eager``
+(a key's first, eager call), ``graphs.capture`` (staging and capture),
+``graphs.stage`` (a replay's inputs copied into the static buffers) and
+``graphs.replay`` (the replay and the outputs' copies). A
+``graphs.eager`` or ``graphs.capture`` event in a steady stretch of a
+trace is a step built again (after ``invalidate()``, or a new input
+signature); ``calls`` counts the same events.
 """
 
 from __future__ import annotations
@@ -83,6 +91,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from centernet_uda_torch.ops import dcn_cuda
+from centernet_uda_torch.utils.spans import span
 
 
 class CudaGraph:
@@ -181,27 +190,33 @@ class StepGraphs:
         if captured is None and key not in self._seen:
             self._seen.add(key)
             self.calls["eager"] += 1
-            return fn({k: v.to(self.device, non_blocking=True)
-                       for k, v in inputs.items()})
+            with span("graphs.eager"):
+                return fn({k: v.to(self.device, non_blocking=True)
+                           for k, v in inputs.items()})
         if captured is None:
             captured = self._capture(key, fn, inputs, generators)
         else:
-            for k, v in inputs.items():
-                captured.static[k].copy_(v, non_blocking=True)
-        captured.graph.replay()
+            with span("graphs.stage"):
+                for k, v in inputs.items():
+                    captured.static[k].copy_(v, non_blocking=True)
+        with span("graphs.replay"):
+            captured.graph.replay()
+            outputs = map_tensors(torch.clone, captured.outputs)
         self.calls["replays"] += 1
         for k, n in captured.launches.items():
             self.counters[k] += n
-        return map_tensors(torch.clone, captured.outputs)
+        return outputs
 
     def _capture(self, key, fn, inputs, generators) -> _Captured:
-        static = {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
-                  for k, v in inputs.items()}
-        for k, v in inputs.items():
-            static[k].copy_(v, non_blocking=True)
-        graph = self.graph_factory(generators)
-        before = dict(self.counters)
-        outputs = graph.capture(lambda: fn(static))
+        with span("graphs.capture"):
+            static = {k: torch.empty(v.shape, dtype=v.dtype,
+                                     device=self.device)
+                      for k, v in inputs.items()}
+            for k, v in inputs.items():
+                static[k].copy_(v, non_blocking=True)
+            graph = self.graph_factory(generators)
+            before = dict(self.counters)
+            outputs = graph.capture(lambda: fn(static))
         launches = {k: n - before.get(k, 0) for k, n in self.counters.items()
                     if n != before.get(k, 0)}
         for k, n in launches.items():

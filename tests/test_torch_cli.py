@@ -5,6 +5,7 @@ The JAX package's own CLI test is slow-marked, so its evaluator stands in
 for it: on the detections the port's CLI evaluated, the JAX ``Evaluator``
 returns the same ``MSCOCO_*`` keys."""
 
+import json
 import logging
 import math
 import os
@@ -19,6 +20,7 @@ import torch
 from centernet_uda_tpu.evaluation.coco import Evaluator as JaxEvaluator
 from centernet_uda_torch import train
 from centernet_uda_torch.evaluation.coco import Evaluator
+from tests.torch_graph_stand_in import stand_in_graphs
 from tests.util_fixtures import make_tiny_coco
 
 torch.set_num_threads(2)
@@ -105,10 +107,26 @@ def test_train_evaluate_checkpoint_resume(tiny, tmp_path, monkeypatch,
 
 
 def test_profile_steps_writes_a_trace(tiny, tmp_path, monkeypatch):
+    """The operator's trace holds the program's spans: the phase loop's
+    ``phase.step`` and the compiled step's first, eager call (the CPU's
+    steps go through the stand-in graph here, as the card's are graphed)."""
+    build = train.build_trainer
+
+    def graphed(*args, **kwargs):
+        trainer = build(*args, **kwargs)
+        stand_in_graphs(trainer)
+        return trainer
+
+    monkeypatch.setattr(train, "build_trainer", graphed)
     monkeypatch.chdir(tmp_path)
     train.main(overrides(tiny, "epochs=1", "profile_steps=2",
                          "eval_at_n_epoch=2"), device="cpu")
-    assert (tmp_path / RUN / "profile" / "trace.json").stat().st_size > 0
+    path = tmp_path / RUN / "profile" / "trace.json"
+    assert path.stat().st_size > 0
+    with open(path) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "user_annotation"}
+    assert {"phase.step", "graphs.eager"} <= names
 
 
 @pytest.mark.parametrize("extra,error,match", [
