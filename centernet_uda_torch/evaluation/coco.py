@@ -11,9 +11,14 @@ reference them via ``save_best_metric.name``.
 
 Unlike the reference, the gt/id caches are instance state, not class
 attributes (fixing the shared-cache quirk at evaluation/coco.py:61-62), and
-annotation conversion is plain vectorized numpy instead of a
-``multiprocessing.Pool`` (evaluation/coco.py:303-307) — the conversion is no
-longer the bottleneck without pycocotools' JSON round-trip.
+the store is columnar, without a ``multiprocessing.Pool``
+(evaluation/coco.py:303-307) or pycocotools' JSON round-trip: ``add_batch``
+turns a batch, with whole-array numpy operations, into one ``Boxes`` of
+detections and one of ground truth (image ids, category ids, boxes rounded
+as the reference rounds them, areas, scores). That is a few arrays a batch
+and no Python object per box, so a phase's detections leave no heap for
+Python's cyclic collector to walk. ``evaluate`` hands the columns to
+``COCOEval``.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from centernet_uda_torch.evaluation.coco_eval_np import COCOEval
+from centernet_uda_torch.evaluation.coco_eval_np import Boxes, COCOEval
 
 log = logging.getLogger(__name__)
 
@@ -71,8 +76,46 @@ _SUMMARY_SPECS = {
 }
 
 
+def round2(values: np.ndarray) -> np.ndarray:
+    """Python's ``round(v, 2)`` of every value, bit for bit, as float64.
+
+    ``rint(100 v) / 100`` is Python's answer wherever ``100 v`` lies clear
+    of a tie (x.5) by more than its own rounding error: rint picks the same
+    whole number of hundredths, and the division gives the double nearest
+    to it, as Python's decimal round trip does. Values whose ``100 v`` is
+    within 1e-6 of a tie, values of 2**20 or more and those not finite take
+    Python's ``round`` (a few a batch of float32 boxes: their eighths)."""
+    values = np.asarray(values, np.float64)
+    hundredths = values * 100.0
+    out = np.rint(hundredths) / 100.0
+    with np.errstate(invalid="ignore"):  # inf - inf is a nan: not clear
+        clear = ((np.abs(hundredths - np.floor(hundredths) - 0.5) > 1e-6)
+                 & (np.abs(values) < 2.0 ** 20))
+    if not clear.all():
+        near = np.flatnonzero(~clear)
+        out.flat[near] = [round(v, 2) for v in values.flat[near].tolist()]
+    return out
+
+
+def _rows(per_image, n: int, dtype, width: Optional[int] = None):
+    """The first ``n`` images' arrays of ``per_image`` as one array, rows
+    in order (``width`` columns of 2-d ones), and each image's row count."""
+    parts = [np.asarray(per_image[i], dtype) for i in range(n)]
+    if width is not None:
+        parts = [p.reshape(-1, width) if p.ndim < 2 else p[:, :width]
+                 for p in parts]
+    else:
+        parts = [p.reshape(-1) for p in parts]
+    return np.concatenate(parts), [len(p) for p in parts]
+
+
 class Evaluator:
-    """Accumulating COCO-metric evaluator (evaluation/coco.py:22-101 surface)."""
+    """Accumulating COCO-metric evaluator (evaluation/coco.py:22-101 surface).
+
+    The store is columnar: each ``add_batch`` appends one ``Boxes`` of
+    detections and one of ground truth to ``detections`` and
+    ``ground_truth``, numpy arrays that it owns (image ids, category ids,
+    boxes, areas, scores), and makes no Python object per box."""
 
     def __init__(self, per_class: bool = True, score_threshold: float = 0.1):
         self.per_class = per_class
@@ -80,13 +123,11 @@ class Evaluator:
         self.classes: Optional[Dict] = None
         self.use_rotated_boxes = False
         self.num_workers: Optional[int] = None
-        self.pred_annos: List[Dict] = []
-        self.gt_annos: List[Dict] = []
-        self.existent_labels: Dict[int, bool] = {}
+        self.detections: List[Boxes] = []
+        self.ground_truth: List[Boxes] = []
         # instance-level (reference used class attrs) and O(1) per lookup
         # (the reference's list.index scan is O(N) per image)
         self._cached_ids: Dict = {}
-        self._anno_id = 0
 
     # ------------------------------------------------------------------
     def add_batch(
@@ -107,82 +148,66 @@ class Evaluator:
         Shapes follow ``uda.base.Model.get_detections`` (uda/base.py:125-138):
         ``pred_*`` are (B, K, ...) arrays; ``gt_*`` are per-image lists of
         variable-length arrays. Rotated boxes are 5-dim (cx, cy, w, h, deg).
+        Detections below ``score_threshold`` are dropped; keypoints are
+        not evaluated.
         """
-        for i in range(len(pred_boxes)):
-            gt_id = gt_ids[i]
-            gt_id = gt_id.item() if hasattr(gt_id, "item") else gt_id
-            image_id = self._cached_ids.setdefault(
-                gt_id, len(self._cached_ids) + 1
-            )
+        n = len(pred_boxes)
+        if not n:
+            return
+        image_id = np.array(
+            [self._cached_ids.setdefault(
+                i.item() if hasattr(i, "item") else i,
+                len(self._cached_ids) + 1) for i in gt_ids[:n]], np.int64)
+        width = 5 if self.use_rotated_boxes else 4
 
-            boxes = np.asarray(pred_boxes[i], np.float64)
-            classes = np.asarray(pred_classes[i]).astype(int)
-            scores = np.asarray(pred_scores[i], np.float64)
-            keep = scores >= self.score_threshold
-            for bb, lb, sc in zip(boxes[keep], classes[keep], scores[keep]):
-                self._anno_id += 1
-                self.pred_annos.append(
-                    self._make_anno(bb, int(lb), float(sc), image_id)
-                )
-                self.existent_labels[int(lb)] = True
+        boxes, counts = _rows(pred_boxes, n, np.float64, width)
+        scores = _rows(pred_scores, n, np.float64)[0]
+        keep = scores >= self.score_threshold
+        boxes, area = self._boxes(boxes[keep], None)
+        self.detections.append(Boxes(
+            np.repeat(image_id, counts)[keep],
+            _rows(pred_classes, n, np.int64)[0][keep], boxes, area,
+            scores[keep]))
 
-            g_boxes = np.asarray(gt_boxes[i], np.float64)
-            g_classes = np.asarray(gt_classes[i]).astype(int)
-            g_areas = (
-                np.asarray(gt_areas[i], np.float64)
-                if gt_areas is not None
-                else [None] * len(g_boxes)
-            )
-            for bb, lb, ar in zip(g_boxes, g_classes, g_areas):
-                self._anno_id += 1
-                anno = self._make_anno(bb, int(lb), None, image_id, area=ar)
-                self.gt_annos.append(anno)
-                self.existent_labels[int(lb)] = True
+        boxes, counts = _rows(gt_boxes, n, np.float64, width)
+        given = None if gt_areas is None else \
+            _rows(gt_areas, n, np.float64)[0]
+        boxes, area = self._boxes(boxes, given)
+        self.ground_truth.append(Boxes(
+            np.repeat(image_id, counts), _rows(gt_classes, n, np.int64)[0],
+            boxes, area))
 
-    def _make_anno(self, bb, label, score, image_id, area=None) -> Dict:
+    def _boxes(self, boxes: np.ndarray, area: Optional[np.ndarray]):
+        """The boxes as stored, and their areas: ``area`` where it is
+        given and positive, else the box's."""
         if self.use_rotated_boxes:
-            cx, cy, w, h = bb[0], bb[1], bb[2], bb[3]
-            if area is None or (np.isscalar(area) and area <= 0):
-                area = float(w * h)
-            anno = {
-                "image_id": image_id,
-                "category_id": label,
-                "bbox": [float(v) for v in bb[:5]],
-                "area": float(area),
-                "iscrowd": 0,
-            }
+            own = boxes[:, 2] * boxes[:, 3]
         else:
-            x1, y1, x2, y2 = [float(v) for v in bb[:4]]
             # reference rounds x/y/w/h to 2 decimals before pycocotools
             # sees them ("to make the result consistent with COCO",
             # evaluation/coco.py:342-346); mirror it so near-threshold
             # IoUs flip the same way in both pipelines
-            w = round(x2 - x1, 2)
-            h = round(y2 - y1, 2)
-            x1, y1 = round(x1, 2), round(y1, 2)
-            x2, y2 = x1 + w, y1 + h
-            if area is None or (np.isscalar(area) and area <= 0):
-                area = h * w
-            anno = {
-                "image_id": image_id,
-                "category_id": label,
-                "bbox": [x1, y1, x2, y2],
-                "area": float(area),
-                "iscrowd": 0,
-            }
-        if score is not None:
-            anno["score"] = score
-        return anno
+            x1, y1, w, h = round2(np.stack(
+                [boxes[:, 0], boxes[:, 1], boxes[:, 2] - boxes[:, 0],
+                 boxes[:, 3] - boxes[:, 1]]))
+            boxes = np.stack([x1, y1, x1 + w, y1 + h], axis=1)
+            own = h * w
+        if area is not None:
+            own = np.where(area <= 0, own, area)
+        return boxes, own
 
     # ------------------------------------------------------------------
     def evaluate(self) -> Dict[str, float]:
-        existent = sorted(self.existent_labels)
-        results: Dict[str, object] = {}
-
+        width = 5 if self.use_rotated_boxes else 4
         coco_eval = COCOEval(
-            self.gt_annos, self.pred_annos, rotated=self.use_rotated_boxes
+            Boxes.concatenate(self.ground_truth, width, scored=False),
+            Boxes.concatenate(self.detections, width, scored=True),
+            rotated=self.use_rotated_boxes,
         )
         coco_eval.evaluate_and_accumulate()
+        # every kept detection's and every gt box's category
+        existent = coco_eval.cat_ids
+        results: Dict[str, object] = {}
 
         for key, spec in _SUMMARY_SPECS.items():
             metrics, mean_metric = coco_eval.summarize(**spec)
@@ -222,8 +247,6 @@ class Evaluator:
         return results
 
     def reset(self) -> None:
-        self.pred_annos = []
-        self.gt_annos = []
-        self.existent_labels = {}
+        self.detections = []
+        self.ground_truth = []
         self._cached_ids = {}
-        self._anno_id = 0

@@ -1,6 +1,6 @@
 """Pure-numpy COCO detection evaluation (COCOeval-equivalent).
 
-A copy of ``centernet_uda_tpu/evaluation/coco_eval_np.py``. Its greedy
+The protocol of ``centernet_uda_tpu/evaluation/coco_eval_np.py``. Its greedy
 matcher runs in the host library (``native.coco_greedy_match``, where the
 JAX evaluator calls its own C++ matcher), or, with
 ``CENTERNET_DISABLE_NATIVE`` set, in Python (``greedy_match``, its plain
@@ -11,6 +11,10 @@ recall thresholds, area ranges all/small/medium/large, maxDets [1, 10, 100],
 greedy score-ordered matching with ignore handling, and the
 precision (T, R, K, A, M) / recall (T, K, A, M) accumulation tables.
 
+It works on columns (``Boxes``: a numpy array a field, a row a box) and
+groups each by (category, image) with one stable sort; lists of
+annotation dicts become columns first.
+
 Axis-aligned boxes use the standard corner-intersection IoU (pycocotools
 ``bbox`` mode). Rotated boxes use exact convex-polygon IoU
 (Sutherland–Hodgman clipping) instead of the reference's rasterized
@@ -20,8 +24,7 @@ error and much faster on the host.
 
 from __future__ import annotations
 
-from collections import defaultdict
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -183,153 +186,178 @@ def greedy_match(iou: np.ndarray, gt_ig: np.ndarray, gt_crowd: np.ndarray,
     return dtm, dt_ig
 
 
-class COCOEval:
-    """Greedy-matching COCO evaluation over in-memory annotation lists.
+class Boxes(NamedTuple):
+    """Annotations as columns: one row a box, in the order they came.
 
-    Annotations are dicts: detections ``{image_id, category_id, bbox, score,
-    area}``, ground truth ``{image_id, category_id, bbox, area, iscrowd}``.
-    ``bbox`` is x1y1x2y2 for axis-aligned mode or (cx, cy, w, h, angle) for
-    rotated mode.
+    ``bbox`` is (N, 4) x1y1x2y2, or (N, 5) (cx, cy, w, h, angle) in rotated
+    mode. ``score`` is the detections' (None for ground truth), ``iscrowd``
+    the ground truth's (None: no crowd box)."""
+
+    image_id: np.ndarray     # (N,) int64
+    category_id: np.ndarray  # (N,) int64
+    bbox: np.ndarray         # (N, 4 or 5) float64
+    area: np.ndarray         # (N,) float64
+    score: Optional[np.ndarray] = None
+    iscrowd: Optional[np.ndarray] = None
+
+    @classmethod
+    def from_annos(cls, annos: Sequence[Dict], width: int,
+                   scored: bool) -> "Boxes":
+        """Columns of annotation dicts: detections ``{image_id,
+        category_id, bbox, score, area}`` (``scored``), ground truth
+        ``{image_id, category_id, bbox, area, iscrowd}``."""
+        return cls(
+            np.array([a["image_id"] for a in annos], np.int64),
+            np.array([a["category_id"] for a in annos], np.int64),
+            np.array([a["bbox"][:width] for a in annos],
+                     np.float64).reshape(len(annos), width),
+            np.array([a["area"] for a in annos], np.float64),
+            np.array([a["score"] for a in annos], np.float64)
+            if scored else None,
+            None if scored else np.array(
+                [bool(a.get("iscrowd", 0)) for a in annos], bool))
+
+    @classmethod
+    def concatenate(cls, parts: Sequence["Boxes"], width: int,
+                    scored: bool) -> "Boxes":
+        """The rows of ``parts`` in order (none, boxes ``width`` wide, when
+        there is no part)."""
+        if not parts:
+            return cls.from_annos([], width, scored)
+        return cls(*(None if column[0] is None else np.concatenate(column)
+                     for column in zip(*parts)))
+
+
+class COCOEval:
+    """Greedy-matching COCO evaluation over in-memory annotations.
+
+    ``gts`` and ``dts`` are ``Boxes``, or lists of annotation dicts (see
+    ``Boxes.from_annos``), which become ``Boxes`` first. Each is grouped by
+    (category, image) with one stable sort: the ground truth of a cell in
+    the order it came, its detections by score, highest first, ties in the
+    order they came (as pycocotools' sort by score leaves them).
     """
 
-    def __init__(self, gt_annos: List[Dict], dt_annos: List[Dict],
-                 rotated: bool = False):
+    def __init__(self, gts, dts, rotated: bool = False):
+        width = 5 if rotated else 4
+        if not isinstance(gts, Boxes):
+            gts = Boxes.from_annos(gts, width, scored=False)
+        if not isinstance(dts, Boxes):
+            dts = Boxes.from_annos(dts, width, scored=True)
+        gts = gts._replace(iscrowd=np.zeros(len(gts.area), bool)
+                           if gts.iscrowd is None
+                           else np.asarray(gts.iscrowd, bool))
         self.rotated = rotated
-        self.gts = defaultdict(list)
-        self.dts = defaultdict(list)
-        img_ids = set()
-        cat_ids = set()
-        for g in gt_annos:
-            self.gts[(g["image_id"], g["category_id"])].append(g)
-            img_ids.add(g["image_id"])
-            cat_ids.add(g["category_id"])
-        for d in dt_annos:
-            self.dts[(d["image_id"], d["category_id"])].append(d)
-            img_ids.add(d["image_id"])
-            cat_ids.add(d["category_id"])
-        self.img_ids = sorted(img_ids)
-        self.cat_ids = sorted(cat_ids)
+        img_ids = np.unique(np.concatenate([gts.image_id, dts.image_id]))
+        cat_ids = np.unique(np.concatenate([gts.category_id,
+                                            dts.category_id]))
+        self.img_ids = img_ids.tolist()
+        self.cat_ids = cat_ids.tolist()
+
+        # a cell is (category, image): category-major, so that a
+        # category's cells lie together, in the order of their images
+        def cells(boxes):
+            return (np.searchsorted(cat_ids, boxes.category_id) * len(img_ids)
+                    + np.searchsorted(img_ids, boxes.image_id))
+
+        g_cell, d_cell = cells(gts), cells(dts)
+        g_order = np.argsort(g_cell, kind="stable")
+        d_order = np.lexsort((-dts.score, d_cell))
+        self.gts = Boxes(*(None if c is None else c[g_order] for c in gts))
+        self.dts = Boxes(*(None if c is None else c[d_order] for c in dts))
+        self._g_cell = g_cell[g_order]
+        # rows [start[c], start[c + 1]) are cell c's
+        edges = np.arange(len(cat_ids) * len(img_ids) + 1)
+        self._g_start = np.searchsorted(self._g_cell, edges)
+        self._d_start = np.searchsorted(d_cell[d_order], edges)
         self.eval: Dict[str, np.ndarray] = {}
         self._match = (native.coco_greedy_match if native.enabled()
                        else greedy_match)
 
     # ------------------------------------------------------------------
-    def _iou(self, img_id, cat_id) -> np.ndarray:
-        gts = self.gts[(img_id, cat_id)]
-        dts = sorted(self.dts[(img_id, cat_id)], key=lambda d: -d["score"])
-        dts = dts[: max(MAX_DETS)]
-        if not gts or not dts:
-            return np.zeros((len(dts), len(gts)))
-        d = np.array([dt["bbox"] for dt in dts])
-        g = np.array([gt["bbox"] for gt in gts])
-        crowd = np.array([bool(gt.get("iscrowd", 0)) for gt in gts])
-        if self.rotated:
-            return rotated_iou_matrix(d, g, crowd)
-        return bbox_iou_matrix(d, g, crowd)
-
-    def _evaluate_img(self, img_id, cat_id, area_rng, max_det, ious):
-        gts = self.gts[(img_id, cat_id)]
-        dts = sorted(self.dts[(img_id, cat_id)], key=lambda d: -d["score"])
-        dts = dts[:max_det]
-        if not gts and not dts:
-            return None
-
-        gt_ig = np.array(
-            [
-                bool(g.get("iscrowd", 0))
-                or g["area"] < area_rng[0]
-                or g["area"] > area_rng[1]
-                for g in gts
-            ],
-            dtype=bool,
-        )
-        # non-ignored gts first (stable), mirrors pycocotools gtind sort
-        gt_order = np.argsort(gt_ig, kind="mergesort")
-        gt_ig = gt_ig[gt_order]
-        iou = ious[:, gt_order] if len(gts) else ious
-
-        D = len(dts)
-        G = len(gts)
-        dt_out = np.array(
-            [d["area"] < area_rng[0] or d["area"] > area_rng[1] for d in dts],
-            dtype=bool,
-        )
-        gt_crowd = np.array(
-            [bool(gts[gt_order[gi]].get("iscrowd", 0)) for gi in range(G)],
-            dtype=bool,
-        )
-        # the cached IoU matrix covers the top max(MAX_DETS) detections
-        dtm, dt_ig = self._match(iou[:D].reshape(D, G), gt_ig, gt_crowd,
-                                 IOU_THRS, dt_out)
-        return {
-            "dt_scores": np.array([d["score"] for d in dts]),
-            "dt_matches": dtm,
-            "dt_ignore": dt_ig,
-            "num_gt": int((~gt_ig).sum()),
-        }
-
-    # ------------------------------------------------------------------
     def evaluate_and_accumulate(self) -> None:
         T, R = len(IOU_THRS), len(REC_THRS)
         K, A, M = len(self.cat_ids), len(AREA_RNG), len(MAX_DETS)
+        I = len(self.img_ids)
         precision = -np.ones((T, R, K, A, M))
         recall = -np.ones((T, K, A, M))
+        gts, dts = self.gts, self.dts
+        g_start, d_start = self._g_start, self._d_start
+        num_g = np.diff(g_start)
+        # each cell's top max(MAX_DETS) detections by score: ``kept`` in
+        # cell order, ``rank`` each one's place in its cell
+        num_d = np.minimum(np.diff(d_start), MAX_DETS[-1])
+        k_start = np.concatenate([[0], np.cumsum(num_d)])
+        rank = (np.arange(len(dts.area))
+                - np.repeat(d_start[:-1], np.diff(d_start)))
+        kept = np.flatnonzero(rank < MAX_DETS[-1])
+        rank = rank[kept]
+        iscrowd = gts.iscrowd
+        iou_fn = rotated_iou_matrix if self.rotated else bbox_iou_matrix
+        d_area = dts.area[kept]
+        areas = []
+        for lo, hi in AREA_RNG:
+            gt_ig = iscrowd | (gts.area < lo) | (gts.area > hi)
+            # each cell's non-ignored gts first (stable), mirrors
+            # pycocotools' gtind sort
+            areas.append((gt_ig, np.lexsort((gt_ig, self._g_cell)),
+                          (d_area < lo) | (d_area > hi)))
 
-        for ki, cat_id in enumerate(self.cat_ids):
-            iou_cache = {
-                img_id: self._iou(img_id, cat_id) for img_id in self.img_ids
-            }
-            for ai, area_rng in enumerate(AREA_RNG):
-                # match ONCE per image at MAX_DETS[-1] and slice per-image
-                # detection prefixes for the smaller maxDets (pycocotools'
-                # accumulate does exactly this: greedy matching of the
-                # first k score-sorted detections is independent of the
-                # later ones, so the prefix of the full match IS the match
-                # at the smaller limit)
-                full = [self._evaluate_img(img_id, cat_id, area_rng,
-                                           MAX_DETS[-1], iou_cache[img_id])
-                        for img_id in self.img_ids]
-                full = [r for r in full if r is not None]
+        for ki in range(K):
+            first, last = ki * I, (ki + 1) * I
+            dk = slice(k_start[first], k_start[last])
+            gk = slice(g_start[first], g_start[last])
+            # only cells with both ground truth and detections need the
+            # matcher: elsewhere no detection matches, and the ground
+            # truth counts in the recall's denominator alone
+            matched = first + np.flatnonzero(
+                (num_g[first:last] > 0) & (num_d[first:last] > 0))
+            ious = [iou_fn(dts.bbox[d_start[c]:d_start[c] + num_d[c]],
+                           gts.bbox[g_start[c]:g_start[c + 1]],
+                           iscrowd[g_start[c]:g_start[c + 1]])
+                    for c in matched]
+            scores, ranks = dts.score[kept[dk]], rank[dk]
+
+            for ai, (gt_ig, g_order, d_out) in enumerate(areas):
+                dt_out = d_out[dk]
+                dtm = np.zeros((T, len(dt_out)), np.int64)
+                dt_ig = np.repeat(dt_out[None], T, axis=0)
+                for c, iou in zip(matched, ious):
+                    order = g_order[g_start[c]:g_start[c + 1]]
+                    cols = slice(k_start[c] - dk.start,
+                                 k_start[c] - dk.start + num_d[c])
+                    dtm[:, cols], dt_ig[:, cols] = self._match(
+                        iou[:, order - g_start[c]], gt_ig[order],
+                        iscrowd[order], IOU_THRS, dt_out[cols])
+                npig = int((~gt_ig[gk]).sum())
+                if npig == 0:
+                    continue
                 for mi, max_det in enumerate(MAX_DETS):
-                    results = full
-                    if not results:
+                    # each cell's first max_det of the match at
+                    # MAX_DETS[-1]: greedy matching of the first k
+                    # detections does not depend on the later ones (as
+                    # pycocotools' accumulate slices it); cells in image
+                    # order, then by score (stable)
+                    sel = ranks < max_det
+                    order = np.argsort(-scores[sel], kind="mergesort")
+                    tps = np.logical_and(dtm[:, sel] > 0, ~dt_ig[:, sel])
+                    fps = np.logical_and(dtm[:, sel] == 0, ~dt_ig[:, sel])
+                    tp = np.cumsum(tps[:, order], axis=1).astype(np.float64)
+                    fp = np.cumsum(fps[:, order], axis=1).astype(np.float64)
+                    rc = tp / npig
+                    pr = tp / np.maximum(tp + fp, np.spacing(1))
+                    n = rc.shape[1]
+                    if not n:
+                        recall[:, ki, ai, mi] = 0.0
+                        precision[:, :, ki, ai, mi] = 0.0
                         continue
-
-                    scores = np.concatenate(
-                        [r["dt_scores"][:max_det] for r in results])
-                    order = np.argsort(-scores, kind="mergesort")
-                    dtm = np.concatenate(
-                        [r["dt_matches"][:, :max_det] for r in results],
-                        axis=1)[:, order]
-                    dt_ig = np.concatenate(
-                        [r["dt_ignore"][:, :max_det] for r in results],
-                        axis=1)[:, order]
-                    npig = sum(r["num_gt"] for r in results)
-                    if npig == 0:
-                        continue
-
-                    tps = np.logical_and(dtm > 0, ~dt_ig)
-                    fps = np.logical_and(dtm == 0, ~dt_ig)
-                    tp_sum = np.cumsum(tps, axis=1).astype(np.float64)
-                    fp_sum = np.cumsum(fps, axis=1).astype(np.float64)
-
+                    recall[:, ki, ai, mi] = rc[:, -1]
+                    # make precision monotonically decreasing
+                    pr = np.maximum.accumulate(pr[:, ::-1], axis=1)[:, ::-1]
                     for ti in range(T):
-                        tp, fp = tp_sum[ti], fp_sum[ti]
-                        rc = tp / npig
-                        pr = tp / np.maximum(tp + fp, np.spacing(1))
-                        recall[ti, ki, ai, mi] = rc[-1] if len(rc) else 0.0
-
-                        # make precision monotonically decreasing
-                        pr = pr.tolist()
-                        for i in range(len(pr) - 1, 0, -1):
-                            if pr[i] > pr[i - 1]:
-                                pr[i - 1] = pr[i]
-                        inds = np.searchsorted(rc, REC_THRS, side="left")
-                        q = np.zeros(R)
-                        for ri, pi in enumerate(inds):
-                            if pi < len(pr):
-                                q[ri] = pr[pi]
-                        precision[ti, :, ki, ai, mi] = q
+                        inds = np.searchsorted(rc[ti], REC_THRS, side="left")
+                        precision[ti, :, ki, ai, mi] = np.where(
+                            inds < n, pr[ti, np.minimum(inds, n - 1)], 0.0)
 
         self.eval = {"precision": precision, "recall": recall}
 
