@@ -2,19 +2,25 @@
 
     python perfbench/calibrate.py --workload <name> --seeds 12 \
         [--control-seeds 3] [--seconds 2] [--out PATH]
+    python perfbench/calibrate.py --config <file> --traffic <mix> ...
 
 For each seed, in one process on the card: the cell's program run (its
 entry at the cell's own sizes, with a short window) against the reference
 (the lower readings), and for the first ``--control-seeds`` seeds the
 control, the reference at TF32 put in the program's place, against the
 reference in float32 (the upper readings); for a training cell also the
-fault of half of the batch left out (the loss the mean over the rest),
-planted in the reference, and for eval and serving the fault of a decode
-without peak suppression, planted in the reference put in the program's
-place. Besides the numbers that ``correct`` compares it prints steadier
-candidates (per-step losses, median leaves, the heads' scale and shift,
-``peak_cover`` at shorter reaches), one JSON line per reading, to standard
-output and to ``--out``.
+faults planted in the reference: half of the batch left out (the loss the
+mean over the rest), and where the configuration has them the angle term
+dropped (``angle_weight`` 0) and the keypoints' pair term dropped
+(``kp_distance_weight`` 0); for eval and serving the faults planted in
+the reference put in the program's place: a decode without peak
+suppression, and where the configuration has them the angle negated and
+the ``kps`` head zeroed. With ``--config`` and ``--traffic`` it reads a
+configuration that no cell lists yet, under that mix (the readings a new
+cell's limits start from). Besides the numbers that ``correct`` compares
+it prints steadier candidates (per-step losses, median leaves, the heads'
+scale and shift, ``peak_cover`` at shorter reaches), one JSON line per
+reading, to standard output and to ``--out``.
 """
 
 from __future__ import annotations
@@ -75,15 +81,53 @@ def heads_extra(prog: dict, ref: dict) -> dict:
     return {"heads_scale": scale, "heads_shift": shift, "heads_rms": rms}
 
 
+def train_faults(ref: dict) -> dict:
+    """The loss terms a training cell's faults drop, by the fault's name:
+    the reference's ``loss`` with that term's weight at 0."""
+    faults = {}
+    if ref["heads"]["wh"] == 3:
+        faults["fault_no_angle_term"] = "angle_weight"
+    if ref["loss"].get("kp_indices"):
+        faults["fault_no_pair_term"] = "kp_distance_weight"
+    return {name: {**ref, "loss": {**ref["loss"], key: 0.0}}
+            for name, key in faults.items()}
+
+
+def eval_faults(ref: dict) -> dict:
+    """The decodes of the eval and serving faults, by the fault's name."""
+    from perfbench import check
+
+    faults = {"fault_no_suppression": check.unsuppressed}
+    if ref["heads"]["wh"] == 3:
+        faults["fault_negated_angle"] = check.negated_angle
+    if "kps" in ref["heads"]:
+        faults["fault_zeroed_kps"] = check.zeroed_keypoints
+    return faults
+
+
+def unlisted(config: str, traffic: str) -> tuple:
+    """The name and files of a cell that no entry lists: a configuration
+    file and a mix (no limits: calibrate judges nothing)."""
+    from perfbench import harness
+
+    cfg = harness.load_json(ROOT / config)
+    files = {"config": cfg,
+             "mix": harness.load_json(harness.HERE / "mixes"
+                                      / f"{traffic}.json")}
+    return f"{cfg['name']}.{traffic}", files
+
+
 def run(workload: str, seeds, control_seeds: int, seconds: float, out,
-        device: str = "cuda", overrides=(), mix_overrides=None):
+        device: str = "cuda", overrides=(), mix_overrides=None,
+        files=None):
     import torch
 
     from perfbench import check, entries, harness
     from perfbench import weights as weights_lib
 
-    bench = harness.with_waiting(harness.spec())
-    files = harness.cell_files(bench, workload)
+    if files is None:
+        files = harness.cell_files(harness.with_waiting(harness.spec()),
+                                   workload)
     if mix_overrides:
         files["mix"] = {**files["mix"], **mix_overrides}
     ref = files["config"]["reference"]
@@ -110,7 +154,7 @@ def run(workload: str, seeds, control_seeds: int, seconds: float, out,
         rec = {"workload": workload, "seed": seed, "side": "program"}
         if entry == "train":
             r = check.reference_train(ref, net.spec(), seed, a["batches"],
-                                      dev, offset_std=ostd)
+                                      dev, offset_std=ostd, steps=a["steps"])
             rec.update(check.train_numbers(a, r))
             rec.update(train_extra(a, r))
             rec["dcn_max_abs_dy"] = o.notes.get("dcn_max_abs_dy")
@@ -118,7 +162,7 @@ def run(workload: str, seeds, control_seeds: int, seconds: float, out,
             if k < control_seeds:
                 c = check.reference_train(ref, net.spec(), seed,
                                           a["batches"], dev, control=True,
-                                          offset_std=ostd)
+                                          offset_std=ostd, steps=a["steps"])
                 crec = {"workload": workload, "seed": seed,
                         "side": "control_tf32"}
                 crec.update(check.train_numbers(c, r))
@@ -126,14 +170,25 @@ def run(workload: str, seeds, control_seeds: int, seconds: float, out,
                 emit(crec)
                 half = check.reference_train(ref, net.spec(), seed,
                                              a["batches"], dev, half=True,
-                                             offset_std=ostd)
+                                             offset_std=ostd,
+                                             steps=a["steps"])
                 hrec = {"workload": workload, "seed": seed,
                         "side": "fault_half_batch"}
                 hrec.update(check.train_numbers(half, r))
                 hrec.update(train_extra(half, r))
                 emit(hrec)
+                for side, broken in train_faults(ref).items():
+                    f = check.reference_train(broken, net.spec(), seed,
+                                              a["batches"], dev,
+                                              offset_std=ostd,
+                                              steps=a["steps"])
+                    frec = {"workload": workload, "seed": seed,
+                            "side": side}
+                    frec.update(check.train_numbers(f, r))
+                    frec.update(train_extra(f, r))
+                    emit(frec)
         else:
-            w = weights_lib.make(net.spec(), seed, dev, ostd)
+            w = weights_lib.make(net.spec(), seed, dev, ostd, net.kinds)
             w.update({n: v.to(dev) for n, v in a["bn_stats"].items()})
             calls = a["calls"]
 
@@ -179,9 +234,9 @@ def run(workload: str, seeds, control_seeds: int, seconds: float, out,
                 if entry == "eval":
                     crec.update(heads_extra(ctl[0]["heads"], rh))
                 emit(crec)
-                emit({"workload": workload, "seed": seed,
-                      "side": "fault_no_suppression",
-                      **numbers(planted(suppress=False, control=False))})
+                for side, decode in eval_faults(ref).items():
+                    emit({"workload": workload, "seed": seed, "side": side,
+                          **numbers(planted(decode=decode, control=False))})
         print(f"seed {seed}: {time.perf_counter() - t0:.1f} s",
               file=sys.stderr, flush=True)
         del o, a
@@ -191,7 +246,10 @@ def run(workload: str, seeds, control_seeds: int, seconds: float, out,
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="perfbench/calibrate.py")
-    parser.add_argument("--workload", required=True)
+    parser.add_argument("--workload")
+    parser.add_argument("--config", help="a configuration file that no "
+                        "cell lists (with --traffic)")
+    parser.add_argument("--traffic")
     parser.add_argument("--seeds", type=int, default=12)
     parser.add_argument("--first-seed", type=int, default=3_000_000_001)
     parser.add_argument("--control-seeds", type=int, default=3)
@@ -199,7 +257,15 @@ def main(argv=None) -> int:
     parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
     seeds = [args.first_seed + 7919 * i for i in range(args.seeds)]
-    run(args.workload, seeds, args.control_seeds, args.seconds, args.out)
+    if (args.workload is None) == (args.config is None) or (
+            args.config is None) != (args.traffic is None):
+        parser.error("give --workload, or --config with --traffic")
+    files = None
+    workload = args.workload
+    if args.config is not None:
+        workload, files = unlisted(args.config, args.traffic)
+    run(workload, seeds, args.control_seeds, args.seconds, args.out,
+        files=files)
     return 0
 
 

@@ -31,8 +31,15 @@ Eval and serving (a sample of the window's answers, drawn from the seed):
 - ``heads`` (eval): the largest gap of a head's map over that head's
   largest magnitude in the reference;
 - ``box_gap``: for each detection, the distance (largest coordinate gap,
-  input pixels) to the nearest box the reference predicts at any position
-  of the map; the largest over all detections;
+  input pixels; of a rotated box the center and size) to the nearest box
+  the reference predicts at any position of the map; the largest over all
+  detections;
+- ``angle_gap`` (rotated boxes): at that position, the gap between the
+  detection's angle and the reference's, in degrees, wrapped to the
+  shorter way round; the largest;
+- ``kps_gap`` (a ``kps`` head): at that position, the largest coordinate
+  gap between the detection's keypoints and the reference's, in input
+  pixels; the largest;
 - ``det_score_gap``: at that position, the gap between the detection's
   score and the reference's score of the detection's class; the largest;
 - ``peak_cover``: which k the decode selected. For each of the
@@ -56,16 +63,21 @@ between an image's k scores, sorted, and the reference's k highest peaks.
 
 from __future__ import annotations
 
+import importlib.util
 import math
+import sys
 from contextlib import contextmanager
+from pathlib import Path
 from statistics import median
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from perfbench import weights as weights_lib
 from perfbench.reference import train as rtrain
-from perfbench.reference.model import Net
+
+NETS = Path(__file__).resolve().parent / "reference"
+NOT_NETS = ("__init__", "train")  # reference/ modules that are no net
 
 BUFFER_SUFFIXES = ("running_mean", "running_var", "num_batches_tracked")
 EVAL_ROWS = 4
@@ -87,9 +99,32 @@ def tf32(on: bool):
          torch.backends.cudnn.allow_tf32) = old
 
 
-def make_net(ref: dict) -> Net:
-    return Net(ref["heads"], ref["head_conv"], ref["levels"],
-               ref["channels"], ref["down_ratio"])
+def nets() -> List[str]:
+    """The reference nets on disk: ``perfbench/reference/<net>.py``."""
+    return sorted(p.stem for p in NETS.glob("*.py")
+                  if p.stem not in NOT_NETS)
+
+
+def make_net(ref: dict):
+    """The reference net that the configuration's ``reference.net`` names,
+    built from ``ref`` by its module's ``build``; its ``kinds`` are the
+    module's ``KINDS`` (weights of its own kinds, for ``weights.make``)."""
+    name = ref.get("net")
+    if name not in nets():
+        raise ValueError(f"reference.net {name!r} names no file "
+                         f"perfbench/reference/<net>.py; the nets on disk: "
+                         f"{nets()}")
+    key = f"perfbench.reference.{name}"
+    module = sys.modules.get(key)
+    if module is None:
+        spec_ = importlib.util.spec_from_file_location(key,
+                                                       NETS / f"{name}.py")
+        module = importlib.util.module_from_spec(spec_)
+        spec_.loader.exec_module(module)
+        sys.modules[key] = module
+    net = module.build(ref)
+    net.kinds = dict(getattr(module, "KINDS", {}))
+    return net
 
 
 def is_leaf(name: str) -> bool:
@@ -106,14 +141,16 @@ def to_device(batch: dict, device) -> Dict[str, torch.Tensor]:
 # ----------------------------------------------------------------------
 def reference_train(ref: dict, spec, seed: int, batches: List[dict],
                     device, control: bool = False, half: bool = False,
-                    offset_std: float = 0.5) -> dict:
+                    offset_std: float = 0.5,
+                    steps: Optional[Sequence[int]] = None) -> dict:
     """The reference's three steps: per-step loss terms, the first fed
     gradient's norm per leaf and the change's norm per leaf. ``control``
     computes at TF32; ``half`` plants a fault: each step sees the first
-    half of its batch alone."""
+    half of its batch alone. ``steps`` are the program's global steps of
+    the batches (a net that draws per step draws as the program did)."""
     net = make_net(ref)
-    net.checkpoint_dcn = True
-    w0 = weights_lib.make(spec, seed, device, offset_std)
+    net.checkpoint = True
+    w0 = weights_lib.make(spec, seed, device, offset_std, net.kinds)
     names = [n for n, _, _ in spec if is_leaf(n)]
     leaves = [w0[n].clone().requires_grad_(True) for n in names]
     opt = rtrain.Adam(leaves, ref["optimizer"]["lr"],
@@ -126,12 +163,13 @@ def reference_train(ref: dict, spec, seed: int, batches: List[dict],
                 b = {k: v[:v.shape[0] // 2] for k, v in b.items()}
             P = {**w0, **dict(zip(names, leaves))}
             mode = "calib" if i == 0 else "train"
-            heads = net.forward(P, b["input"], mode)
+            step = None if steps is None else steps[i]
+            heads = net.forward(P, b["input"], mode, step)
             running = _fold_running(w0, net.stats, running) if i == 0 \
                 else running
             loss, terms = rtrain.detection_loss(heads, b, ref["loss"])
             if ref.get("entropy_weight") is not None:
-                tgt = net.forward(P, b["target_domain_input"], mode)
+                tgt = net.forward(P, b["target_domain_input"], mode, step)
                 if i == 0:
                     running = _fold_running(w0, net.stats, running)
                 ent = rtrain.entropy_loss(tgt["hm"])
@@ -220,7 +258,7 @@ def train_numbers(prog: dict, ref: dict) -> Dict[str, float]:
 # eval and serving
 # ----------------------------------------------------------------------
 @torch.no_grad()
-def reference_heads(net: Net, weights, images: torch.Tensor,
+def reference_heads(net, weights, images: torch.Tensor,
                     rows: int = EVAL_ROWS) -> Dict[str, torch.Tensor]:
     """Eval-mode heads, computed in blocks of ``rows`` images."""
     parts = [net.forward(weights, images[i:i + rows], "eval")
@@ -228,55 +266,89 @@ def reference_heads(net: Net, weights, images: torch.Tensor,
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
+def _larger(a: float, b: float) -> float:
+    """The larger of two gaps, NaN if either is: a NaN answer is never
+    within its limit (``max`` keeps its first argument against a NaN)."""
+    return a if a != a or a > b else b
+
+
 @torch.no_grad()
 def detection_numbers(dets: dict, heads: Dict[str, torch.Tensor], k: int,
                       down_ratio: int, reach: int = PEAK_REACH
                       ) -> Dict[str, float]:
     """``score_gap``, ``box_gap``, ``det_score_gap`` and ``peak_cover``
-    of detections ``dets`` (``boxes`` (B, k, 4) input pixels, ``scores``,
-    ``classes`` (B, k)) against the reference heads."""
+    of detections ``dets`` (``boxes`` (B, k, 4) input pixels, or rotated
+    (B, k, 5), ``scores``, ``classes`` (B, k), with a ``kps`` head ``kps``
+    (B, k, P, 2)) against the reference heads; of rotated boxes also
+    ``angle_gap``, with a ``kps`` head also ``kps_gap``."""
     device = heads["hm"].device
+    rotated = heads["wh"].shape[1] == 3
+    keys = ["score_gap", "box_gap", "det_score_gap", "peak_cover"]
+    keys += ["angle_gap"] * rotated + ["kps_gap"] * ("kps" in heads)
     boxes = torch.as_tensor(dets["boxes"], device=device).float()
     scores = torch.as_tensor(dets["scores"], device=device).float()
     classes = torch.as_tensor(dets["classes"], device=device).long()
     top = rtrain.top_detections(heads, k, down_ratio)
+    kps = ref_kps = None
+    if "kps" in heads and dets.get("kps") is not None:
+        kps = torch.as_tensor(dets["kps"], device=device).float()
     if scores.shape != top["scores"].shape or boxes.shape != top[
-            "boxes"].shape or classes.shape != top["classes"].shape:
-        return {"score_gap": math.inf, "box_gap": math.inf,
-                "det_score_gap": math.inf, "peak_cover": math.inf}
+            "boxes"].shape or classes.shape != top["classes"].shape or (
+            "kps" in heads and (kps is None
+                                or kps.shape != top["kps"].shape)):
+        return dict.fromkeys(keys, math.inf)
     sorted_gap = (scores.sort(1, descending=True).values
                   - top["scores"]).abs()
     heat = rtrain._sigmoid(heads["hm"].float())
     b, c, h, w = heat.shape
     everywhere = torch.arange(h * w, device=device).expand(b, -1)
-    ref_boxes = rtrain.boxes_at(heads, everywhere, down_ratio)  # (B, HW, 4)
-    box_gap = det_gap = cover = 0.0
+    # (B, HW, 4), rotated (B, HW, 5)
+    ref_boxes = rtrain.boxes_at(heads, everywhere, down_ratio)
+    if kps is not None:
+        ref_kps = rtrain.keypoints_at(heads, everywhere, down_ratio)
+    box_gap = det_gap = cover = angle_gap = kps_gap = 0.0
     for i in range(b):
-        dist = (ref_boxes[i][None] - boxes[i][:, None]).abs().amax(-1)
+        dist = (ref_boxes[i][None, :, :4] - boxes[i][:, None, :4]
+                ).abs().amax(-1)
         near, at = dist.min(1)  # the reference's nearest box, and where
         ref_score = heat[i].reshape(c, -1)[classes[i], at]
-        box_gap = max(box_gap, float(near.max()))
-        det_gap = max(det_gap, float((ref_score - scores[i]).abs().max()))
+        box_gap = _larger(box_gap, float(near.max()))
+        det_gap = _larger(det_gap,
+                          float((ref_score - scores[i]).abs().max()))
+        if rotated:
+            turn = (boxes[i][:, 4] - ref_boxes[i][at, 4]).remainder(360.0)
+            angle_gap = _larger(angle_gap, float(
+                torch.minimum(turn, 360.0 - turn).max()))
+        if kps is not None:
+            kps_gap = _larger(kps_gap,
+                              float((kps[i] - ref_kps[i][at]).abs().max()))
         peaks = top["positions"][i]
         covers = ((classes[i][None] == top["classes"][i][:, None])
                   & ((at // w)[None] - (peaks // w)[:, None]).abs().le(reach)
                   & ((at % w)[None] - (peaks % w)[:, None]).abs().le(reach))
         best = torch.where(covers, ref_score[None], -1.0).amax(1)
         ps = top["scores"][i]
-        cover = max(cover, float(torch.minimum(ps - best, ps - ps[-1]).max()))
-    return {"score_gap": float(sorted_gap.max()), "box_gap": box_gap,
-            "det_score_gap": det_gap, "peak_cover": cover}
+        cover = _larger(cover,
+                        float(torch.minimum(ps - best, ps - ps[-1]).max()))
+    out = {"score_gap": float(sorted_gap.max()), "box_gap": box_gap,
+           "det_score_gap": det_gap, "peak_cover": cover,
+           "angle_gap": angle_gap, "kps_gap": kps_gap}
+    return {key: out[key] for key in keys}
 
 
 def heads_gap(prog: Dict[str, torch.Tensor],
               ref: Dict[str, torch.Tensor]) -> float:
     if any(prog[n].shape != ref[n].shape for n in ref):
         return math.inf
-    return max(float((prog[n].to(ref[n].device).float() - ref[n]).abs().max()
-                     / ref[n].abs().max().clamp(min=1e-30)) for n in ref)
+    gap = 0.0
+    for n in ref:
+        gap = _larger(gap, float(
+            (prog[n].to(ref[n].device).float() - ref[n]).abs().max()
+            / ref[n].abs().max().clamp(min=1e-30)))
+    return gap
 
 
-def eval_numbers(answers: List[dict], net: Net, weights, cycle: List[dict],
+def eval_numbers(answers: List[dict], net, weights, cycle: List[dict],
                  ref: dict, device, reach: int = PEAK_REACH
                  ) -> Dict[str, float]:
     """Each sampled eval call (``batch`` index, ``stats``, ``heads``,
@@ -294,15 +366,15 @@ def eval_numbers(answers: List[dict], net: Net, weights, cycle: List[dict],
         heads, terms = done[a["batch"]]
         out["loss"] = max(out["loss"], max(_rel(a["stats"][k], terms[k])
                                            for k in terms))
-        out["heads"] = max(out["heads"], heads_gap(a["heads"], heads))
+        out["heads"] = _larger(out["heads"], heads_gap(a["heads"], heads))
         nums = detection_numbers(a["dets"], heads, ref["max_detections"],
                                  ref["down_ratio"], reach)
         for key, v in nums.items():
-            out[key] = max(out.get(key, 0.0), v)
+            out[key] = _larger(out.get(key, 0.0), v)
     return out
 
 
-def serve_numbers(answers: List[dict], net: Net, weights,
+def serve_numbers(answers: List[dict], net, weights,
                   images: torch.Tensor, ref: dict, reach: int = PEAK_REACH
                   ) -> Dict[str, float]:
     """Each sampled served call (``image`` index, ``dets``) against the
@@ -316,7 +388,7 @@ def serve_numbers(answers: List[dict], net: Net, weights,
         nums = detection_numbers(a["dets"], done[i], ref["max_detections"],
                                  ref["down_ratio"], reach)
         for key, v in nums.items():
-            out[key] = max(out.get(key, 0.0), v)
+            out[key] = _larger(out.get(key, 0.0), v)
     return out
 
 
@@ -331,20 +403,40 @@ def unsuppressed(heads: Dict[str, torch.Tensor], k: int, down_ratio: int
     b, c, h, w = heat.shape
     scores, flat = torch.topk(heat.reshape(b, -1), k)
     pos = flat % (h * w)
-    return {"boxes": rtrain.boxes_at(heads, pos, down_ratio),
-            "scores": scores, "classes": flat // (h * w), "positions": pos}
+    out = {"boxes": rtrain.boxes_at(heads, pos, down_ratio),
+           "scores": scores, "classes": flat // (h * w), "positions": pos}
+    if "kps" in heads:
+        out["kps"] = rtrain.keypoints_at(heads, pos, down_ratio)
+    return out
+
+
+def negated_angle(heads: Dict[str, torch.Tensor], k: int, down_ratio: int
+                  ) -> Dict[str, torch.Tensor]:
+    """The decode with each rotated box's angle negated (a fault)."""
+    top = rtrain.top_detections(heads, k, down_ratio)
+    top["boxes"] = torch.cat((top["boxes"][..., :4],
+                              -top["boxes"][..., 4:]), -1)
+    return top
+
+
+def zeroed_keypoints(heads: Dict[str, torch.Tensor], k: int,
+                     down_ratio: int) -> Dict[str, torch.Tensor]:
+    """The decode with the ``kps`` head zeroed (a fault): every keypoint
+    at its box's center."""
+    return rtrain.top_detections(
+        {**heads, "kps": torch.zeros_like(heads["kps"])}, k, down_ratio)
 
 
 @torch.no_grad()
-def control_answer(net: Net, weights, batch: dict, ref: dict, device,
-                   serve: bool = False, suppress: bool = True,
+def control_answer(net, weights, batch: dict, ref: dict, device,
+                   serve: bool = False, decode=rtrain.top_detections,
                    control: bool = True) -> dict:
     """The answers of one eval call, or one served image, computed by the
     reference at TF32 (the control); with ``control`` False in float32,
-    and with ``suppress`` False by a decode without peak suppression (the
-    reference put in the program's place with that fault planted)."""
+    and with another ``decode`` (``unsuppressed``, ``negated_angle``,
+    ``zeroed_keypoints``) the reference put in the program's place with
+    that fault planted."""
     b = to_device(batch, device)
-    decode = rtrain.top_detections if suppress else unsuppressed
     with tf32(control):
         heads = reference_heads(net, weights, b["input"])
         top = decode(heads, ref["max_detections"], ref["down_ratio"])

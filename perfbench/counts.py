@@ -1,14 +1,16 @@
 """The benchmark's own counts: model FLOPs, DCN operations and bytes, and
 the table of peaks (``perfbench/peaks.json``).
 
-Model FLOPs of one image's forward are counted on the reference model
-(``perfbench/reference/model.py``) on the ``meta`` device under
-``torch.utils.flop_counter.FlopCounterMode``: convolutions (transposed
-ones at their input positions), matrix products, each multiply-add as 2.
-The DCN layers' contraction is the reference's ``matmul``, their offset
-convs are convolutions; sampling, BatchNorm, activations and decode are not
-counted. A train step costs three forwards (forward, and the backward's
-two products); a UDA step runs both domains.
+Model FLOPs of one image's forward are counted on the configuration's
+reference net (``perfbench/reference/<net>.py``) on the ``meta`` device
+under ``torch.utils.flop_counter.FlopCounterMode``: convolutions
+(transposed ones at their input positions), matrix products, each
+multiply-add as 2. DLA-34's DCN layers' contraction is the reference's
+``matmul``, their offset convs are convolutions; sampling, BatchNorm,
+activations and decode are not counted. A train step costs three forwards
+(forward, and the backward's two products); a UDA step runs both domains.
+The DCN layers' shapes are those the net records in its ``dcn_shapes``
+(none for a net without DCN).
 
 A DCN layer's least work (``dcn_layer_cost``), counted from its shape
 (B, Cin, H, W, Cout), 3x3, stride 1: its operations are the contraction's,
@@ -29,13 +31,11 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from perfbench.reference.model import DCNRecorder, Net
-
 PEAKS_FILE = Path(__file__).resolve().parent / "peaks.json"
 F32 = 4
 
 
-def forward_flops(net: Net, size: int) -> int:
+def forward_flops(net, size: int) -> int:
     """FLOPs of one ``size`` x ``size`` image's forward (eval mode)."""
     weights = {n: torch.zeros(s, device="meta", dtype=torch.long
                               if k == "count" else torch.float32)
@@ -47,20 +47,20 @@ def forward_flops(net: Net, size: int) -> int:
     return int(counter.get_total_flops())
 
 
-def dcn_shapes(net: Net, batch: int, size: int
+def dcn_shapes(net, batch: int, size: int
                ) -> List[Tuple[int, int, int, int, int]]:
     """(B, Cin, H, W, Cout) of each DCN layer of one forward."""
     weights = {n: torch.zeros(s, device="meta", dtype=torch.long
                               if k == "count" else torch.float32)
                for n, s, k in net.spec()}
-    DCNRecorder.active = []
+    net.dcn_shapes = []
     try:
         with torch.no_grad():
             net.forward(weights, torch.zeros(batch, 3, size, size,
                                              device="meta"), mode="eval")
-        return list(DCNRecorder.active)
+        return list(net.dcn_shapes)
     finally:
-        DCNRecorder.active = None
+        net.dcn_shapes = None
 
 
 def dcn_layer_cost(shape, backward: bool) -> Tuple[int, int]:

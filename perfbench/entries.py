@@ -158,7 +158,7 @@ def _weights(ctx: Ctx, calibrate_size: Optional[int]):
     statistics calibrated at that input size."""
     net = make_net(ctx.config["reference"])
     w = weights_lib.make(net.spec(), ctx.seed, ctx.device,
-                         float(ctx.mix.get("offset_std", 0.5)))
+                         float(ctx.mix.get("offset_std", 0.5)), net.kinds)
     if calibrate_size:
         imgs = gen.images(ctx.seed, 3, 2, calibrate_size, ctx.device)
         weights_lib.calibrate(net, w, imgs)
@@ -210,9 +210,8 @@ def train(ctx: Ctx) -> Outcome:
     del w
     uda = bool(getattr(trainer, "requires_target_domain", False))
     b = gen.batch_size(ctx.mix, ref["batch_size"])
-    cycle = gen.batches(ctx.mix, ctx.seed, ref["batch_size"],
-                        ref["heads"]["hm"], ref["max_detections"], uda,
-                        ctx.device)
+    cycle = gen.batches(ctx.mix, ctx.seed, ref["batch_size"], ref["heads"],
+                        ref["max_detections"], uda, ctx.device)
     net = trainer.backend.module
     names = [n for n, _ in net.named_parameters()]
     params = [p for _, p in net.named_parameters()]
@@ -279,7 +278,9 @@ def train(ctx: Ctx) -> Outcome:
         memory_peak=_peak(ctx),
         answers={"losses": losses, "grad_norms": first["grad_norms"],
                  "change_norms": change, "running": first["running"],
-                 "batches": cycle[:3], "judged_replays": judged_replays},
+                 "batches": cycle[:3],
+                 "steps": [step0 + i for i in range(3)],
+                 "judged_replays": judged_replays},
         items_traced=ctx.tracer.items if ctx.tracer is not None else 0,
         notes={"window_start": t0, "steps": steps,
                "dcn_max_abs_dy": meters.get("dcn_max_abs_dy"),
@@ -353,14 +354,15 @@ def eval(ctx: Ctx) -> Outcome:  # noqa: A001 - the mix's entry name
     trainer = _trainer(ctx, cfg, w)
     del w
     b = gen.batch_size(ctx.mix, ref["batch_size"])
-    cycle = gen.batches(ctx.mix, ctx.seed, ref["batch_size"],
-                        ref["heads"]["hm"], ref["max_detections"], False,
-                        ctx.device)
+    cycle = gen.batches(ctx.mix, ctx.seed, ref["batch_size"], ref["heads"],
+                        ref["max_detections"], False, ctx.device)
 
     def evaluator():
-        return evaluation.build("coco", per_class=True,
-                                score_threshold=float(cfg.get(
-                                    "score_threshold", 0.0)))
+        ev = evaluation.build("coco", per_class=True,
+                              score_threshold=float(cfg.get(
+                                  "score_threshold", 0.0)))
+        ev.use_rotated_boxes = bool(trainer.backend.rotated_boxes)
+        return ev
 
     # the eager call, the capture and a replay of the eval and decode steps
     _run_phase(trainer, cycle[:3], [evaluator()], None, {}, 1,
@@ -377,14 +379,14 @@ def eval(ctx: Ctx) -> Outcome:  # noqa: A001 - the mix's entry name
             sample.items[slot] = {
                 "batch": window.index, "stats": outputs["stats"],
                 "heads": {k: outputs["source_domain"][k]
-                          for k in ("hm", "wh", "reg")}}
+                          for k in ref["heads"]}}
 
     def keep_dets(d):
         slot = current["slot"]
         if slot is not None:
             sample.items[slot]["dets"] = {
                 "boxes": d["pred_boxes"], "scores": d["pred_scores"],
-                "classes": d["pred_classes"]}
+                "classes": d["pred_classes"], "kps": d.get("pred_kps")}
 
     _wrap_step(trainer, keep_step)
     spans: List[float] = []
@@ -479,16 +481,17 @@ def serve(ctx: Ctx) -> Outcome:
             start = time.perf_counter()
         j = i % n
         with _record("perfbench.serve.call"), torch.no_grad():
-            boxes, scores, classes = module(
-                images[j * batch:(j + 1) * batch])
+            served = module(images[j * batch:(j + 1) * batch])
         with _record("perfbench.serve.sync"):
             ctx.sync()
         times.append(time.perf_counter() - start)
         slot = sample.slot()
         if slot is not None:
+            # boxes, scores, classes and, with a kps head, keypoints
             sample.items[slot] = {"image": j * batch, "count": batch,
-                                  "dets": {
-                "boxes": boxes, "scores": scores, "classes": classes}}
+                                  "dets": dict(zip(("boxes", "scores",
+                                                    "classes", "kps"),
+                                                   served))}
         i += 1
     if tracer is not None:
         tracer.stop(ctx.sync)

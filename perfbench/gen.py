@@ -15,17 +15,31 @@ gaussian radius, the max-composited gaussian, ``wh``, ``reg``, ``ind``,
 ``id``). A UDA configuration's batches carry ``target_domain_input``, as
 many images as the source. Every seed gives the same sizes and counts of
 work; only the values differ.
+
+The targets follow the configuration's heads, as the port's loader keys
+them for such a model. A rotated ``wh`` (3 channels): one angle a box,
+uniform in [-90, 90) degrees, the ``wh`` target (w, h, angle) with w no
+larger than h (the loader's canonical form), and ``gt_dets`` 7 wide (cx,
+cy, w, h, angle, 1, class). A ``kps`` head (2P channels): P points a box,
+uniform inside it, their offsets from its integer center in ``kps``, a
+``kp_reg_mask`` per coordinate with each point hidden at a chance of
+``KP_HIDDEN``, and the points in ``gt_kps``. These draws come from a
+stream of their own (``HEADS_STREAM``), so a configuration without these
+heads gets the batches it got before they existed.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 DOWN_RATIO = 4
+HEADS_STREAM = 4  # images are streams 1 and 2, calibration images 3
+KP_HIDDEN = 0.2
+HOST_KEYS = ("gt_dets", "gt_areas", "gt_kps")
 
 
 def gaussian_radius(height: float, width: float,
@@ -59,15 +73,27 @@ def draw_gaussian(heatmap: np.ndarray, cx: int, cy: int, radius: int) -> None:
 
 
 def encode(boxes: np.ndarray, classes: np.ndarray, out: int,
-           num_classes: int, k_max: int) -> Dict[str, np.ndarray]:
-    """Targets of one image from its boxes (N, 4) in output-map pixels."""
+           num_classes: int, k_max: int,
+           angles: Optional[np.ndarray] = None,
+           points: Optional[np.ndarray] = None,
+           visible: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
+    """Targets of one image from its boxes (N, 4) in output-map pixels;
+    with ``angles`` (N,) rotated ones, with ``points`` (N, P, 2), each
+    point's place in its box as a fraction of its width and height, and
+    ``visible`` (N, P) keypoints."""
+    rotated = angles is not None
     t = {"hm": np.zeros((num_classes, out, out), np.float32),
-         "wh": np.zeros((k_max, 2), np.float32),
+         "wh": np.zeros((k_max, 3 if rotated else 2), np.float32),
          "reg": np.zeros((k_max, 2), np.float32),
          "ind": np.zeros((k_max,), np.int64),
          "reg_mask": np.zeros((k_max,), np.uint8),
-         "gt_dets": np.zeros((k_max, 6), np.float32),
+         "gt_dets": np.zeros((k_max, 7 if rotated else 6), np.float32),
          "gt_areas": np.zeros((k_max,), np.float32)}
+    if points is not None:
+        p = points.shape[1]
+        t["kps"] = np.zeros((k_max, 2 * p), np.float32)
+        t["kp_reg_mask"] = np.zeros((k_max, 2 * p), np.uint8)
+        t["gt_kps"] = np.zeros((k_max, p, 2), np.float32)
     for k, (box, cls) in enumerate(zip(boxes[:k_max], classes)):
         b = np.array(box, np.float32)
         b[[0, 2]] = np.clip(b[[0, 2]], 0, out - 1)
@@ -80,13 +106,24 @@ def encode(boxes: np.ndarray, classes: np.ndarray, out: int,
         ct = np.array([(b[0] + b[2]) / 2, (b[1] + b[3]) / 2], np.float32)
         ci = ct.astype(np.int32)
         draw_gaussian(t["hm"][int(cls)], int(ci[0]), int(ci[1]), radius)
-        t["wh"][k] = w, h
         t["ind"][k] = ci[1] * out + ci[0]
         t["reg"][k] = ct - ci
         t["reg_mask"][k] = 1
-        t["gt_dets"][k] = (ct[0] - w / 2, ct[1] - h / 2, ct[0] + w / 2,
-                           ct[1] + h / 2, 1, int(cls))
+        if rotated:
+            short, long = min(w, h), max(w, h)
+            t["wh"][k] = short, long, angles[k]
+            t["gt_dets"][k] = (ct[0], ct[1], short, long, angles[k], 1,
+                               int(cls))
+        else:
+            t["wh"][k] = w, h
+            t["gt_dets"][k] = (ct[0] - w / 2, ct[1] - h / 2, ct[0] + w / 2,
+                               ct[1] + h / 2, 1, int(cls))
         t["gt_areas"][k] = w * h
+        if points is not None:
+            pts = b[:2] + points[k] * (w, h)
+            t["kps"][k] = (pts - ci).reshape(-1)
+            t["kp_reg_mask"][k] = np.repeat(visible[k], 2)
+            t["gt_kps"][k] = pts
     return t
 
 
@@ -105,17 +142,22 @@ def images(seed: int, stream: int, count: int, size: int,
                        device=torch.device(device))
 
 
-def batches(mix: dict, seed: int, recipe_batch: int, num_classes: int,
+def batches(mix: dict, seed: int, recipe_batch: int, heads: Dict[str, int],
             max_detections: int, target_domain: bool, device
             ) -> List[Dict[str, object]]:
     """The mix's cycle of batches on the host, keyed as the port's loader
-    keys them."""
+    keys them for a model with ``heads`` (the reference's)."""
     size = int(mix["input_size"])
     out = size // DOWN_RATIO
     b = batch_size(mix, recipe_batch)
     n = int(mix["cycle"])
+    num_classes = int(heads["hm"])
+    rotated = int(heads["wh"]) == 3
+    points = int(heads.get("kps", 0)) // 2
     pin = bool(mix.get("pinned", True)) and torch.device(device).type == "cuda"
     rng = np.random.Generator(np.random.PCG64(int(seed)))
+    own = np.random.Generator(np.random.PCG64(
+        (int(seed) * 1_000_003 + HEADS_STREAM) % (2 ** 63)))
     imgs = images(seed, 1, n * b, size, device).cpu()
     tgts = images(seed, 2, n * b, size, device).cpu() if target_domain else None
     lo, hi = mix["objects"]
@@ -129,18 +171,25 @@ def batches(mix: dict, seed: int, recipe_batch: int, num_classes: int,
             ctr = rng.uniform(0, size, (count, 2))
             boxes = np.concatenate((ctr - wh / 2, ctr + wh / 2), 1)
             classes = rng.integers(0, num_classes, count)
+            angles = own.uniform(-90, 90, count) if rotated else None
+            where = visible = None
+            if points:
+                where = own.uniform(0, 1, (count, points, 2))
+                visible = own.uniform(0, 1, (count, points)) >= KP_HIDDEN
             per.append(encode(boxes / DOWN_RATIO, classes, out, num_classes,
-                              max_detections))
+                              max_detections, angles, where, visible))
         batch: Dict[str, object] = {
             "input": imgs[i * b:(i + 1) * b].contiguous()}
-        for key in ("hm", "wh", "reg", "ind", "reg_mask"):
-            batch[key] = torch.from_numpy(np.stack([p[key] for p in per]))
+        for key in per[0]:
+            if key not in HOST_KEYS:
+                batch[key] = torch.from_numpy(np.stack([p[key] for p in per]))
         if target_domain:
             batch["target_domain_input"] = tgts[i * b:(i + 1) * b].contiguous()
         if pin:
             batch = {k: v.pin_memory() for k, v in batch.items()}
-        batch["gt_dets"] = np.stack([p["gt_dets"] for p in per])
-        batch["gt_areas"] = np.stack([p["gt_areas"] for p in per])
+        for key in HOST_KEYS:
+            if key in per[0]:
+                batch[key] = np.stack([p[key] for p in per])
         batch["id"] = np.arange(i * b, (i + 1) * b, dtype=np.int64) + 1
         cycle.append(batch)
     return cycle

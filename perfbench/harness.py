@@ -3,8 +3,10 @@ driven, the per-layer readers run over its trace, the answers judged, and
 the result line printed.
 
 Everything a cell needs is found by name: the configuration's file
-(``configs`` in ``BENCHMARK.json``), the mix ``perfbench/mixes/<traffic>
-.json``, the limits ``perfbench/limits/<workload>.json``, a reader
+(``configs`` in ``BENCHMARK.json``), its reference net
+``perfbench/reference/<net>.py`` (``check.make_net``), the mix
+``perfbench/mixes/<traffic>.json``, the limits
+``perfbench/limits/<workload>.json``, a reader
 ``perfbench/metrics/<metric>.py`` for each per-layer metric, and the kernel
 families ``perfbench/kernels/<family>/*.txt`` that readers look up.
 """
@@ -156,7 +158,8 @@ def layer_records(files: dict, outcome, summary, device) -> dict:
         "items": outcome.items_traced,
         "flops_per_item": fwd * (3 if train else 1) * domains,
         "peak_flops": None if peaks is None else peaks[peak_key],
-        "dcn_least_s_per_item": (None if peaks is None else
+        # None where the card is not in the table or the net has no DCN
+        "dcn_least_s_per_item": (None if peaks is None or not shapes else
                                  domains * counts.least_seconds(
                                      shapes, train, peaks) / per_call),
         "kernel_family": kernel_family,
@@ -207,13 +210,15 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     if entry == "train":
         ref_out = check.reference_train(
             ref, net.spec(), seed, answers["batches"], dev,
-            offset_std=float(files["mix"].get("offset_std", 0.5)))
+            offset_std=float(files["mix"].get("offset_std", 0.5)),
+            steps=answers["steps"])
         numbers = check.train_numbers(answers, ref_out)
     else:
         from perfbench import weights as weights_lib
 
         w = weights_lib.make(net.spec(), seed, dev,
-                             float(files["mix"].get("offset_std", 0.5)))
+                             float(files["mix"].get("offset_std", 0.5)),
+                             net.kinds)
         w.update({k: v.to(dev) for k, v in answers["bn_stats"].items()})
         if entry == "eval":
             numbers = check.eval_numbers(answers["calls"], net, w,

@@ -23,6 +23,13 @@ too; x and the weight pass their gradient unrounded.
 ``mode`` of a forward: ``train`` (BatchNorm on batch statistics), ``eval``
 (on the running statistics) or ``calib`` (as ``train``, and each layer's
 batch mean and biased variance are written to ``stats``).
+
+The net's contract with the harness (``perfbench/check.py:make_net``):
+``build(reference)`` from the configuration's ``reference`` section;
+``spec()``, ``stats``, ``forward(P, x, mode, step=None)`` (DLA-34 draws
+nothing per step and ignores ``step``), the ``checkpoint`` switch (the DCN
+layers' sampling recomputed in the backward) and ``dcn_shapes`` (None, or
+a list each DCN layer appends its shape to).
 """
 
 from __future__ import annotations
@@ -36,18 +43,10 @@ from torch.utils.checkpoint import checkpoint
 
 BN_EPS = 1e-5
 MAX_SHIFT = 14.0
-HM_BIAS = -2.19
 
 # (name, shape, kind) of each state-dict entry; kind says how
 # perfbench/weights.py fills it
 Spec = List[Tuple[str, Tuple[int, ...], str]]
-
-
-class DCNRecorder:
-    """Collects ``(B, Cin, H, W, Cout)`` of every DCN layer a forward runs
-    while it is active (``perfbench/counts.py`` reads it)."""
-
-    active: Optional[List[Tuple[int, int, int, int, int]]] = None
 
 
 def _conv_spec(spec: Spec, name: str, cout: int, cin: int, k: int,
@@ -65,6 +64,14 @@ def _bn_spec(spec: Spec, name: str, c: int) -> None:
              (f"{name}.num_batches_tracked", (), "count")]
 
 
+def build(reference: dict) -> "Net":
+    """The net of a configuration's ``reference`` section (``heads``,
+    ``head_conv``, ``levels``, ``channels``, ``down_ratio``)."""
+    return Net(reference["heads"], reference["head_conv"],
+               reference["levels"], reference["channels"],
+               reference["down_ratio"])
+
+
 class Net:
     """DLA-34 CenterNet on one dict of tensors."""
 
@@ -79,7 +86,10 @@ class Net:
         self.first_level = int(math.log2(down_ratio))
         self.last_level = 5
         self.stats: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
-        self.checkpoint_dcn = False
+        self.checkpoint = False
+        # (B, Cin, H, W, Cout) of each DCN layer run while this is a list
+        # (perfbench/counts.py reads it)
+        self.dcn_shapes: Optional[List[Tuple[int, int, int, int, int]]] = None
 
     # ------------------------------------------------------------------
     # the state dict's entries, in the order the modules hold them
@@ -229,9 +239,13 @@ class Net:
         return outs
 
     def deform(self, P, p, x, mode):
+        if self.dcn_shapes is not None:
+            b, cin, h, w = x.shape
+            self.dcn_shapes.append((b, cin, h, w,
+                                    P[f"{p}.conv.weight"].shape[0]))
         y = dcn(x, P[f"{p}.conv.conv_offset_mask.weight"],
                 P[f"{p}.conv.conv_offset_mask.bias"], P[f"{p}.conv.weight"],
-                P[f"{p}.conv.bias"], self.checkpoint_dcn)
+                P[f"{p}.conv.bias"], self.checkpoint)
         return F.relu(self.bn(P, f"{p}.actf.0", y, mode))
 
     def ida(self, P, p, layers, startp, endp, mode):
@@ -245,8 +259,8 @@ class Net:
             layers[i] = self.deform(P, f"{p}.node_{j}", up + layers[i - 1],
                                     mode)
 
-    def forward(self, P, x: torch.Tensor, mode: str = "train"
-                ) -> Dict[str, torch.Tensor]:
+    def forward(self, P, x: torch.Tensor, mode: str = "train",
+                step: Optional[int] = None) -> Dict[str, torch.Tensor]:
         layers = self.trunk(P, x, mode)
         fl = self.first_level
         out = [layers[-1]]
@@ -317,9 +331,6 @@ def _sample_contract(x, om, weight, bias):
 
 def dcn(x, om_weight, om_bias, weight, bias, use_checkpoint=False):
     """Modulated deformable 3x3 convolution with its offset conv."""
-    if DCNRecorder.active is not None:
-        b, cin, h, w = x.shape
-        DCNRecorder.active.append((b, cin, h, w, weight.shape[0]))
     om = F.conv2d(x, om_weight, om_bias, 1, 1)
     if use_checkpoint and torch.is_grad_enabled():
         return checkpoint(_sample_contract, x, om, weight, bias,

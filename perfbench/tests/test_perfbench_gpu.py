@@ -41,13 +41,14 @@ def test_control_fails_and_program_passes(workload):
         a = entries.ENTRIES[entry](ctx).answers
         if entry == "train":
             r = check.reference_train(ref, net.spec(), seed, a["batches"],
-                                      dev, offset_std=ostd)
+                                      dev, offset_std=ostd, steps=a["steps"])
             program = check.train_numbers(a, r)
             c = check.reference_train(ref, net.spec(), seed, a["batches"],
-                                      dev, control=True, offset_std=ostd)
+                                      dev, control=True, offset_std=ostd,
+                                      steps=a["steps"])
             control = check.train_numbers(c, r)
         else:
-            w = weights_lib.make(net.spec(), seed, dev, ostd)
+            w = weights_lib.make(net.spec(), seed, dev, ostd, net.kinds)
             w.update({n: v.to(dev) for n, v in a["bn_stats"].items()})
             if entry == "eval":
                 program = check.eval_numbers(a["calls"], net, w, a["cycle"],
@@ -58,8 +59,9 @@ def test_control_fails_and_program_passes(workload):
                 control = check.eval_numbers(ctl, net, w, a["cycle"], ref,
                                              dev)
                 fault = [dict(check.control_answer(
-                    net, w, a["cycle"][c["batch"]], ref, dev, suppress=False,
-                    control=False), batch=c["batch"]) for c in a["calls"]]
+                    net, w, a["cycle"][c["batch"]], ref, dev,
+                    decode=check.unsuppressed, control=False),
+                    batch=c["batch"]) for c in a["calls"]]
                 fault = check.eval_numbers(fault, net, w, a["cycle"], ref,
                                            dev)
             else:
@@ -72,8 +74,8 @@ def test_control_fails_and_program_passes(workload):
                 control = check.serve_numbers(ctl, net, w, a["images"], ref)
                 fault = [dict(check.control_answer(
                     net, w, {"input": a["images"][c["image"]:c["image"] + 1]},
-                    ref, dev, serve=True, suppress=False, control=False),
-                    image=c["image"]) for c in a["calls"]]
+                    ref, dev, serve=True, decode=check.unsuppressed,
+                    control=False), image=c["image"]) for c in a["calls"]]
                 fault = check.serve_numbers(fault, net, w, a["images"], ref)
             assert not check.judge(fault, limits), (seed, fault)
         assert check.judge(program, limits), (seed, program)

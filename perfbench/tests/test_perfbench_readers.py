@@ -3,13 +3,12 @@ all calls, the DCN layer's operations and bytes, the model's FLOPs."""
 
 import pytest
 
-from perfbench import counts, entries, readers
+from perfbench import counts, entries, harness, readers
 from perfbench.check import make_net
 from perfbench.trace import Summary, gap_label, union_seconds
 
-DLA = {"heads": {"hm": 6, "wh": 2, "reg": 2}, "head_conv": 256,
-       "levels": [1, 1, 1, 2, 2, 1], "channels": [16, 32, 64, 128, 256, 512],
-       "down_ratio": 4}
+DLA = harness.load_json(harness.HERE / "configs"
+                        / "dla34_baseline.json")["reference"]
 H100 = counts.peaks_for("NVIDIA H100 80GB HBM3")
 
 

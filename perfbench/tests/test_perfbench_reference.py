@@ -13,15 +13,14 @@ import math
 import pytest
 import torch
 
-from perfbench import gen
+from perfbench import gen, harness
 from perfbench import weights as weights_lib
 from perfbench.check import make_net
 from perfbench.reference import train as rtrain
 
-REF = {"heads": {"hm": 6, "wh": 2, "reg": 2}, "head_conv": 256,
-       "levels": [1, 1, 1, 2, 2, 1], "channels": [16, 32, 64, 128, 256, 512],
-       "down_ratio": 4}
-LOSS = {"hm_weight": 1.0, "wh_weight": 0.1, "off_weight": 1.0}
+REF = harness.load_json(harness.HERE / "configs"
+                        / "dla34_baseline.json")["reference"]
+LOSS = REF["loss"]
 SEED = 2 ** 33 + 11
 
 
@@ -66,8 +65,8 @@ def test_losses_and_entropy(pair):
 
     net, w, _ = pair
     batch = gen.batches({"input_size": 64, "batch": 2, "cycle": 1,
-                         "objects": [2, 5], "box_px": [8, 32]}, SEED, 2, 6,
-                        150, False, "cpu")[0]
+                         "objects": [2, 5], "box_px": [8, 32]}, SEED, 2,
+                        REF["heads"], 150, False, "cpu")[0]
     batch = {k: v for k, v in batch.items() if isinstance(v, torch.Tensor)}
     with torch.no_grad():
         heads = net.forward(w, batch["input"], "train")
@@ -150,3 +149,107 @@ def test_peak_cover_judges_the_selection():
     flat = check.unsuppressed(heads, k, 4)
     assert check.detection_numbers(flat, heads, k, 4)["peak_cover"] == \
         pytest.approx(0.2, abs=1e-6)
+
+
+def test_a_nets_own_kinds():
+    """A net's own kinds fill from their slice of the one draw, in the
+    spec's order; the harness's kinds cannot be redefined."""
+    spec = [("a", (2, 3), "conv"), ("b", (4,), "twice"), ("c", (2,), "zero")]
+    kinds = {"twice": lambda shape, z: 2 * z}
+    got = weights_lib.make(spec, SEED, "cpu", kinds=kinds)
+    drawn = weights_lib.make([("a", (2, 3), "conv"), ("b", (4,), "bn_bias")],
+                             SEED, "cpu")
+    assert torch.equal(got["a"], drawn["a"])
+    assert torch.allclose(got["b"], 20 * drawn["b"])
+    assert torch.equal(got["c"], torch.zeros(2))
+    with pytest.raises(ValueError, match="conv"):
+        weights_lib.make(spec, SEED, "cpu", kinds={"conv": kinds["twice"]})
+
+
+ROTATED = harness.load_json(harness.HERE / "tests"
+                            / "dla34_rotated_kps.json")["reference"]
+
+
+@pytest.fixture(scope="module")
+def rotated_heads():
+    """Train-mode heads of the rotated, keypoint configuration's net at
+    64 px, and a batch of its targets."""
+    net = make_net(ROTATED)
+    w = weights_lib.make(net.spec(), SEED, "cpu", kinds=net.kinds)
+    batch = gen.batches({"input_size": 64, "batch": 2, "cycle": 1,
+                         "objects": [2, 5], "box_px": [8, 32]}, SEED, 2,
+                        ROTATED["heads"], 150, False, "cpu")[0]
+    batch = {k: v for k, v in batch.items() if isinstance(v, torch.Tensor)}
+    with torch.no_grad():
+        heads = net.forward(w, batch["input"], "train")
+    return heads, batch
+
+
+@pytest.mark.parametrize("change", [{}, {"periodic": False},
+                                    {"kp_distance_weight_l1": True},
+                                    {"kp_indices": None}])
+def test_rotated_and_keypoint_losses(rotated_heads, change):
+    from centernet_uda_torch.losses.centernet import DetectionLoss
+
+    heads, batch = rotated_heads
+    loss = {**ROTATED["loss"], **change}
+    got_total, got = DetectionLoss(**loss)(heads, batch)
+    want_total, want = rtrain.detection_loss(heads, batch, loss)
+    assert set(want) == {"hm_loss", "wh_loss", "off_loss", "kp_loss"}
+    for k in want:
+        assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-6), k
+    assert float(got_total) == pytest.approx(float(want_total), rel=1e-6)
+
+
+def test_rotated_and_keypoint_decode(rotated_heads):
+    from centernet_uda_torch.ops.decode import decode_detections
+
+    heads, _ = rotated_heads
+    dets, kps = decode_detections(heads["hm"], heads["wh"], heads["reg"],
+                                  kps=heads["kps"], k=50, rotated=True,
+                                  apply_sigmoid=True)
+    top = rtrain.top_detections(heads, 50, 4)
+    assert torch.allclose(dets[..., 5], top["scores"], rtol=0, atol=1e-7)
+    assert torch.equal(dets[..., 6].long(), top["classes"])
+    assert torch.allclose(dets[..., :4] * 4, top["boxes"][..., :4],
+                          rtol=1e-6, atol=1e-4)
+    assert torch.allclose(dets[..., 4], top["boxes"][..., 4], rtol=0,
+                          atol=1e-4)
+    assert torch.allclose(kps * 4, top["kps"], rtol=1e-6, atol=1e-4)
+
+
+def test_angle_and_keypoint_gaps():
+    """``angle_gap`` wraps the angle the shorter way round; ``kps_gap`` is
+    the largest keypoint coordinate gap at the nearest box."""
+    from perfbench import check
+
+    heads = _bumps([(5, 5, 0.9), (20, 20, 0.7)])
+    # the angle's logit at 179.5 degrees everywhere: sigmoid * 360 - 180
+    z = math.log(359.5 / 0.5)
+    heads["wh"] = torch.cat((heads["wh"], torch.full((1, 1, 32, 32), z)), 1)
+    heads["kps"] = torch.zeros(1, 4, 32, 32)
+    same = rtrain.top_detections(heads, 2, 4)
+    nums = check.detection_numbers(same, heads, 2, 4)
+    assert nums["angle_gap"] == 0 and nums["kps_gap"] == 0
+    moved = {key: v.clone() for key, v in same.items()}
+    moved["boxes"][..., 4] = -179.5
+    moved["kps"][0, 1, 0, 1] += 2.0
+    nums = check.detection_numbers(moved, heads, 2, 4)
+    assert nums["angle_gap"] == pytest.approx(1.0, abs=1e-3)
+    assert nums["kps_gap"] == pytest.approx(2.0, abs=1e-5)
+    assert nums["box_gap"] == 0
+    moved.pop("kps")
+    assert check.detection_numbers(moved, heads, 2, 4)["kps_gap"] == math.inf
+
+
+def test_a_nan_answer_is_never_within_its_limit():
+    from perfbench import check
+
+    heads = _bumps([(5, 5, 0.9), (20, 20, 0.7), (10, 26, 0.5)])
+    heads["wh"] = torch.cat((heads["wh"], torch.zeros(1, 1, 32, 32)), 1)
+    for col in (0, 4):
+        dets = rtrain.top_detections(heads, 3, 4)
+        dets["boxes"][0, 1, col] = math.nan
+        nums = check.detection_numbers(dets, heads, 3, 4)
+        assert math.isnan(nums["box_gap" if col == 0 else "angle_gap"])
+        assert not check.judge(nums, dict.fromkeys(nums, 1e9))

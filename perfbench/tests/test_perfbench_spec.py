@@ -107,27 +107,58 @@ def test_one_layer_name_per_layer():
     assert all("\t" not in k and "\n" not in k for k in by_reader)
 
 
-@pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
-def test_reference_numbers_match_the_composed_config(config):
+# the configurations' files, with the tests' own beside them
+CONFIG_FILES = [c["file"] for c in BENCH["configs"]] + [
+    "perfbench/tests/dla34_rotated_kps.json"]
+
+
+@pytest.mark.parametrize("path", CONFIG_FILES,
+                         ids=[Path(f).stem for f in CONFIG_FILES])
+def test_reference_numbers_match_the_composed_config(path):
     from centernet_uda_torch import config as config_lib
+    from centernet_uda_torch import losses as loss_registry
     from centernet_uda_torch.train import CONFIG_DIR
 
-    c = json.loads((ROOT / {x["name"]: x for x in BENCH["configs"]}[config]
-                    ["file"]).read_text())
+    from perfbench import check
+
+    c = json.loads((ROOT / path).read_text())
     cfg = config_lib.compose([f"experiment={c['experiment']}",
                               *c["overrides"]], config_dir=str(CONFIG_DIR))
     ref = c["reference"]
+    assert ref["net"] in check.nets()
+    # the backend the reference stands for
+    backend = cfg.model.backend
+    assert backend.name == ref["backend"]["name"]
+    for key in ("num_layers", "variant"):
+        if key in ref["backend"]:
+            assert backend.params[key] == ref["backend"][key]
     assert cfg.precision == c["precision"] == "float32"
     assert int(cfg.batch_size) == ref["batch_size"]
     assert int(cfg.max_detections) == ref["max_detections"]
-    assert int(cfg.model.backend.params.num_classes) == ref["heads"]["hm"]
+    heads = {"hm": int(backend.params.num_classes),
+             "wh": 3 if backend.params.get("rotated_boxes") else 2,
+             "reg": 2}
+    if int(backend.params.get("num_keypoints") or 0) > 0:
+        heads["kps"] = 2 * int(backend.params.num_keypoints)
+    assert ref["heads"] == heads
     params = cfg.optimizer.params
     assert cfg.optimizer.name == "Adam"
     assert float(params.lr) == ref["optimizer"]["lr"]
     assert float(params.weight_decay) == ref["optimizer"]["weight_decay"]
-    loss = cfg.model.backend.loss.params
-    for key in ("hm_weight", "wh_weight", "off_weight"):
-        assert float(loss[key]) == ref["loss"][key]
+    # every loss number the reference takes, against the port's loss as
+    # the configuration builds it (its defaults included)
+    loss_params = backend.loss.get("params")
+    loss = loss_registry.build(backend.loss.name, **(
+        loss_params.to_dict() if loss_params else {}))
+    for key, value in ref["loss"].items():
+        got = getattr(loss, key)
+        if key == "kp_indices":
+            got = [list(pair) for pair in got]
+        assert got == value, key
+    if "kps" in heads:
+        # the reference's pair distances keep the reference project's 1e4
+        # under the square root
+        assert loss.legacy_sqrt_bias and loss.kp_weight is not None
     uda = cfg.model.get("uda")
     if ref["entropy_weight"] is None:
         assert not uda

@@ -17,7 +17,10 @@ each entry takes its slice, scaled for its kind:
 - ``head_out``: a head's last 1x1 conv, std 1 / sqrt(fan_in);
 - ``bn_weight`` 1 + 0.1 N, ``bn_bias`` 0.1 N;
 - fixed: ``zero``, ``one``, ``count`` (0), ``hm_bias`` (-2.19, the
-  heatmap prior), ``bilinear<f>`` (the upsampling's bilinear kernel).
+  heatmap prior), ``bilinear<f>`` (the upsampling's bilinear kernel);
+- a net's own kinds (its module's ``KINDS``, passed as ``kinds``): each
+  takes its slice of the same draw, in the spec's order among the drawn
+  entries, and fills the entry from its shape and that slice.
 
 ``calibrate`` replaces BatchNorm's running statistics, for the cells that
 run in eval mode, by the batch statistics of a seeded calibration batch
@@ -27,11 +30,18 @@ through the reference, so eval-mode activations keep their scale.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from perfbench.reference.model import HM_BIAS, Net, Spec
+HM_BIAS = -2.19
+DRAWN = ("conv", "dcn", "offset", "head_out", "bn_weight", "bn_bias")
+FIXED = ("zero", "one", "count", "hm_bias")
+
+# (name, shape, kind) of each state-dict entry (a reference net's spec())
+Spec = List[Tuple[str, Tuple[int, ...], str]]
+# a net's own kind: (shape, its slice of the standard normal draw) -> entry
+Fill = Callable[[Tuple[int, ...], torch.Tensor], torch.Tensor]
 
 
 def _bilinear(shape, factor: int) -> torch.Tensor:
@@ -43,16 +53,22 @@ def _bilinear(shape, factor: int) -> torch.Tensor:
     return (row[:, None] * row[None, :]).float().expand(shape).clone()
 
 
-def make(spec: Spec, seed: int, device, offset_std: float = 0.5
+def make(spec: Spec, seed: int, device, offset_std: float = 0.5,
+         kinds: Optional[Dict[str, Fill]] = None
          ) -> Dict[str, torch.Tensor]:
     """The seed's weights for ``spec`` on ``device``; ``offset_std`` is the
-    offset convs' std times sqrt(fan_in) (the mix's ``offset_std``)."""
+    offset convs' std times sqrt(fan_in) (the mix's ``offset_std``);
+    ``kinds`` are the net's own kinds."""
+    kinds = kinds or {}
+    taken = [k for k in kinds
+             if k in DRAWN + FIXED or k.startswith("bilinear")]
+    if taken:
+        raise ValueError(f"a net's KINDS may not redefine the kinds "
+                         f"{taken} of perfbench/weights.py")
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) % (2 ** 63))
-    drawn = [(n, s, k) for n, s, k in spec
-             if k in ("conv", "dcn", "offset", "head_out", "bn_weight",
-                      "bn_bias")]
+    drawn = [(n, s, k) for n, s, k in spec if k in DRAWN or k in kinds]
     total = sum(math.prod(s) for _, s, _ in drawn)
     noise = torch.randn(total, generator=gen, device=device)
     out: Dict[str, torch.Tensor] = {}
@@ -61,7 +77,9 @@ def make(spec: Spec, seed: int, device, offset_std: float = 0.5
         n = math.prod(shape)
         z = noise[at:at + n].view(shape)
         at += n
-        if kind in ("conv", "dcn"):
+        if kind in kinds:
+            out[name] = kinds[kind](shape, z)
+        elif kind in ("conv", "dcn"):
             out[name] = z * math.sqrt(2.0 / math.prod(shape[1:]))
         elif kind == "offset":
             out[name] = z * offset_std * math.sqrt(1.0 / math.prod(shape[1:]))
@@ -90,7 +108,7 @@ def make(spec: Spec, seed: int, device, offset_std: float = 0.5
 
 
 @torch.no_grad()
-def calibrate(net: Net, weights: Dict[str, torch.Tensor],
+def calibrate(net, weights: Dict[str, torch.Tensor],
               images: torch.Tensor) -> None:
     """Set every BatchNorm's running mean and variance to its batch
     statistics on ``images``, through the reference in float32."""
