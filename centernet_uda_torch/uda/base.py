@@ -269,7 +269,10 @@ class Model:
                 "glob that matches images (the reference configures it for "
                 "training, validation and test alike)")
         if is_training:
-            self._seed_drop_generator()
+            if self.drop_generator is not None:
+                # the host's reseed of the generator the graph registers
+                with span("graphs.reseed"):
+                    self._seed_drop_generator()
             stats = self._run("train", self.train_step, data,
                               self.train_generators)
             self.global_step += 1

@@ -1,9 +1,10 @@
 """Host spans of the port's own layers, on the profiler's clock.
 
 ``span(name)`` marks a stretch of host work (the phase loop's steps, the
-compiled step's eager call, capture, staging and replay, the evaluation's
-device-to-host read). While a ``torch.profiler`` records (the training
-CLI's ``profile_steps`` trace, or a benchmark's traced window) it is a
+compiled step's eager call, capture, staging and replay, the reseed of a
+train step's stochastic-depth generator, the evaluation's device-to-host
+read). While a ``torch.profiler`` records (the training CLI's
+``profile_steps`` trace, or a benchmark's traced window) it is a
 ``torch.profiler.record_function`` range: a ``user_annotation`` event in
 the same trace as the device's kernels and copies, so the device's idle
 time can be put down to the span it falls in. Otherwise it is one shared

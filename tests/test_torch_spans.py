@@ -3,8 +3,10 @@ CPU: off, a span is one shared no-op context and never a
 ``record_function``, while its ``totals`` still add up; under a profiler,
 the phase loop, the compiled step (through the stand-in graph of
 ``tests/torch_graph_stand_in.py``) and the evaluation mark the trace, in
-the places ``train._run_phase``'s record counts; the cyclic collector's
-full passes are ``gc.full`` spans under a profiler.
+the places ``train._run_phase``'s record counts; a train step with a
+stochastic-depth generator marks its reseed (``graphs.reseed``) inside
+its ``phase.step``, one without marks none; the cyclic collector's full
+passes are ``gc.full`` spans under a profiler.
 """
 
 import gc
@@ -15,7 +17,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from centernet_uda_torch import evaluation
-from centernet_uda_torch.train import _run_phase
+from centernet_uda_torch.config import compose
+from centernet_uda_torch.train import _run_phase, build_trainer
 from centernet_uda_torch.utils import spans
 from tests import test_torch_slice as sl
 from tests.test_torch_step_graphs import small_trainer
@@ -160,6 +163,36 @@ def test_phase_loop_and_compiled_step_mark_the_trace(tmp_path):
         assert rec["log_detections_s"] == 0.0
     assert set(train) == RECORD
     assert set(valid) == RECORD
+
+
+def test_the_stochastic_depth_reseed_is_a_span_of_each_train_step(tmp_path):
+    """EfficientNet-b0 at 32 px, two train steps: one ``graphs.reseed``
+    a step, inside its ``phase.step``; DLA-34, which draws nothing per
+    step, marks none."""
+    from tests import test_torch_efficientnet_trainer as ek
+
+    effnet = build_trainer(compose(ek.OVERRIDES), device="cpu")
+    effnet.init_done()
+    assert effnet.drop_generator is not None
+    dla = small_trainer(graphs=False)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("test.effnet"):
+            _run_phase(effnet, [ek.make_batch(i, 32) for i in range(2)], [],
+                       None, {}, 1, "training", True, [])
+        with torch.profiler.record_function("test.dla"):
+            _run_phase(dla, [sl.make_batch(0)], [], None, {}, 1, "training",
+                       True, [])
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    evs = events(path)
+    [e_phase] = named(evs, "test.effnet")
+    [d_phase] = named(evs, "test.dla")
+    steps = named(evs, "phase.step", e_phase)
+    reseeds = named(evs, "graphs.reseed", e_phase)
+    assert len(steps) == len(reseeds) == 2
+    assert all(any(inside(r, s) for s in steps) for r in reseeds)
+    assert len(named(evs, "phase.step", d_phase)) == 1
+    assert named(evs, "graphs.reseed", d_phase) == []
 
 
 def test_a_full_collection_is_a_span_only_while_a_profiler_records(
