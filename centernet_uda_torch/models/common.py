@@ -25,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from centernet_uda_torch.ops import batchnorm
 from centernet_uda_torch.ops.conv import conv2d
 from centernet_uda_torch.parallel import ddp
 
@@ -77,7 +78,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     the mean of its samples' variances plus the variance of their means
     (each taken in two passes), which equals the group's biased variance
     without the one-pass E[x^2] - E[x]^2 of the JAX module. With one group
-    on one device the layer is torch's own batch norm (cuDNN on the card).
+    on one device the layer is torch's own batch norm (cuDNN on the card);
+    a float32 contiguous map on the card back-propagates through the
+    hand-written kernels of ``ops.batchnorm`` (``takes_kernel``).
     The state dict is ``nn.BatchNorm2d``'s in every case.
     """
 
@@ -101,6 +104,9 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked += 1
+        if self.affine and batchnorm.takes_kernel(x):
+            return batchnorm.batch_norm_train(
+                x, self.weight, self.bias, self.eps).to(self.compute_dtype)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps).to(self.compute_dtype)
 

@@ -89,7 +89,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -145,15 +145,22 @@ def nvcc_path() -> str:
                        "to build the DCN kernels")
 
 
-def _lib_path(name: str) -> Path:
+def library_path(name: str, files: Sequence[Path]) -> Path:
+    """The library of kernel ``name`` built from ``files`` (its source
+    first): a name that carries a hash of the flags and of the files."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (SOURCES[name],) + _HEADERS:
-        digest.update((CSRC / src).read_bytes())
+    for path in files:
+        digest.update(path.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build_kernels() -> Dict[str, str]:
-    """Compile every kernel source that has no library yet.
+def _lib_path(name: str) -> Path:
+    return library_path(name, [CSRC / f for f in (SOURCES[name],) + _HEADERS])
+
+
+def build_libraries(targets: Dict[str, Tuple[Path, Path]]) -> Dict[str, str]:
+    """Compile each ``name: (source, library)`` of ``targets`` whose
+    library does not exist yet.
 
     One ``nvcc`` per source, all started together. Returns the compiler's
     output (the ``-Xptxas -v`` register and shared-memory report) per
@@ -161,25 +168,30 @@ def build_kernels() -> Dict[str, str]:
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, src in SOURCES.items():
-        lib = _lib_path(name)
+    for name, (src, lib) in targets.items():
         if lib.exists():
             continue
         tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-        procs[name] = (lib, tmp, subprocess.Popen(
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs[name] = (src, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     reports, failures = {}, []
-    for name, (lib, tmp, proc) in procs.items():
+    for name, (src, lib, tmp, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            failures.append(f"nvcc failed for {SOURCES[name]}:\n{out}")
+            failures.append(f"nvcc failed for {src.name}:\n{out}")
             continue
         os.replace(tmp, lib)
         reports[name] = out
     if failures:
         raise RuntimeError("\n".join(failures))
     return reports
+
+
+def build_kernels() -> Dict[str, str]:
+    """``build_libraries`` for every DCN kernel source."""
+    return build_libraries({name: (CSRC / src, _lib_path(name))
+                            for name, src in SOURCES.items()})
 
 
 def _lib(name: str) -> ctypes.CDLL:

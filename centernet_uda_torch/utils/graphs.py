@@ -33,10 +33,11 @@ where the JAX package rebuilds its step functions, and where a captured
 constant changes (a float learning rate, the DCN route, an optimizer's
 state tensors replaced by a checkpoint).
 
-Launch accounting: a graph's replay runs no Python, so the DCN wrappers'
-counters (``ops.dcn_cuda.LAUNCHES``) would not move. Capture runs the
-wrappers once without launching anything; the helper takes that count back
-off and adds it again on every replay, so the counts per step are exact.
+Launch accounting: a graph's replay runs no Python, so the kernel
+wrappers' counters (``ops.dcn_cuda.LAUNCHES``, ``ops.batchnorm.LAUNCHES``)
+would not move. Capture runs the wrappers once without launching anything;
+the helper takes that count back off and adds it again on every replay, so
+the counts per step are exact.
 
 Random draws: a step that draws from a ``torch.Generator`` of its own
 (EfficientNet's stochastic depth) names it in ``generators``; the graph
@@ -86,11 +87,11 @@ from __future__ import annotations
 
 import gc
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from centernet_uda_torch.ops import dcn_cuda
+from centernet_uda_torch.ops import batchnorm, dcn_cuda
 from centernet_uda_torch.utils.spans import span
 
 
@@ -145,7 +146,7 @@ class _Captured:
     graph: Any
     static: Dict[str, torch.Tensor]
     outputs: Any
-    launches: Dict[str, int]
+    launches: List[Dict[str, int]]
 
 
 class StepGraphs:
@@ -156,7 +157,8 @@ class StepGraphs:
                  counters: Optional[Dict[str, int]] = None):
         self.device = torch.device(device)
         self.graph_factory = graph_factory or self._cuda_graph
-        self.counters = dcn_cuda.LAUNCHES if counters is None else counters
+        self.counters = ([dcn_cuda.LAUNCHES, batchnorm.LAUNCHES]
+                         if counters is None else [counters])
         self.generation = 0
         self._seen = set()
         self._graphs: Dict[Tuple, _Captured] = {}
@@ -203,8 +205,9 @@ class StepGraphs:
             captured.graph.replay()
             outputs = map_tensors(torch.clone, captured.outputs)
         self.calls["replays"] += 1
-        for k, n in captured.launches.items():
-            self.counters[k] += n
+        for counts, launches in zip(self.counters, captured.launches):
+            for k, n in launches.items():
+                counts[k] += n
         return outputs
 
     def _capture(self, key, fn, inputs, generators) -> _Captured:
@@ -215,12 +218,14 @@ class StepGraphs:
             for k, v in inputs.items():
                 static[k].copy_(v, non_blocking=True)
             graph = self.graph_factory(generators)
-            before = dict(self.counters)
+            before = [dict(counts) for counts in self.counters]
             outputs = graph.capture(lambda: fn(static))
-        launches = {k: n - before.get(k, 0) for k, n in self.counters.items()
-                    if n != before.get(k, 0)}
-        for k, n in launches.items():
-            self.counters[k] -= n
+        launches = [{k: n - was.get(k, 0) for k, n in counts.items()
+                     if n != was.get(k, 0)}
+                    for counts, was in zip(self.counters, before)]
+        for counts, taken in zip(self.counters, launches):
+            for k, n in taken.items():
+                counts[k] -= n
         captured = _Captured(graph, static, outputs, launches)
         self._graphs[key] = captured
         self.calls["captures"] += 1

@@ -7,8 +7,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
 1. probe: the card, its power limit, torch, CUDA, nvcc, the image and
    logging libraries of the host; the card must be compute capability 9.0;
 2. build: compiles the seven DCN kernel sources from
-   ``centernet_uda_torch/csrc/`` (one ``nvcc`` each, in parallel) and prints
-   the compiler's register / shared-memory report, then the host library
+   ``centernet_uda_torch/csrc/`` (one ``nvcc`` each, in parallel), then
+   BatchNorm's ``bn_train.cu``, and prints the compiler's register /
+   shared-memory report, then the host library
    (``csrc/host_encoder.cpp``, ``g++``) and loads it;
 3. kernels: each kernel against its plain PyTorch twin on the same inputs
    (atol 5e-2 * max(1, max|twin|), rtol 5e-2: the bound of the Pallas
@@ -33,12 +34,19 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      both split Cin there);
    - the wide forward (dx clamped too), in both dtypes, at 2 x 300 x 300 x
      64 and at DLA-34's 64 -> 64 @272, batch 4 (the 1088 px eval);
+   - train-mode BatchNorm's backward kernels (``ops/batchnorm.py``) at
+     every BatchNorm shape of DLA-34 (batch 16) and EfficientNet-b3 (batch
+     8) at 512 px, against their twin (1e-4 of the largest value), twice
+     bit for bit, the forward ``F.batch_norm``'s bits, each call graphed
+     and timed beside the twin, cuDNN's pair, the statistics' ``var_mean``
+     and the bound (``batchnorm_phase``);
 4. DLA-34 train and eval: ``experiment=baseline`` (full width, ``dcn_impl:
    auto``) takes 4 steps at 512 px, batch 16, on one seeded synthetic
    batch, then one eval step at 800 px plus decode, first at float32 and
    then at ``precision=bfloat16``; losses and detections finite, no layer
    at the offset clamp, and each step launches exactly its precision's
-   kernels (16 layers);
+   kernels (16 layers), and at float32 each BatchNorm backward kernel 53
+   times (none at bfloat16);
 5. MobileNetV2 train and eval: ``experiment=baseline_mobilenet_v2`` with
    ``use_dcn=true`` (full width, skips, batch 32) the same way at each
    precision: a train step launches ``dcn_sel_fwd``/``dcn_sel_bwd`` once
@@ -221,7 +229,9 @@ entry points a user calls (``build_trainer``, ``Model.step``,
 just after. Their steps are the default ones, CUDA graphs on the card: a
 signature's first call runs eagerly, the second captures, later ones
 replay, and the launch counts per step are exact either way. The last lines are a ``{"kernels": [...]}`` JSON line (one
-entry per kernel source, launches summed over phases 4-10, 12 and 13), the card's
+entry per kernel source, launches summed over phases 4-10, 12 and 13; for
+BatchNorm's, the reduce kernel's in DLA-34's float32 train steps of phases
+4 and 13), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero. ``--json PATH`` also writes every measurement
 to PATH; ``--profile`` adds a torch.profiler breakdown by kernel of two
@@ -328,6 +338,13 @@ GRAPH_RUNS = (("baseline", "float32", TRAIN_BATCH, False),
 GRAPH_STEPS, GRAPH_LR_STEPS, GRAPH_TIMED = 3, 2, 3
 GRAPH_SPREAD, GRAPH_FLOOR, GRAPH_LR_RATIO = 4.0, 1e-6, 0.5
 SERVE_CALLS = 20
+# train-mode BatchNorm's kernels (ops/batchnorm.py) at every layer shape of
+# these models' 512 px train steps: (label, experiment, batch)
+BN_RUNS = (("dla34", "baseline", TRAIN_BATCH), ("b3", "coco_merged", 8))
+# the BatchNorm layers of DLA-34 whose backward a float32 train step runs
+# (55 less the ``project`` ones of ``base.level3`` and ``base.level4``,
+# which reach no loss): each backward kernel launches this many times
+BN_DLA34_LAYERS = 53
 # H100 SXM published peaks (dense): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -408,6 +425,161 @@ def bound_ms(bytes_moved: float, flops: float):
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def batchnorm_shapes(model, size, device):
+    """{(c, h, w, eps): layers} of the BatchNorm layers' inputs at ``size``
+    px, from one train-mode forward of one image."""
+    import torch
+
+    from centernet_uda_torch.models.common import BatchNorm2d
+
+    shapes = {}
+
+    def hook(mod, args):
+        key = (*args[0].shape[1:], mod.eps)
+        shapes[key] = shapes.get(key, 0) + 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, BatchNorm2d)]
+    model.train()
+    with torch.no_grad():
+        model(torch.zeros(1, 3, size, size, device=device))
+    for h in handles:
+        h.remove()
+    return shapes
+
+
+def graphed_ms(fn, calls: int = 20) -> float:
+    """Device ms of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph and replayed, so that no host launch cost enters, as in the
+    graphed train step (a map under the 50 MB L2 stays there from call to
+    call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay) / calls
+
+
+def check_batchnorm(label, shapes, batch, device):
+    """The BatchNorm backward kernels at every shape of one model's train
+    step: the forward ``F.batch_norm``'s bits, the backward against the
+    twin (1e-4 of the largest value), twice with the same bits, and timed
+    (``graphed_ms``) beside the twin, cuDNN's train-mode pair
+    (``aten::cudnn_batch_norm``, the forward the layer runs, and its
+    backward: ``library_*_ms``), the layer's running statistics
+    (``torch.var_mean``, ``stats_ms``) and the bound (five passes of the
+    map, over HBM's bandwidth)."""
+    import torch
+    import torch.nn.functional as F
+
+    from centernet_uda_torch.ops import batchnorm
+
+    records = []
+    for (c, h, w, eps), layers in sorted(shapes.items()):
+        gen = torch.Generator().manual_seed(c * 7919 + h)
+        x = (torch.randn(batch, c, h, w, generator=gen) * 2.0
+             + torch.randn(1, c, 1, 1, generator=gen)).to(device)
+        weight, bias = torch.randn(2, c, generator=gen).to(device)
+        dy = torch.randn(batch, c, h, w, generator=gen).to(device)
+        y, mean, invstd = batchnorm.batch_norm_forward(x, weight, bias, eps)
+        same_forward = bool(torch.equal(
+            y.view(torch.int32), F.batch_norm(
+                x, None, None, weight, bias, True, 0.0, eps).view(
+                    torch.int32)))
+        runs = [batchnorm.batch_norm_backward(x, dy, mean, invstd, weight)
+                for _ in range(2)]
+        want = batchnorm.backward_plain(x, dy, mean, invstd, weight)
+        errs, repeatable = {}, True
+        for name, a, b, ref in zip(("dx", "dweight", "dbias"), *runs, want):
+            repeatable &= bool(torch.equal(a.view(torch.int32),
+                                           b.view(torch.int32)))
+            scale = max(1.0, float(ref.abs().max()))
+            errs[name] = float((a - ref).abs().max()) / scale
+        if not (same_forward and repeatable) or max(errs.values()) > 1e-4:
+            raise AssertionError(f"BatchNorm {label} {(batch, c, h, w)}: "
+                                 f"forward F.batch_norm's {same_forward}, "
+                                 f"repeatable {repeatable}, errors {errs}")
+        cudnn = torch.ops.aten.cudnn_batch_norm
+        _, save_mean, save_var, reserve = cudnn(x, weight, bias, None, None,
+                                                True, 0.0, eps)
+        map_bytes = 4 * x.numel()
+        rec = {
+            "path": label, "batch": batch, "c": c, "h": h, "w": w,
+            "eps": eps, "layers": layers, "repeatable": repeatable,
+            "max_abs_err": errs,
+            "bwd_ms": graphed_ms(lambda: batchnorm.batch_norm_backward(
+                x, dy, mean, invstd, weight)),
+            "twin_bwd_ms": graphed_ms(lambda: batchnorm.backward_plain(
+                x, dy, mean, invstd, weight)),
+            "library_fwd_ms": graphed_ms(lambda: cudnn(
+                x, weight, bias, None, None, True, 0.0, eps)),
+            "library_bwd_ms": graphed_ms(
+                lambda: torch.ops.aten.cudnn_batch_norm_backward(
+                    x, dy, weight, None, None, save_mean, save_var, eps,
+                    reserve)),
+            "stats_ms": graphed_ms(lambda: torch.var_mean(
+                x, dim=(0, 2, 3), correction=0)),
+            "bwd_bound_ms": 5 * map_bytes / PEAK_BYTES * 1e3,
+        }
+        rec["bwd_bandwidth_share"] = rec["bwd_bound_ms"] / rec["bwd_ms"]
+        print(f"BatchNorm {label} {batch}x{c}x{h}x{w} ({layers} layers): "
+              f"bwd {rec['bwd_ms']:.4f} ms ({rec['bwd_bandwidth_share']:.1%}"
+              f" of bound; cuDNN {rec['library_bwd_ms']:.4f}, twin "
+              f"{rec['twin_bwd_ms']:.3f}), forward (cuDNN) "
+              f"{rec['library_fwd_ms']:.4f}, var_mean {rec['stats_ms']:.4f}",
+              flush=True)
+        records.append(rec)
+        del x, dy, y, runs, want, reserve
+    return records
+
+
+def batchnorm_step_line(label, records):
+    """The BatchNorm backward kernels' ms over one train step of ``label``
+    (each shape's record times its layer count), beside cuDNN's, the
+    forward's, the statistics' and the bound."""
+    recs = [r for r in records if r["path"] == label]
+
+    def per_step(key):
+        return sum(r[key] * r["layers"] for r in recs)
+
+    line = {"path": label, "layers": sum(r["layers"] for r in recs)}
+    for key in ("bwd_ms", "twin_bwd_ms", "library_fwd_ms", "library_bwd_ms",
+                "stats_ms", "bwd_bound_ms"):
+        line[key] = per_step(key)
+    line["bwd_bandwidth_share"] = line["bwd_bound_ms"] / line["bwd_ms"]
+    return line
+
+
+def batchnorm_phase(device):
+    """Train-mode BatchNorm's backward (``ops/batchnorm.py``) at every layer
+    shape of
+    DLA-34 (``experiment=baseline``, batch 16) and EfficientNet-b3
+    (``experiment=coco_merged``, batch 8) at 512 px: ``check_batchnorm``
+    per shape, and per model the sums over a step."""
+    import torch
+
+    from centernet_uda_torch.config import compose
+    from centernet_uda_torch.train import build_trainer
+
+    records, lines = [], []
+    for label, experiment, batch in BN_RUNS:
+        cfg = compose([f"experiment={experiment}", "precision=float32"],
+                      config_dir=str(ROOT / "configs"))
+        net = build_trainer(cfg, device="cuda").backend.module
+        shapes = batchnorm_shapes(net, TRAIN_SIZE, device)
+        del net
+        torch.cuda.empty_cache()
+        records += check_batchnorm(label, shapes, batch, device)
+        lines.append(batchnorm_step_line(label, records))
+        print(json.dumps({"batchnorm_step": lines[-1]}), flush=True)
+        torch.cuda.empty_cache()
+    return {"shapes": records, "steps": lines}
 
 
 def make_operands(seed, b, cin, cout, h, w, device):
@@ -1024,21 +1196,24 @@ def expect(**counts):
 
 
 def train_and_eval(trainer, cfg, data, eval_data, per_step, per_eval,
-                   steps=TRAIN_STEPS, after_step=None):
+                   steps=TRAIN_STEPS, after_step=None, bn_per_step=None):
     """Phases 4, 5 and 8 for one trainer: ``steps`` train steps, then one
     eval step with decode. ``per_step``/``per_eval`` are the launches each
     kernel must make in one train step / the eval step; every other kernel
-    must not launch. ``after_step(trainer)``, if given, runs after each
-    train step (outside the timed region)."""
+    must not launch. ``bn_per_step``, where given, is the launches of each
+    BatchNorm backward kernel a train step (none in eval).
+    ``after_step(trainer)``, if given, runs after each train step (outside
+    the timed region)."""
     import numpy as np
     import torch
 
-    from centernet_uda_torch.ops import dcn_cuda
+    from centernet_uda_torch.ops import batchnorm, dcn_cuda
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
     dcn_cuda.reset_launches()
+    batchnorm.reset_launches()
     for i in range(steps):
         t0 = time.perf_counter()
         stats = trainer.step(data, is_training=True)["stats"]
@@ -1058,13 +1233,17 @@ def train_and_eval(trainer, cfg, data, eval_data, per_step, per_eval,
     want = {k: v * steps for k, v in per_step.items()}
     if train_launches != want:
         raise AssertionError(f"launches {train_launches} != {want}")
+    check_bn_launches(f"{steps} train steps",
+                      None if bn_per_step is None else bn_per_step * steps)
+    bn_launches = dict(batchnorm.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     print(f"launches {train_launches}; peak memory {peak / 2**30:.2f} GiB",
           flush=True)
     train = {"step_ms": step_ms, "stats": losses, "launches": train_launches,
-             "max_memory_allocated": peak}
+             "bn_launches": bn_launches, "max_memory_allocated": peak}
 
     dcn_cuda.reset_launches()
+    batchnorm.reset_launches()
     t0 = time.perf_counter()
     outputs = trainer.step(eval_data, is_training=False)
     dets = trainer.get_detections(outputs, eval_data)
@@ -1074,6 +1253,7 @@ def train_and_eval(trainer, cfg, data, eval_data, per_step, per_eval,
     if eval_launches != per_eval:
         raise AssertionError(f"eval launches {eval_launches} != "
                              f"{per_eval}")
+    check_bn_launches("eval step", None if bn_per_step is None else 0)
     vals = {k: float(v) for k, v in outputs["stats"].items()}
     boxes = dets["pred_boxes"]
     max_det = int(cfg.max_detections)
@@ -1187,16 +1367,37 @@ def spread_check(label, what, eager, eager2, graphed, norm):
             "bitwise": True}
 
 
-def timed_steps(trainer, data, steps, per_step):
+def bn_expect(per_step):
+    """BatchNorm's launch counters with each backward kernel at
+    ``per_step``."""
+    from centernet_uda_torch.ops import batchnorm
+
+    return dict.fromkeys(batchnorm.LAUNCHES, per_step)
+
+
+def check_bn_launches(what, per_step):
+    """Raises unless each BatchNorm backward kernel launched ``per_step``
+    times since the last reset (None: not checked)."""
+    from centernet_uda_torch.ops import batchnorm
+
+    if per_step is not None and dict(batchnorm.LAUNCHES) != bn_expect(
+            per_step):
+        raise AssertionError(f"{what}: BatchNorm launches "
+                             f"{dict(batchnorm.LAUNCHES)} != {per_step} each")
+
+
+def timed_steps(trainer, data, steps, per_step, bn_per_step=None):
     """``steps`` train steps, each ended by a synchronisation and launching
-    exactly ``per_step``; returns (their ms, their stats)."""
+    exactly ``per_step`` (and ``bn_per_step`` of each BatchNorm backward
+    kernel, where given); returns (their ms, their stats)."""
     import torch
 
-    from centernet_uda_torch.ops import dcn_cuda
+    from centernet_uda_torch.ops import batchnorm, dcn_cuda
 
     ms, stats = [], []
     for _ in range(steps):
         dcn_cuda.reset_launches()
+        batchnorm.reset_launches()
         t0 = time.perf_counter()
         out = trainer.step(data, is_training=True)["stats"]
         torch.cuda.synchronize()
@@ -1204,6 +1405,7 @@ def timed_steps(trainer, data, steps, per_step):
         if dict(dcn_cuda.LAUNCHES) != per_step:
             raise AssertionError(f"launches {dict(dcn_cuda.LAUNCHES)} != "
                                  f"{per_step}")
+        check_bn_launches("train step", bn_per_step)
         stats.append(torch.stack([out[k].float() for k in sorted(out)]))
     return ms, stats
 
@@ -1265,7 +1467,8 @@ class DropMasks:
         self.steps.append([m.clone() for m in self.current])
 
 
-def parity_run(trainer, data, per_step, snapshots, record, masks=None):
+def parity_run(trainer, data, per_step, snapshots, record, masks=None,
+               bn_per_step=None):
     """GRAPH_STEPS train steps, ``epoch_end`` (the milestone), GRAPH_LR_STEPS
     more. Before each step the trainer's state is the first eager run's
     before that step: ``snapshots`` collects it on that run and is loaded
@@ -1293,7 +1496,7 @@ def parity_run(trainer, data, per_step, snapshots, record, masks=None):
                 for t, v in zip(state, snapshots[i]):
                     t.copy_(v)
         before = backend_params(trainer)
-        ms, stats = timed_steps(trainer, data, 1, per_step)
+        ms, stats = timed_steps(trainer, data, 1, per_step, bn_per_step)
         if masks is not None:
             masks.step_done()
         record["step_ms"] += ms
@@ -1317,7 +1520,9 @@ def compiled_steps(n_dcn, seed):
     stochastic-depth masks, graphed against eager, bit for bit. On DLA-34
     at float32 (no group) also the batch-1 serving call each way, then the
     degrade: after ``maybe_degrade_dcn(PALLAS_MAX_SHIFT)`` the next steps
-    capture anew on the exact op and launch no kernel."""
+    capture anew on the exact op and launch no DCN kernel. On DLA-34 each
+    train step launches each BatchNorm backward kernel 53 times at float32
+    (37 after the degrade), none at bfloat16."""
     import numpy as np
     import torch
 
@@ -1350,6 +1555,10 @@ def compiled_steps(n_dcn, seed):
         fwd, bwd = (("dcn_fwd", "dcn_bwd") if precision == "float32" else
                     ("dcn_fused_fwd", "dcn_fused_bwd"))
         per_step = expect(**{fwd: n, bwd: n})
+        # DLA-34 back-propagates 53 of its 55 BatchNorm layers through the
+        # kernels at float32, none at bfloat16
+        bn = ({"float32": BN_DLA34_LAYERS, "bfloat16": 0}[precision]
+              if name == "baseline" else None)
         snapshots, runs, kept = [], {}, {}
         serve = name == "baseline" and precision == "float32" and not one_rank
         if one_rank:
@@ -1366,7 +1575,7 @@ def compiled_steps(n_dcn, seed):
                 rec = {"step_ms": [], "stats": [], "params": [], "moves": []}
                 with DropMasks() as masks:
                     parity_run(trainer, data, per_step, snapshots, rec,
-                               masks)
+                               masks, bn)
                 rec["masks"] = masks.steps
                 before, after = rec["moves"]
                 lrs = sorted({g["lr"] for g in trainer.optimizer.param_groups})
@@ -1376,7 +1585,8 @@ def compiled_steps(n_dcn, seed):
                         f"parameter by {after}, the last step before the "
                         f"milestone by {before}")
                 if run != "eager2":
-                    ms, _ = timed_steps(trainer, data, GRAPH_TIMED, per_step)
+                    ms, _ = timed_steps(trainer, data, GRAPH_TIMED, per_step,
+                                        bn)
                     rec["median_step_ms"] = float(np.median(ms))
                     rec["peak_bytes"] = (torch.cuda.max_memory_allocated()
                                          - resident)
@@ -1388,6 +1598,9 @@ def compiled_steps(n_dcn, seed):
                     rec["launches"] = {k: v * (GRAPH_STEPS + GRAPH_LR_STEPS
                                                + GRAPH_TIMED)
                                        for k, v in per_step.items()}
+                    if bn is not None:
+                        rec["bn_launches"] = bn_expect(
+                            bn * (GRAPH_STEPS + GRAPH_LR_STEPS + GRAPH_TIMED))
                     print(f"{label} {run}: median step "
                           f"{rec['median_step_ms']:.2f} ms, busy "
                           f"{rec['busy']:.1%}, peak above the resident state "
@@ -1435,7 +1648,7 @@ def compiled_steps(n_dcn, seed):
         for run, rec in (("eager", e), ("graphed", g)):
             record[run] = {key: rec[key] for key in (
                 "median_step_ms", "busy", "peak_bytes", "launches",
-                "step_ms")}
+                "bn_launches", "step_ms") if key in rec}
         snapshots.clear()
         if kept:
             ms_e, dets_e = serve_ms(kept["eager"].backend.module, None)
@@ -1456,7 +1669,10 @@ def compiled_steps(n_dcn, seed):
             if len(graphed.step_graphs):
                 raise AssertionError("the degrade left the graphs")
             captures = graphed.step_graphs.calls["captures"]
-            ms, stats = timed_steps(graphed, data, 2, expect())
+            # the exact op's outputs are not contiguous NCHW, so the
+            # BatchNorm layers after its 16 layers keep cuDNN's backward
+            ms, stats = timed_steps(graphed, data, 2, expect(),
+                                    BN_DLA34_LAYERS - n_dcn)
             if graphed.step_graphs.calls["captures"] != captures + 1:
                 raise AssertionError("no capture after the degrade")
             if not all(bool(torch.isfinite(s).all()) for s in stats):
@@ -1544,6 +1760,29 @@ def kernel_line(name, src, replaces, outs, records, label, launches,
         "bound_ms": per_step(f"{pre}_bound_ms"),
         "bound_by": max(by_kind, key=by_kind.get),
         "library_ms": per_step(f"conv_{pre}_ms"),
+    }
+
+
+def batchnorm_kernel_line(src, records, label, runs):
+    """The ``kernels`` entry of BatchNorm's backward: ``kernel_line``'s
+    fields summed over the layers of one step of ``label``, its launches
+    those of the reduce kernel in the main-path ``runs`` (each a
+    ``batchnorm.LAUNCHES`` of one run), the dx, finalize and reduce
+    kernels launching alike in each."""
+    line = batchnorm_step_line(label, records)
+    for run in runs:
+        if len(set(run.values())) != 1:
+            raise AssertionError(f"BatchNorm launches {run} differ")
+    return {
+        "name": "bn_train", "route": "cuda", "source": src,
+        "replaces": "no TPU kernel: XLA fused BatchNorm on the TPU",
+        "launches": sum(run["bn_train_reduce_kernel"] for run in runs),
+        "repeatable": all(r["repeatable"] for r in records),
+        "max_abs_err": max(e for r in records
+                           for e in r["max_abs_err"].values()),
+        "ms": line["bwd_ms"], "plain_ms": line["twin_bwd_ms"],
+        "bound_ms": line["bwd_bound_ms"], "bound_by": "bytes",
+        "library_ms": line["library_bwd_ms"],
     }
 
 
@@ -3199,7 +3438,7 @@ def main(argv=None) -> int:
     import numpy as np
 
     from centernet_uda_torch.config import compose
-    from centernet_uda_torch.ops import dcn_cuda
+    from centernet_uda_torch.ops import batchnorm, dcn_cuda
     from centernet_uda_torch.train import build_trainer
 
     report = {}
@@ -3226,6 +3465,7 @@ def main(argv=None) -> int:
     phase("build")
     t0 = time.time()
     print(dcn_cuda.compiler_report(dcn_cuda.build_kernels()))
+    print(dcn_cuda.compiler_report(batchnorm.build_kernel()))
     from centernet_uda_torch import native
 
     native.load()
@@ -3340,6 +3580,8 @@ def main(argv=None) -> int:
                                   parent)
     del parent
     report["wide_shapes"] = wide
+    phase("BatchNorm kernels against their plain twin")
+    report["batchnorm"] = batchnorm_phase(device)
 
     rng = np.random.RandomState(int(cfg.seed))
     num_classes = int(cfg.model.backend.params.num_classes)
@@ -3354,7 +3596,7 @@ def main(argv=None) -> int:
         trainer, device)
     report["train"], report["eval"] = train_and_eval(
         trainer, cfg, data, eval_data, expect(dcn_fwd=n_dcn, dcn_bwd=n_dcn),
-        expect(dcn_fwd=n_dcn))
+        expect(dcn_fwd=n_dcn), bn_per_step=BN_DLA34_LAYERS)
     if args.profile:
         report["profile"] = profile_train_steps(trainer, data)
     del trainer, net
@@ -3370,7 +3612,7 @@ def main(argv=None) -> int:
     report["bf16_train"], report["bf16_eval"] = train_and_eval(
         trainer16, cfg16, data, eval_data,
         expect(dcn_fused_fwd=n_dcn, dcn_fused_bwd=n_dcn),
-        expect(dcn_fused_fwd=n_dcn))
+        expect(dcn_fused_fwd=n_dcn), bn_per_step=0)
     if args.profile:
         report["bf16_profile"] = profile_train_steps(trainer16, data)
     del trainer16, data, eval_data
@@ -3494,8 +3736,13 @@ def main(argv=None) -> int:
                     f"{pallas}:1675", f32_outs, select, m_label,
                     launches("dcn_sel_bwd"), "float32"),
     ]
+    kernels.append(batchnorm_kernel_line(
+        f"{csrc}/bn_train.cu", report["batchnorm"]["shapes"], "dla34",
+        [report["train"]["bn_launches"]]
+        + [r[part]["bn_launches"] for r in report["compiled"].values()
+           for part in ("eager", "graphed") if "bn_launches" in r[part]]))
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
-    if missing or len(kernels) != len(dcn_cuda.SOURCES):
+    if missing or len(kernels) != len(dcn_cuda.SOURCES) + 1:
         raise AssertionError(f"kernels not launched on a main path: "
                              f"{missing}")
     report["kernels"] = kernels

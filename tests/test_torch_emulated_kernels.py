@@ -2,7 +2,8 @@
 
 The kernels in ``centernet_uda_torch/csrc/`` run only on an H100, and the
 card-only tests (``tests/test_torch_gpu.py``) skip without one. This file
-compiles the same seven sources with the host C++ compiler against
+compiles the same sources (the seven DCN ones and BatchNorm's
+``bn_train.cu``) with the host C++ compiler against
 ``EMULATION_HEADER`` below (a CPU emulation of the CUDA subset they use: a
 block's threads as a pool of OS threads, ``__syncthreads`` as a barrier,
 the warp-wide ``mma.sync`` primitives lane by lane; the ``<<<...>>>``
@@ -12,14 +13,17 @@ wrappers' launch helpers on CPU tensors at tiny shapes. That holds the
 kernels' indexing, tiling, masking and arithmetic against the twins on every
 CPU run; the card runs show that ``nvcc`` builds them and what they cost.
 The emulation runs a grid's blocks in the order ``DCN_EMU_BLOCK_ORDER``
-names (in order, reversed, or a seeded permutation), and the last tests run
-all seven kernels in three orders: every output must have the same bits in
-each, as a kernel whose sums have one order gives them on the card.
+names (in order, reversed, or a seeded permutation), and the repeat tests
+run all seven DCN kernels and the BatchNorm backward in three orders: every
+output must have the same bits in each, as a kernel whose sums have one
+order gives them on the card.
 
 Tolerance: that of the card tests, atol 5e-2 * max(1, max|twin|) and rtol
 5e-2, and max |dy| to 1e-5 relative; the operands are the card tests' own
 (the fused ones quantised so that the offset conv is exact in any summation
-order). It skips without a C++20 compiler.
+order). BatchNorm's backward computes in float32 as its twin does, in
+another order: 1e-4 of the largest value, relative and absolute. It skips
+without a C++20 compiler.
 """
 
 import re
@@ -29,7 +33,7 @@ import subprocess
 import pytest
 import torch
 
-from centernet_uda_torch.ops import dcn_cuda
+from centernet_uda_torch.ops import batchnorm, dcn_cuda
 from centernet_uda_torch.ops.dcn import PALLAS_MAX_SHIFT
 from test_torch_gpu import make_fused_inputs, make_inputs
 
@@ -391,9 +395,12 @@ def emulated_libs(tmp_path_factory):
     for header in dcn_cuda.CSRC.glob("*.cuh"):
         (out / header.name).write_text(emulated(header))
     procs = {}
-    for name, src in dcn_cuda.SOURCES.items():
+    sources = {name: dcn_cuda.CSRC / src
+               for name, src in dcn_cuda.SOURCES.items()}
+    sources[batchnorm.NAME] = batchnorm.SOURCE
+    for name, src in sources.items():
         cpp = out / f"{name}.cpp"
-        cpp.write_text(emulated(dcn_cuda.CSRC / src))
+        cpp.write_text(emulated(src))
         lib = out / f"lib{name}.so"
         procs[name] = (lib, subprocess.Popen(
             [cxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread",
@@ -787,3 +794,76 @@ def test_emulated_backwards_repeat_bitwise(emulated, monkeypatch, row, name,
     for grad, a, b in zip(names, got, want):
         assert_close(a, b, grad)
     assert dcn_cuda.LAUNCHES[name] == len(ORDERS)
+
+
+# --- train-mode BatchNorm (csrc/bn_train.cu) -----------------------------------
+
+
+@pytest.fixture
+def emulated_bn(emulated_libs, monkeypatch):
+    """BatchNorm's library replaced by the CPU build, for one test; a
+    reduce grid of a few blocks, so that tiny maps split each channel into
+    several slices, the last one ragged."""
+    monkeypatch.setattr(batchnorm, "_LIBS", {})
+    monkeypatch.setattr(batchnorm, "_lib_path",
+                        lambda: emulated_libs[batchnorm.NAME])
+    monkeypatch.setattr(batchnorm, "_REDUCE_TARGET_BLOCKS", 12)
+    monkeypatch.setattr(batchnorm, "_MIN_SLICE", 2)
+    batchnorm.reset_launches()
+    yield
+    batchnorm.reset_launches()
+
+
+def bn_inputs(seed, shape):
+    """x (N, C, H, W) with channel means away from 0, its batch mean and
+    invstd at eps 1e-3, a weight and an output gradient."""
+    gen = torch.Generator().manual_seed(seed)
+    n, c, h, w = shape
+    x = torch.randn(shape, generator=gen) * 2.0 + torch.randn(
+        1, c, 1, 1, generator=gen) * 3.0
+    var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+    invstd = 1.0 / torch.sqrt(var + 1e-3)
+    weight = torch.randn(c, generator=gen)
+    dy = torch.randn(shape, generator=gen)
+    return x, mean, invstd, weight, dy
+
+
+def assert_bn_close(got, want, name):
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale,
+                               msg=name)
+
+
+# (N, C, H, W): H * W a multiple of 4 (16-byte vectors); H * W odd (one
+# float a vector); a plane shorter than a slice (slices cross samples)
+BN_SHAPES = [
+    pytest.param((2, 3, 6, 10), 4, id="vec4"),
+    pytest.param((3, 2, 5, 7), 1, id="vec1-ragged"),
+    pytest.param((7, 4, 2, 2), 4, id="small-planes"),
+]
+
+
+@pytest.mark.parametrize("shape,vector", BN_SHAPES)
+def test_emulated_batchnorm_kernels_match_twin_in_every_order(
+        emulated_bn, monkeypatch, shape, vector):
+    """dx, d(weight) and d(bias) within 1e-4 of the twin, the same bits in
+    three launch orders; each channel in several slices, the last one
+    shorter; one launch of each kernel a call, and none of dx where x
+    takes no gradient."""
+    x, mean, invstd, weight, dy = bn_inputs(21, shape)
+    assert batchnorm._vector(x, dy) == vector
+    slices, slice_ = batchnorm.reduce_split(
+        shape[0], shape[1], shape[2] * shape[3] // vector)
+    count = shape[0] * shape[2] * shape[3] // vector
+    assert slices >= 3 and slices * slice_ > count
+    got = in_orders(monkeypatch, lambda: batchnorm._backward_launch(
+        x, dy, mean, invstd, weight, True, 0))
+    want = batchnorm.backward_plain(x, dy, mean, invstd, weight)
+    for name, a, b in zip(("dx", "dweight", "dbias"), got, want):
+        assert_bn_close(a, b, name)
+    assert batchnorm.LAUNCHES == dict.fromkeys(batchnorm.LAUNCHES,
+                                               len(ORDERS))
+    dx, dweight, _ = batchnorm._backward_launch(x, dy, mean, invstd, weight,
+                                                False, 0)
+    assert dx is None and torch.equal(bits(dweight), bits(got[1]))
+    assert batchnorm.LAUNCHES["bn_train_dx_kernel"] == len(ORDERS)

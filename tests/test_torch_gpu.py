@@ -1,4 +1,5 @@
-"""Card-only tests: the Hopper DCN kernels against their plain twins.
+"""Card-only tests: the Hopper DCN and BatchNorm kernels against their
+plain twins.
 
 They need a CUDA card and skip without one. This file imports neither JAX
 nor the JAX package, so on a machine without JAX it runs with
@@ -9,7 +10,9 @@ the Pallas kernels' own tests (tests/test_dcn_pallas.py). Kernel and twin
 stage the same bf16 values; they differ by f32 summation order, which can
 flip a bf16 rounding of a sample or of g . W^T. Between two calls of a
 kernel on the same inputs there is no tolerance: every sum has a fixed
-order, so they give the same bits.
+order, so they give the same bits. BatchNorm's backward kernels compute
+in float32 as their twin does, in another order: 1e-4 of the largest
+value.
 """
 
 import numpy as np
@@ -959,3 +962,120 @@ def test_a_failed_capture_raises_and_does_not_fall_back(cuda):
     assert graphs.calls == {"eager": 1, "captures": 0, "replays": 0}
     assert len(graphs) == 0
     assert float((torch.ones(3, device=cuda) * 2).sum()) == 6.0
+
+
+# --- train-mode BatchNorm (ops/batchnorm.py, csrc/bn_train.cu) -----------------
+
+
+def bn_operands(seed, shape, device):
+    """x with channel means away from 0, a weight, a bias and an output
+    gradient, on ``device``."""
+    gen = torch.Generator().manual_seed(seed)
+    n, c, h, w = shape
+    x = torch.randn(shape, generator=gen) * 2.0 + torch.randn(
+        1, c, 1, 1, generator=gen) * 3.0
+    weight, bias = torch.randn(2, c, generator=gen)
+    dy = torch.randn(shape, generator=gen)
+    return tuple(t.to(device) for t in (x, weight, bias, dy))
+
+
+# one shape of each class of DLA-34's and EfficientNet-b3's layers at batch
+# 2: 16 channels at 512 px, 64 at 128 px, 512 at 16 px, b3's 1392 at 16 px;
+# and a map whose H * W is odd (one float a vector)
+BN_CARD_SHAPES = [(2, 16, 512, 512), (2, 64, 128, 128), (2, 512, 16, 16),
+                  (2, 1392, 16, 16), (3, 24, 15, 17)]
+
+
+@pytest.mark.parametrize("shape", BN_CARD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_batchnorm_kernels_match_twin_and_repeat(cuda, shape):
+    """The forward is ``F.batch_norm``'s bits; dx, d(weight) and d(bias)
+    of the backward kernels within 1e-4 of the twin's float32 (relative,
+    and absolute of the largest value), and two calls the same bits; one
+    launch of each kernel a call."""
+    import torch.nn.functional as F
+
+    from centernet_uda_torch.ops import batchnorm
+
+    x, weight, bias, dy = bn_operands(5, shape, cuda)
+    eps = 1e-3
+    y, mean, invstd = batchnorm.batch_norm_forward(x, weight, bias, eps)
+    assert torch.equal(bits(y), bits(F.batch_norm(x, None, None, weight,
+                                                  bias, True, 0.0, eps)))
+    batchnorm.reset_launches()
+    runs = [batchnorm.batch_norm_backward(x, dy, mean, invstd, weight)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert batchnorm.LAUNCHES == dict.fromkeys(batchnorm.LAUNCHES, 2)
+    want = batchnorm.backward_plain(x, dy, mean, invstd, weight)
+    for name, a, b, ref in zip(("dx", "dweight", "dbias"), *runs, want):
+        assert torch.equal(bits(a), bits(b)), name
+        scale = max(1.0, float(ref.abs().max()))
+        err = float((a - ref).abs().max())
+        torch.testing.assert_close(a, ref, rtol=1e-4, atol=1e-4 * scale,
+                                   msg=f"{name}: max|err| {err}")
+
+
+def test_batchnorm_layer_captures_and_replays(cuda):
+    """A train-mode ``BatchNorm2d`` forward and backward under
+    ``StepGraphs``: eager, captured and replayed, replayed, on new inputs
+    each call; every call's output and gradients the bits of an eager call
+    on the same layer state, the running statistics too, and the replays
+    count the kernels' launches."""
+    from centernet_uda_torch.models.common import BatchNorm2d
+    from centernet_uda_torch.ops import batchnorm
+    from centernet_uda_torch.utils.graphs import StepGraphs
+
+    layers = [BatchNorm2d(32).to(cuda) for _ in range(2)]
+
+    def fn(bn):
+        def step(inputs):
+            x = inputs["x"].detach().requires_grad_(True)
+            y = bn(x)
+            grads = torch.autograd.grad(y, (x, bn.weight, bn.bias),
+                                        inputs["g"])
+            return (y.detach(),) + grads
+        return step
+
+    graphs = StepGraphs(cuda)
+    gen = torch.Generator().manual_seed(11)
+    for call in range(3):
+        inputs = {"x": torch.randn(4, 32, 24, 24, generator=gen) + call,
+                  "g": torch.randn(4, 32, 24, 24, generator=gen)}
+        batchnorm.reset_launches()
+        got = graphs("bn", fn(layers[0]), inputs)
+        torch.cuda.synchronize()
+        assert batchnorm.LAUNCHES == dict.fromkeys(batchnorm.LAUNCHES, 1)
+        want = fn(layers[1])({k: v.to(cuda) for k, v in inputs.items()})
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert torch.equal(bits(a), bits(b)), (call, i)
+        for name in ("running_mean", "running_var"):
+            assert torch.equal(getattr(layers[0], name),
+                               getattr(layers[1], name)), (call, name)
+    assert graphs.calls == {"eager": 1, "captures": 1, "replays": 2}
+
+
+def test_eager_dla34_step_launches_the_batchnorm_kernels(cuda):
+    """One eager DLA-34 train step at float32 (full width, 128 px, batch 2)
+    back-propagates its BatchNorm layers through the kernels: 53 launches
+    of each (of its 55 layers, the ``project`` ones of ``base.level3`` and
+    ``base.level4`` reach no loss, as in the reference DLA, so autograd
+    runs no backward of theirs)."""
+    from pathlib import Path
+
+    from centernet_uda_torch.bench import synthetic_batch
+    from centernet_uda_torch.config import compose
+    from centernet_uda_torch.ops import batchnorm
+    from centernet_uda_torch.train import build_trainer
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = compose(["experiment=baseline", "batch_size=2",
+                   "model.backend.params.num_classes=6",
+                   "datasets.training.params.input_size=[128,128]"],
+                  config_dir=str(root / "configs"))
+    trainer = build_trainer(cfg, device="cuda", graphs=False)
+    trainer.init_done()
+    batchnorm.reset_launches()
+    trainer.step(synthetic_batch(2, 128))
+    torch.cuda.synchronize()
+    assert batchnorm.LAUNCHES == dict.fromkeys(batchnorm.LAUNCHES, 53)
