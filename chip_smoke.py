@@ -187,18 +187,7 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
    ``STOP_WORKERS`` workers on those JPEGs with the augmentation is left
    after one batch, ``STOP_TIMES`` times, and each time must give control
    back within ``STOP_LIMIT_S`` (ROADMAP C3);
-12. bench: ``python -m centernet_uda_torch.bench`` in a fresh process, once
-   at bfloat16 with every stage (``BENCH_STEPS=10``) and once at float32
-   without the 800 px and pipeline stages: every stage must give its number
-   (no ``_skip_reason`` but the switched-off stages' and, at float32,
-   MFU's), the scan cross-checks included (``*_scan``: 10 steps or calls in
-   one CUDA graph), ``mfu_train`` must lie in (0, 1), each train rate within
-   ``BENCH_RATE_TOL`` of the batch over the median replayed train step
-   (the third and fourth) of phase 4 at its precision, and its
-   ``dcn_launches`` and ``scan_dcn_launches``
-   exactly its precision's kernels, 16 a forward for every warm-up, timed
-   and inference call; both lines are printed;
-13. compiled steps (``utils/graphs.py``): DLA-34 at float32 and bfloat16
+12. compiled steps (``utils/graphs.py``): DLA-34 at float32 and bfloat16
    (batch 16), each also as the trainers of a one-rank NCCL group, the
    four UDA trainers at bfloat16 (batch 8) and ``experiment=keypoints``
    (EfficientNet-b0, its stochastic depth on) at bfloat16 (batch 16) at
@@ -229,9 +218,9 @@ entry points a user calls (``build_trainer``, ``Model.step``,
 just after. Their steps are the default ones, CUDA graphs on the card: a
 signature's first call runs eagerly, the second captures, later ones
 replay, and the launch counts per step are exact either way. The last lines are a ``{"kernels": [...]}`` JSON line (one
-entry per kernel source, launches summed over phases 4-10, 12 and 13; for
+entry per kernel source, launches summed over phases 4-10 and 12; for
 BatchNorm's, the reduce kernel's in DLA-34's float32 train steps of phases
-4 and 13), the card's
+4 and 12), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero. ``--json PATH`` also writes every measurement
 to PATH; ``--profile`` adds a torch.profiler breakdown by kernel of two
@@ -304,16 +293,7 @@ PIPE_WORKERS, PIPE_SECONDS = (4, 8), 8.0
 # stops, and the seconds a stop may take (the subprocess's own limit beside)
 STOP_WORKERS, STOP_IMAGES, STOP_TIMES, STOP_LIMIT_S = 8, 32, 3, 30.0
 STOP_PROCESS_TIMEOUT_S = 180
-# phase 12, the bench (python -m centernet_uda_torch.bench): its runs' knobs,
-# how far its train rate may lie from phase 4's steps, its time limit a run
-BENCH_RUNS = {
-    "bfloat16": {"BENCH_STEPS": "10"},
-    "float32": {"BENCH_STEPS": "10", "BENCH_DTYPE": "float32",
-                "BENCH_800": "0", "BENCH_PIPELINE": "0"},
-}
-BENCH_RATE_TOL = 0.2
-BENCH_TIMEOUT_S = 400
-# phase 13, the compiled steps: (experiment, precision, batch, as the trainers
+# phase 12, the compiled steps: (experiment, precision, batch, as the trainers
 # of a one-rank NCCL group) at TRAIN_SIZE, each trained by two eager
 # trainers and one graphed trainer from one seed,
 # GRAPH_STEPS steps, then a MultiStepLR milestone (epoch_end) and
@@ -1283,7 +1263,7 @@ def profile_train_steps(trainer, data, steps=2, top=12):
     """Device time of ``steps`` train steps by kernel (torch.profiler), the
     DCN kernels' share and the device's busy share of the wall time. The
     kernels of a replayed CUDA graph keep their names in the trace
-    (phase 13 checks that its graphed profiles hold the DCN kernels)."""
+    (phase 12 checks that its graphed profiles hold the DCN kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1410,15 +1390,41 @@ def timed_steps(trainer, data, steps, per_step, bn_per_step=None):
     return ms, stats
 
 
+def _forward_decode(net, calls: int = 1):
+    """``calls`` forwards plus decode (k = 100) of ``inputs["input"]``, as a
+    serving call runs; returns the last call's detections."""
+    import torch
+
+    from centernet_uda_torch.ops.decode import decode_detections
+
+    def run(inputs):
+        with torch.inference_mode():
+            for _ in range(calls):
+                out = net(inputs["input"])
+                dets = decode_detections(out["hm"], out["wh"], out.get("reg"),
+                                         k=100, apply_sigmoid=True)
+            return dets
+
+    return run
+
+
+def _infer_fn(net, x, graphs=None, calls: int = 1):
+    """A call of ``_forward_decode`` on ``x``: a replayed graph of
+    ``graphs`` (a ``StepGraphs``) where given, else eager."""
+    fn = _forward_decode(net, calls)
+    if graphs is None:
+        return lambda: fn({"input": x})
+    name = f"infer{calls}"
+    return lambda: graphs(name, fn, {"input": x})
+
+
 def serve_ms(net, graphs):
     """Median ms of SERVE_CALLS batch-1 TRAIN_SIZE forward-plus-decode
-    calls (``bench._infer_fn``), each ended by a synchronisation; graphed
+    calls (``_infer_fn``), each ended by a synchronisation; graphed
     where ``graphs`` is a StepGraphs (after its eager and capturing call),
     else eager. Returns (ms, the call's detections)."""
     import numpy as np
     import torch
-
-    from centernet_uda_torch.bench import _infer_fn
 
     x = torch.from_numpy(np.random.RandomState(5).randn(
         1, 3, TRAIN_SIZE, TRAIN_SIZE).astype(np.float32)).cuda()
@@ -1508,7 +1514,7 @@ def parity_run(trainer, data, per_step, snapshots, record, masks=None,
 
 
 def compiled_steps(n_dcn, seed):
-    """Phase 13: for each of GRAPH_RUNS, the graphed step against the eager
+    """Phase 12: for each of GRAPH_RUNS, the graphed step against the eager
     one (see GRAPH_RUNS and ``parity_run``): stats and parameters within the
     spread rule, exact launches per step, the milestone honoured (the
     graphs dropped, the step captured after it at the new rate), then the
@@ -3340,79 +3346,6 @@ def process_loader_stop():
     return seconds
 
 
-def run_bench(precision, knobs, n_dcn, step_ms):
-    """Phase 12, one run of ``python -m centernet_uda_torch.bench`` with
-    ``knobs``: every stage's number, ``mfu_train`` in (0, 1) at bfloat16,
-    the train rate within ``BENCH_RATE_TOL`` of the batch over the median
-    of ``step_ms`` from the third step on (phase 4's replayed train steps at
-    this precision), and exactly
-    this precision's DCN launches. Returns the bench's JSON object."""
-    import os
-
-    import numpy as np
-
-    env = {**os.environ, **knobs}
-    t0 = time.perf_counter()
-    out = subprocess.run(
-        [sys.executable, "-m", "centernet_uda_torch.bench"], cwd=ROOT,
-        env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
-    seconds = time.perf_counter() - t0
-    if out.returncode != 0:
-        raise AssertionError(f"bench {precision}: exit {out.returncode}\n"
-                             f"{out.stderr[-3000:]}")
-    line = out.stdout.strip().splitlines()[-1]
-    print(f"bench {precision} ({seconds:.1f} s): {line}", flush=True)
-    res = json.loads(line)
-    d = res["detail"]
-    allowed = {f"{stage}_skip_reason" for stage, knob in (
-        ("infer_800px", "BENCH_800"), ("pipeline", "BENCH_PIPELINE"))
-        if knobs.get(knob) == "0"}
-    if precision == "float32":
-        allowed.add("mfu_skip_reason")
-    skipped = {k: v for k, v in d.items()
-               if k.endswith("_skip_reason") and k not in allowed}
-    if skipped or res["vs_baseline"] is not None:
-        raise AssertionError(f"bench {precision}: skipped {skipped}")
-    for key in ("decode_mean_ms_pipelined", "dcn_fwd_ms", "dcn_bwd_ms",
-                "train_images_per_sec", "infer_images_per_sec",
-                "train_images_per_sec_scan", "infer_images_per_sec_scan"):
-        if not (isinstance(d[key], (int, float)) and d[key] > 0):
-            raise AssertionError(f"bench {precision}: {key} = {d[key]}")
-    if precision == "bfloat16" and not 0 < d["mfu_train"] < 1:
-        raise AssertionError(f"bench mfu_train {d['mfu_train']}")
-    # phase 4's steps from the third on replay its graph, as the bench's
-    # timed steps do (the first runs eagerly, the second captures)
-    want_ips = d["batch_size"] * 1e3 / float(np.median(step_ms[2:]))
-    ratio = d["train_images_per_sec"] / want_ips
-    print(f"bench {precision} train {d['train_images_per_sec']:.2f} images/s "
-          f"against {want_ips:.2f} from phase 4's median replayed step "
-          f"({ratio:.3f}x)", flush=True)
-    if abs(ratio - 1) > BENCH_RATE_TOL:
-        raise AssertionError(f"bench {precision} train rate {ratio:.3f}x "
-                             "phase 4's")
-    fwd, bwd = (("dcn_fused_fwd", "dcn_fused_bwd") if precision == "bfloat16"
-                else ("dcn_fwd", "dcn_bwd"))
-    # the warm-up is at least 2 calls on the card (eager, then capture)
-    warmup = max(int(knobs.get("BENCH_WARMUP", 3)), 2)
-    steps = int(knobs["BENCH_STEPS"])
-    calls = warmup + steps
-    want = expect(**{fwd: n_dcn * 2 * calls, bwd: n_dcn * calls})
-    if d["dcn_launches"] != want:
-        raise AssertionError(f"bench {precision} launches "
-                             f"{d['dcn_launches']} != {want}")
-    # each scan: an eager chunk, a captured one, then the timed chunks
-    calls = d["scan_chunk"] * (2 + d["scan_chunks"])
-    want = expect(**{fwd: n_dcn * 2 * calls, bwd: n_dcn * calls})
-    if d["scan_dcn_launches"] != want:
-        raise AssertionError(f"bench {precision} scan launches "
-                             f"{d['scan_dcn_launches']} != {want}")
-    print(f"bench {precision} scan: train "
-          f"{d['train_images_per_sec_scan']:.2f}, infer "
-          f"{d['infer_images_per_sec_scan']:.2f} images/s", flush=True)
-    res["seconds"] = seconds
-    return res
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every measurement here")
@@ -3680,12 +3613,6 @@ def main(argv=None) -> int:
     report["host_pipeline"] = host_pipeline()
     report["loader_stop_seconds"] = process_loader_stop()
 
-    phase("bench: python -m centernet_uda_torch.bench, bfloat16 and float32")
-    report["bench"] = {
-        precision: run_bench(precision, knobs, n_dcn, report[
-            "bf16_train" if precision == "bfloat16" else "train"]["step_ms"])
-        for precision, knobs in BENCH_RUNS.items()}
-
     phase(f"compiled steps: graphed against eager at {TRAIN_SIZE} px")
     report["compiled"] = compiled_steps(n_dcn, args.seed)
 
@@ -3703,8 +3630,6 @@ def main(argv=None) -> int:
     runs += [r["launches"] for k, r in p10.items() if k.startswith("cli_")]
     runs += [r[part]["launches"] for k, r in p10.items()
              if k.startswith("bn_sync_") for part in ("train", "eval")]
-    runs += [r["detail"][k] for r in report["bench"].values()
-             for k in ("dcn_launches", "scan_dcn_launches")]
     runs += [r[part]["launches"] for r in report["compiled"].values()
              for part in ("eager", "graphed")]
 

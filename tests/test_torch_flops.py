@@ -1,12 +1,21 @@
-"""The port's model-FLOP count (``utils/flops.py``) against the JAX model's.
+"""Model FLOPs of one image's forward: the port's models against the JAX
+model's and against the benchmark's count.
 
-Both sides count the forward of DLA-34 (6 classes, one image) on its exact
-DCN path, convolutions and matrix products at 2 FLOPs a multiply-add. The
-JAX side is a walk of the forward's jaxpr written here, which enters every
-sub-jaxpr: those under a ``.jaxpr`` attribute (``pjit``, ``custom_vjp``)
-and the bare ``Jaxpr`` of ``remat`` (``checkpoint``), where the DCN layers
-run. ``tools/flops_count.py`` (its numbers behind ``bench.py``'s 57.2
-GFLOP/img) enters only the former, so it misses every DCN contraction.
+The port's side is counted here (``flop_counts``) with
+``torch.utils.flop_counter.FlopCounterMode`` on the ``meta`` device
+(shapes only, no arithmetic and no memory): convolutions (transposed ones
+at their input positions), matrix products, each multiply-add as 2
+FLOPs. The DCN layers run the exact op (``dcn_impl="xla"``), whose
+contraction is a visible ``bmm`` and whose offset conv is a convolution.
+Bilinear sampling, BatchNorm, activations and decode are not counted.
+
+The JAX side counts the forward of DLA-34 (6 classes, one image) on its
+exact DCN path by a walk of the forward's jaxpr written here, which enters
+every sub-jaxpr: those under a ``.jaxpr`` attribute (``pjit``,
+``custom_vjp``) and the bare ``Jaxpr`` of ``remat`` (``checkpoint``),
+where the DCN layers run. ``tools/flops_count.py`` (its numbers behind
+``bench.py``'s 57.2 GFLOP/img) enters only the former, so it misses every
+DCN contraction.
 
 What must agree exactly, at 64 and 128 px:
 
@@ -30,16 +39,32 @@ What differs, by the TPU-only rewrites of the JAX model (term by term;
   every position of its dilated input, zeros included, f^2 times the
   multiplications of the port's transposed conv, which counts its input
   positions.
+
+The benchmark's ``mfu.*`` divides by ``perfbench/counts.forward_flops`` on
+the configuration's plain reference net (``perfbench/reference/``), not on
+the port's model: for every configuration of ``perfbench/configs/`` the
+two counts must be equal, the port's model composed as the benchmark
+composes it (the configuration's ``experiment`` and ``overrides``).
 """
+
+import json
+import sys
+from pathlib import Path
 
 import pytest
 
 import jax
 import jax.numpy as jnp
 from jax.extend import core as jcore
+import torch
+from torch.utils.flop_counter import FlopCounterMode
 
-from centernet_uda_torch.utils import flops
+from centernet_uda_torch import models
+from centernet_uda_torch.config import compose
 
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
 SIZES = (64, 128)
 HEADS = ("hm", "wh", "reg")
 HEAD_CONV = 256
@@ -53,6 +78,26 @@ STEM = {
 # their space-to-depth forms: (kernel, cin, cout) on the S/2 grid
 S2D_STEM = {"base/base_conv": (5, 12, 64), "base/level0_conv0": (3, 64, 64),
             "base/level1_conv0": (2, 64, 32)}
+
+
+def flop_counts(backend_name, size, **backend_params):
+    """FLOPs of one ``size`` x ``size`` image's forward of the port's
+    backend built with ``backend_params`` on the exact DCN op, in float32,
+    by module and op: ``{"Global": {op: flops}, "<Module>.<path>": {...}}``,
+    the op names as strings (e.g. ``"aten.convolution"``)."""
+    params = {**backend_params, "dcn_impl": "xla", "dtype": torch.float32,
+              "device": "meta"}
+    net = models.build(backend_name, **params).module.eval()
+    counter = FlopCounterMode(display=False)
+    with torch.no_grad(), counter:
+        net(torch.zeros(1, 3, size, size, device="meta"))
+    return {module: {str(op): int(n) for op, n in ops.items()}
+            for module, ops in counter.get_flop_counts().items()}
+
+
+def forward_flops(backend_name, size, **backend_params):
+    return sum(flop_counts(backend_name, size,
+                           **backend_params)["Global"].values())
 
 
 def _conv_flops(eqn):
@@ -125,7 +170,7 @@ def jax_counts(size):
 def port_convs(size):
     """The port's conv FLOPs by leaf module (the ``DLASeg.`` prefix
     dropped) and its ``bmm`` FLOPs."""
-    counts = flops.flop_counts("dla", size, num_classes=6)
+    counts = flop_counts("dla", size, num_classes=6)
     leaves = {m: ops for m, ops in counts.items()
               if m != "Global" and not any(o.startswith(m + ".")
                                            for o in counts)}
@@ -220,7 +265,39 @@ def test_jax_tool_leaves_out_the_dcn_contraction(size):
 def test_count_scales_with_the_area():
     """Every map of DLA-34 halves exactly from 64 px on, so the count is
     the 64 px count times the area ratio: 4x at 128 px, 64x at 512 px."""
-    at64 = flops.forward_flops("dla", 64, num_classes=6)
-    assert flops.forward_flops("dla", 128, num_classes=6) == 4 * at64
-    assert flops.forward_flops("dla", 512, num_classes=6) == 64 * at64
+    at64 = forward_flops("dla", 64, num_classes=6)
+    assert forward_flops("dla", 128, num_classes=6) == 4 * at64
+    assert forward_flops("dla", 512, num_classes=6) == 64 * at64
     assert 64 * at64 == 65_578_729_472
+
+
+# the benchmark's configurations and their counts at 64 and 512 px
+BENCHMARK_CONFIGS = sorted((ROOT / "perfbench" / "configs").glob("*.json"))
+BENCHMARK_FLOPS = {
+    ("dla34_baseline", 64): 1_024_667_648,
+    ("dla34_baseline", 512): 65_578_729_472,
+    ("dla34_entmin", 64): 1_024_667_648,
+    ("dla34_entmin", 512): 65_578_729_472,
+    ("b3_coco_merged", 64): 1_591_844_608,
+    ("b3_coco_merged", 512): 101_643_739_264,
+}
+
+
+@pytest.mark.parametrize("size", (64, 512))
+@pytest.mark.parametrize("path", BENCHMARK_CONFIGS, ids=lambda p: p.stem)
+def test_benchmark_counts_the_programs_model(path, size):
+    """The count the benchmark's ``mfu.*`` divides by, on the
+    configuration's reference net, equals the count of the port's backend
+    as the configuration composes it."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    from perfbench import check, counts
+
+    cfg = json.loads(path.read_text())
+    program = compose([f"experiment={cfg['experiment']}",
+                       *cfg["overrides"]],
+                      config_dir=str(ROOT / "configs"))
+    want = forward_flops(program.model.backend.name, size,
+                         **program.model.backend.params.to_dict())
+    got = counts.forward_flops(check.make_net(cfg["reference"]), size)
+    assert got == want == BENCHMARK_FLOPS[cfg["name"], size]

@@ -35,6 +35,29 @@ def cuda():
     return torch.device("cuda")
 
 
+def synthetic_batch(batch_size: int, input_size: int):
+    """One seeded training batch of 6 classes and 10 objects an image: a
+    copy of the JAX package's ``__graft_entry__._tiny_batch`` (the same
+    numbers from the same seed) in the port's layout (NCHW images and heat
+    maps)."""
+    num_classes, k = 6, 10
+    rng = np.random.RandomState(0)
+    out_size = input_size // 4
+    batch = {
+        "input": rng.randn(batch_size, input_size, input_size, 3)
+        .astype(np.float32).transpose(0, 3, 1, 2).copy(),
+        "hm": np.zeros((batch_size, num_classes, out_size, out_size),
+                       np.float32),
+        "wh": rng.rand(batch_size, k, 2).astype(np.float32),
+        "reg": rng.rand(batch_size, k, 2).astype(np.float32),
+        "ind": rng.randint(0, out_size * out_size, (batch_size, k))
+        .astype(np.int64),
+        "reg_mask": (rng.rand(batch_size, k) > 0.5).astype(np.uint8),
+    }
+    batch["hm"][:, 0, out_size // 2, out_size // 2] = 1.0
+    return batch
+
+
 def make_inputs(seed, b, cin, cout, h, w, device, off_std=2.0):
     """Seeded operands with |dy| > 14 at a few pixels and dx far off the map
     at a few others, so the clamp and the zero reads are exercised."""
@@ -705,7 +728,6 @@ def test_graphed_dla34_steps_match_eager(cuda, precision):
     bit; each step's launches those of an eager step."""
     from pathlib import Path
 
-    from centernet_uda_torch.bench import synthetic_batch
     from centernet_uda_torch.config import compose
     from centernet_uda_torch.train import build_trainer
 
@@ -759,7 +781,6 @@ def test_two_dla34_trainers_stay_bitwise_equal(cuda, precision):
     bit."""
     from pathlib import Path
 
-    from centernet_uda_torch.bench import synthetic_batch
     from centernet_uda_torch.config import compose
     from centernet_uda_torch.train import build_trainer
 
@@ -789,7 +810,8 @@ def test_two_dla34_trainers_stay_bitwise_equal(cuda, precision):
 _FRESH_PROCESS_RUN = """
 import hashlib, sys
 import torch
-from centernet_uda_torch.bench import synthetic_batch
+sys.path.insert(0, "tests")
+from test_torch_gpu import synthetic_batch
 from centernet_uda_torch.config import compose
 from centernet_uda_torch.train import build_trainer
 
@@ -871,7 +893,6 @@ def test_one_rank_nccl_train_step_captures_and_replays(cuda):
     finite losses that move."""
     from pathlib import Path
 
-    from centernet_uda_torch.bench import synthetic_batch
     from centernet_uda_torch.config import compose
     from centernet_uda_torch.parallel import ddp
     from centernet_uda_torch.train import build_trainer
@@ -1063,7 +1084,6 @@ def test_eager_dla34_step_launches_the_batchnorm_kernels(cuda):
     runs no backward of theirs)."""
     from pathlib import Path
 
-    from centernet_uda_torch.bench import synthetic_batch
     from centernet_uda_torch.config import compose
     from centernet_uda_torch.ops import batchnorm
     from centernet_uda_torch.train import build_trainer

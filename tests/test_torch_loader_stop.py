@@ -126,3 +126,17 @@ def test_worker_exception_reaches_the_consumer(coco_set, mode):
     rec = run_case(coco_set, mode, 8, stops=2, raise_at=10)
     assert rec["raised"] == ["sample 10 is broken"] * 2, rec
     assert max(rec["seconds"]) < STOP_S, rec
+
+
+def test_pipeline_stage_in_process_mode():
+    """``tools/bench_pipeline_torch.py`` in a fresh process, small: 16
+    JPEGs of 64 px, batch 4, 4 worker processes, 1 s a loader run; it must
+    finish in its time and give a rate."""
+    env = {**os.environ, "IMAGES": "16", "SIZE": "64", "BATCH": "4",
+           "WORKERS": "4", "SECONDS": "1", "MODE": "process"}
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "bench_pipeline_torch.py")],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    line = out.stdout.strip().splitlines()[-1]
+    assert json.loads(line)["pipeline_images_per_sec"] > 0
