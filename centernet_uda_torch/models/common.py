@@ -25,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from centernet_uda_torch.ops import batchnorm
+from centernet_uda_torch.ops import batchnorm, depthwise
 from centernet_uda_torch.ops.conv import conv2d
 from centernet_uda_torch.parallel import ddp
 
@@ -170,7 +170,10 @@ class SameConv2d(Conv2d):
     """``Conv2d`` with XLA's ``"SAME"`` padding computed from each input's
     size (flax ``nn.Conv(padding="SAME")``; the "dynamic same" conv of
     EfficientNet-PyTorch). A symmetric pad goes to the conv itself, an
-    uneven one through ``F.pad`` first."""
+    uneven one through ``F.pad`` first. A depthwise conv that
+    ``ops.depthwise.takes_kernel`` accepts runs ``depthwise_conv2d`` (the
+    forward ``F.conv2d``'s, the backward the kernels'); every other conv
+    ``F.conv2d``."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, padding=0, **kwargs)
@@ -186,8 +189,13 @@ class SameConv2d(Conv2d):
         else:
             x = F.pad(x, (left, right, top, bottom))
             pad = (0, 0)
-        y = F.conv2d(x, self.weight.to(dt), None, self.stride, pad,
-                     self.dilation, self.groups)
+        weight = self.weight.to(dt)
+        if depthwise.takes_kernel(x, weight, self.stride, pad, self.dilation,
+                                  self.groups):
+            y = depthwise.depthwise_conv2d(x, weight, self.stride, pad)
+        else:
+            y = F.conv2d(x, weight, None, self.stride, pad, self.dilation,
+                         self.groups)
         if self.bias is not None:
             y = y + self.bias.to(dt).view(1, -1, 1, 1)
         return y

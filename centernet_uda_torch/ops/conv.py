@@ -17,8 +17,10 @@ gradients by routes whose sums have a fixed order:
   im2col and GEMM, one image after the other): 16 -> 16 at 512 px 4.3 ms
   against 9.5 deterministic, 256 -> 128 1x1 at 64 px 0.4 against 2.2.
 
-Every other shape, and every dtype but float32, runs cuDNN as it is; so
-does any conv on the CPU, or with no gradient to take.
+A depthwise conv that ``ops.depthwise.takes_kernel`` accepts takes its
+gradients from the hand-written kernels of ``ops.depthwise`` (the forward
+stays ``F.conv2d``). Every other shape, and every dtype but float32, runs
+cuDNN as it is; so does any conv on the CPU, or with no gradient to take.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from centernet_uda_torch.ops import depthwise
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -111,7 +115,10 @@ class _Conv2dFn(torch.autograd.Function):
 def conv2d(x: torch.Tensor, weight: torch.Tensor, stride=1, padding=0,
            dilation=1, groups: int = 1) -> torch.Tensor:
     """``F.conv2d`` without bias; float32 on the card with a gradient to
-    take goes through the routes of ``routes``."""
+    take goes through ``ops.depthwise`` (depthwise convs) or the routes of
+    ``routes``."""
+    if depthwise.takes_kernel(x, weight, stride, padding, dilation, groups):
+        return depthwise.depthwise_conv2d(x, weight, stride, padding)
     if (x.is_cuda and x.dtype == torch.float32 and torch.is_grad_enabled()
             and (x.requires_grad or weight.requires_grad)
             and not isinstance(padding, str)):

@@ -34,10 +34,10 @@ constant changes (a float learning rate, the DCN route, an optimizer's
 state tensors replaced by a checkpoint).
 
 Launch accounting: a graph's replay runs no Python, so the kernel
-wrappers' counters (``ops.dcn_cuda.LAUNCHES``, ``ops.batchnorm.LAUNCHES``)
-would not move. Capture runs the wrappers once without launching anything;
-the helper takes that count back off and adds it again on every replay, so
-the counts per step are exact.
+wrappers' counters (``ops.dcn_cuda.LAUNCHES``, ``ops.batchnorm.LAUNCHES``,
+``ops.depthwise.LAUNCHES``) would not move. Capture runs the wrappers once
+without launching anything; the helper takes that count back off and adds
+it again on every replay, so the counts per step are exact.
 
 Random draws: a step that draws from a ``torch.Generator`` of its own
 (EfficientNet's stochastic depth) names it in ``generators``; the graph
@@ -91,7 +91,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from centernet_uda_torch.ops import batchnorm, dcn_cuda
+from centernet_uda_torch.ops import batchnorm, dcn_cuda, depthwise
 from centernet_uda_torch.utils.spans import span
 
 
@@ -157,7 +157,8 @@ class StepGraphs:
                  counters: Optional[Dict[str, int]] = None):
         self.device = torch.device(device)
         self.graph_factory = graph_factory or self._cuda_graph
-        self.counters = ([dcn_cuda.LAUNCHES, batchnorm.LAUNCHES]
+        self.counters = ([dcn_cuda.LAUNCHES, batchnorm.LAUNCHES,
+                          depthwise.LAUNCHES]
                          if counters is None else [counters])
         self.generation = 0
         self._seen = set()

@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
    logging libraries of the host; the card must be compute capability 9.0;
 2. build: compiles the seven DCN kernel sources from
    ``centernet_uda_torch/csrc/`` (one ``nvcc`` each, in parallel), then
-   BatchNorm's ``bn_train.cu``, and prints the compiler's register /
+   BatchNorm's ``bn_train.cu`` and the depthwise conv's
+   ``depthwise_bwd.cu``, and prints the compiler's register /
    shared-memory report, then the host library
    (``csrc/host_encoder.cpp``, ``g++``) and loads it;
 3. kernels: each kernel against its plain PyTorch twin on the same inputs
@@ -40,6 +41,13 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      bit for bit, the forward ``F.batch_norm``'s bits, each call graphed
      and timed beside the twin, cuDNN's pair, the statistics' ``var_mean``
      and the bound (``batchnorm_phase``);
+   - the depthwise conv's backward kernels (``ops/depthwise.py``) at every
+     depthwise conv shape of EfficientNet-b3 (batch 8) and MobileNetV2
+     (batch 32) at 512 px, as the route sees them, against a float64 twin
+     (``DW_TOL`` of the largest value, ATen's float32 backward measured
+     beside), twice bit for bit, each call graphed and timed beside the
+     float32 twin, ATen's backward and forward and the bound
+     (``depthwise_phase``);
 4. DLA-34 train and eval: ``experiment=baseline`` (full width, ``dcn_impl:
    auto``) takes 4 steps at 512 px, batch 16, on one seeded synthetic
    batch, then one eval step at 800 px plus decode, first at float32 and
@@ -52,7 +60,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
    precision: a train step launches ``dcn_sel_fwd``/``dcn_sel_bwd`` once
    (the 1280-channel layer) and the lanes kernels twice (float32:
    ``dcn_fwd``/``dcn_bwd``; bfloat16: the fused pair), an eval the forward
-   kernels only;
+   kernels only; a float32 train step launches each depthwise backward
+   kernel 17 times, a bfloat16 one none;
 6. forced "lanes": DLA-34 at float32 evaluates 1088 px, batch 4, under
    ``set_kernel_version("lanes")``: the layers at W = 272 launch
    ``dcn_wide_fwd`` and the rest ``dcn_fwd``;
@@ -220,7 +229,8 @@ signature's first call runs eagerly, the second captures, later ones
 replay, and the launch counts per step are exact either way. The last lines are a ``{"kernels": [...]}`` JSON line (one
 entry per kernel source, launches summed over phases 4-10 and 12; for
 BatchNorm's, the reduce kernel's in DLA-34's float32 train steps of phases
-4 and 12), the card's
+4 and 12; for the depthwise backward's, the tile kernel's in MobileNetV2's
+float32 train steps of phase 5, 17 a step), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero. ``--json PATH`` also writes every measurement
 to PATH; ``--profile`` adds a torch.profiler breakdown by kernel of two
@@ -321,6 +331,16 @@ SERVE_CALLS = 20
 # train-mode BatchNorm's kernels (ops/batchnorm.py) at every layer shape of
 # these models' 512 px train steps: (label, experiment, batch)
 BN_RUNS = (("dla34", "baseline", TRAIN_BATCH), ("b3", "coco_merged", 8))
+# the depthwise conv's backward kernels (ops/depthwise.py) at every
+# depthwise shape of these models' 512 px train steps: (label, experiment,
+# batch); the kernels' dx and d(weight) within DW_TOL of the largest value
+# of a float64 twin (float32 sums in another order than ATen's)
+DW_RUNS = (("b3", "coco_merged", 8),
+           ("mnv2", "baseline_mobilenet_v2", MNV2_TRAIN_BATCH))
+DW_TOL = 1e-4
+# MobileNetV2's depthwise convs, each launching the two backward kernels
+# once a float32 train step (none at bfloat16)
+MNV2_DEPTHWISE = 17
 # the BatchNorm layers of DLA-34 whose backward a float32 train step runs
 # (55 less the ``project`` ones of ``base.level3`` and ``base.level4``,
 # which reach no loss): each backward kernel launches this many times
@@ -558,6 +578,153 @@ def batchnorm_phase(device):
         records += check_batchnorm(label, shapes, batch, device)
         lines.append(batchnorm_step_line(label, records))
         print(json.dumps({"batchnorm_step": lines[-1]}), flush=True)
+        torch.cuda.empty_cache()
+    return {"shapes": records, "steps": lines}
+
+
+def depthwise_shapes(model, size, device):
+    """{(c, h, w, k, stride, ph, pw): layers} of the convs that take
+    ``ops.depthwise``'s route at ``size`` px, as the kernels see them
+    (after ``SameConv2d``'s uneven pad), from one train-mode forward of one
+    image that takes a gradient."""
+    import torch
+
+    from centernet_uda_torch.ops import depthwise
+
+    shapes, route = {}, depthwise.depthwise_conv2d
+
+    def recorded(x, weight, stride, padding):
+        pair = [v if isinstance(v, (tuple, list)) else (v, v)
+                for v in (stride, padding)]
+        key = (*x.shape[1:], weight.shape[-1], pair[0][0], *pair[1])
+        shapes[key] = shapes.get(key, 0) + 1
+        return route(x, weight, stride, padding)
+
+    depthwise.depthwise_conv2d = recorded
+    try:
+        model.train()
+        model(torch.zeros(1, 3, size, size, device=device))
+    finally:
+        depthwise.depthwise_conv2d = route
+    return shapes
+
+
+def check_depthwise(label, shapes, batch, device):
+    """The depthwise backward kernels at every shape of one model's train
+    step: dx and d(weight) against the float64 twin (``DW_TOL`` of the
+    largest value; the float32 twin's and ATen's errors beside), twice with
+    the same bits, and timed (``graphed_ms``) beside the float32 twin,
+    ATen's backward (``library_bwd_ms``) and forward (``library_fwd_ms``,
+    the forward the layer keeps) and the bounds: one pass reading g and x
+    and writing dx (``bwd_bound_ms``), and two (dx from g, d(weight) from g
+    and x: ``two_pass_bound_ms``), over HBM's bandwidth."""
+    import torch
+    import torch.nn.functional as F
+
+    from centernet_uda_torch.ops import depthwise
+
+    records = []
+    for (c, h, w, k, stride, ph, pw), layers in sorted(shapes.items()):
+        gen = torch.Generator().manual_seed(c * 7919 + h * 31 + k)
+        x = torch.randn(batch, c, h, w, generator=gen).to(device)
+        weight = (torch.randn(c, 1, k, k, generator=gen) / k).to(device)
+        pad = (ph, pw)
+        y = F.conv2d(x, weight, None, stride, pad, 1, c)
+        g = torch.randn(y.shape, generator=gen).to(device)
+        runs = [depthwise.depthwise_backward(x, g, weight, stride, pad)
+                for _ in range(2)]
+        exact = depthwise.backward_plain(x.double(), g.double(),
+                                         weight.double(), stride, pad)
+        twin = depthwise.backward_plain(x, g, weight, stride, pad)
+
+        def aten():
+            return torch.ops.aten.convolution_backward(
+                g, x, weight, None, [stride] * 2, list(pad), [1, 1], False,
+                [0, 0], c, [True, True, False])[:2]
+
+        errs, repeatable = {}, True
+        for i, name in enumerate(("dx", "dweight")):
+            repeatable &= bool(torch.equal(runs[0][i].view(torch.int32),
+                                           runs[1][i].view(torch.int32)))
+            scale = max(1.0, float(exact[i].abs().max()))
+            for who, got in (("kernel", runs[0][i]), ("twin", twin[i]),
+                             ("aten", aten()[i])):
+                errs[f"{who}_{name}"] = float(
+                    (got.double() - exact[i]).abs().max()) / scale
+        worst = max(errs["kernel_dx"], errs["kernel_dweight"])
+        if not repeatable or worst > DW_TOL:
+            raise AssertionError(f"depthwise {label} {(batch, c, h, w, k)} "
+                                 f"stride {stride} pad {pad}: repeatable "
+                                 f"{repeatable}, errors {errs}")
+        in_bytes, out_bytes = 4 * x.numel(), 4 * g.numel()
+        rec = {
+            "path": label, "batch": batch, "c": c, "h": h, "w": w, "k": k,
+            "stride": stride, "pad": list(pad), "layers": layers,
+            "repeatable": repeatable, "max_rel_err": errs,
+            "bwd_ms": graphed_ms(lambda: depthwise.depthwise_backward(
+                x, g, weight, stride, pad)),
+            "twin_bwd_ms": graphed_ms(lambda: depthwise.backward_plain(
+                x, g, weight, stride, pad)),
+            "library_bwd_ms": graphed_ms(aten),
+            "library_fwd_ms": graphed_ms(lambda: F.conv2d(
+                x, weight, None, stride, pad, 1, c)),
+            "bwd_bound_ms": (2 * in_bytes + out_bytes) / PEAK_BYTES * 1e3,
+            "two_pass_bound_ms": (2 * in_bytes + 2 * out_bytes)
+            / PEAK_BYTES * 1e3,
+        }
+        rec["bwd_bandwidth_share"] = rec["bwd_bound_ms"] / rec["bwd_ms"]
+        print(f"depthwise {label} {batch}x{c}x{h}x{w} k{k} s{stride} pad "
+              f"{pad} ({layers} layers): bwd {rec['bwd_ms']:.4f} ms "
+              f"({rec['bwd_bandwidth_share']:.1%} of bound; ATen "
+              f"{rec['library_bwd_ms']:.4f}, twin {rec['twin_bwd_ms']:.3f})"
+              f", forward (ATen) {rec['library_fwd_ms']:.4f}; errors "
+              f"kernel {errs['kernel_dx']:.2e} / {errs['kernel_dweight']:.2e}"
+              f", ATen {errs['aten_dx']:.2e} / {errs['aten_dweight']:.2e}",
+              flush=True)
+        records.append(rec)
+        del x, g, y, runs, exact, twin
+    return records
+
+
+def depthwise_step_line(label, records):
+    """The depthwise backward kernels' ms over one train step of ``label``
+    (each shape's record times its layer count), beside ATen's backward
+    and forward, the twin's and the bounds."""
+    recs = [r for r in records if r["path"] == label]
+
+    def per_step(key):
+        return sum(r[key] * r["layers"] for r in recs)
+
+    line = {"path": label, "layers": sum(r["layers"] for r in recs)}
+    for key in ("bwd_ms", "twin_bwd_ms", "library_bwd_ms", "library_fwd_ms",
+                "bwd_bound_ms", "two_pass_bound_ms"):
+        line[key] = per_step(key)
+    line["bwd_bandwidth_share"] = line["bwd_bound_ms"] / line["bwd_ms"]
+    return line
+
+
+def depthwise_phase(device):
+    """The depthwise conv's backward (``ops/depthwise.py``) at every
+    depthwise shape of EfficientNet-b3 (``experiment=coco_merged``, batch
+    8) and MobileNetV2 (``experiment=baseline_mobilenet_v2``, batch 32) at
+    512 px: ``check_depthwise`` per shape, and per model the sums over a
+    step."""
+    import torch
+
+    from centernet_uda_torch.config import compose
+    from centernet_uda_torch.train import build_trainer
+
+    records, lines = [], []
+    for label, experiment, batch in DW_RUNS:
+        cfg = compose([f"experiment={experiment}", "precision=float32"],
+                      config_dir=str(ROOT / "configs"))
+        net = build_trainer(cfg, device="cuda").backend.module
+        shapes = depthwise_shapes(net, TRAIN_SIZE, device)
+        del net
+        torch.cuda.empty_cache()
+        records += check_depthwise(label, shapes, batch, device)
+        lines.append(depthwise_step_line(label, records))
+        print(json.dumps({"depthwise_step": lines[-1]}), flush=True)
         torch.cuda.empty_cache()
     return {"shapes": records, "steps": lines}
 
@@ -1176,24 +1343,27 @@ def expect(**counts):
 
 
 def train_and_eval(trainer, cfg, data, eval_data, per_step, per_eval,
-                   steps=TRAIN_STEPS, after_step=None, bn_per_step=None):
+                   steps=TRAIN_STEPS, after_step=None, bn_per_step=None,
+                   dw_per_step=None):
     """Phases 4, 5 and 8 for one trainer: ``steps`` train steps, then one
     eval step with decode. ``per_step``/``per_eval`` are the launches each
     kernel must make in one train step / the eval step; every other kernel
     must not launch. ``bn_per_step``, where given, is the launches of each
-    BatchNorm backward kernel a train step (none in eval).
+    BatchNorm backward kernel a train step (none in eval); ``dw_per_step``
+    those of each depthwise backward kernel (``ops/depthwise.py``).
     ``after_step(trainer)``, if given, runs after each train step (outside
     the timed region)."""
     import numpy as np
     import torch
 
-    from centernet_uda_torch.ops import batchnorm, dcn_cuda
+    from centernet_uda_torch.ops import batchnorm, dcn_cuda, depthwise
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
     dcn_cuda.reset_launches()
     batchnorm.reset_launches()
+    depthwise.reset_launches()
     for i in range(steps):
         t0 = time.perf_counter()
         stats = trainer.step(data, is_training=True)["stats"]
@@ -1216,11 +1386,17 @@ def train_and_eval(trainer, cfg, data, eval_data, per_step, per_eval,
     check_bn_launches(f"{steps} train steps",
                       None if bn_per_step is None else bn_per_step * steps)
     bn_launches = dict(batchnorm.LAUNCHES)
+    dw_launches = dict(depthwise.LAUNCHES)
+    if dw_per_step is not None and dw_launches != dict.fromkeys(
+            dw_launches, dw_per_step * steps):
+        raise AssertionError(f"depthwise launches {dw_launches} != "
+                             f"{dw_per_step * steps} each")
     peak = torch.cuda.max_memory_allocated()
     print(f"launches {train_launches}; peak memory {peak / 2**30:.2f} GiB",
           flush=True)
     train = {"step_ms": step_ms, "stats": losses, "launches": train_launches,
-             "bn_launches": bn_launches, "max_memory_allocated": peak}
+             "bn_launches": bn_launches, "dw_launches": dw_launches,
+             "max_memory_allocated": peak}
 
     dcn_cuda.reset_launches()
     batchnorm.reset_launches()
@@ -1786,6 +1962,28 @@ def batchnorm_kernel_line(src, records, label, runs):
         "repeatable": all(r["repeatable"] for r in records),
         "max_abs_err": max(e for r in records
                            for e in r["max_abs_err"].values()),
+        "ms": line["bwd_ms"], "plain_ms": line["twin_bwd_ms"],
+        "bound_ms": line["bwd_bound_ms"], "bound_by": "bytes",
+        "library_ms": line["library_bwd_ms"],
+    }
+
+
+def depthwise_kernel_line(src, records, label, run):
+    """The ``kernels`` entry of the depthwise conv's backward:
+    ``kernel_line``'s fields summed over the layers of one step of
+    ``label``, its launches those of the tile kernel in the main-path
+    ``run`` (a ``depthwise.LAUNCHES``: MobileNetV2's float32 train
+    steps)."""
+    line = depthwise_step_line(label, records)
+    return {
+        "name": "depthwise_bwd", "route": "cuda", "source": src,
+        "replaces": "no TPU kernel: XLA's feature_group_count conv on the "
+                    "TPU",
+        "launches": run["depthwise_bwd_kernel"],
+        "repeatable": all(r["repeatable"] for r in records),
+        "max_rel_err": max(max(r["max_rel_err"]["kernel_dx"],
+                               r["max_rel_err"]["kernel_dweight"])
+                           for r in records),
         "ms": line["bwd_ms"], "plain_ms": line["twin_bwd_ms"],
         "bound_ms": line["bwd_bound_ms"], "bound_by": "bytes",
         "library_ms": line["library_bwd_ms"],
@@ -3371,7 +3569,7 @@ def main(argv=None) -> int:
     import numpy as np
 
     from centernet_uda_torch.config import compose
-    from centernet_uda_torch.ops import batchnorm, dcn_cuda
+    from centernet_uda_torch.ops import batchnorm, dcn_cuda, depthwise
     from centernet_uda_torch.train import build_trainer
 
     report = {}
@@ -3399,6 +3597,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     print(dcn_cuda.compiler_report(dcn_cuda.build_kernels()))
     print(dcn_cuda.compiler_report(batchnorm.build_kernel()))
+    print(dcn_cuda.compiler_report(depthwise.build_kernel()))
     from centernet_uda_torch import native
 
     native.load()
@@ -3515,6 +3714,8 @@ def main(argv=None) -> int:
     report["wide_shapes"] = wide
     phase("BatchNorm kernels against their plain twin")
     report["batchnorm"] = batchnorm_phase(device)
+    phase("depthwise conv backward kernels against their twin")
+    report["depthwise"] = depthwise_phase(device)
 
     rng = np.random.RandomState(int(cfg.seed))
     num_classes = int(cfg.model.backend.params.num_classes)
@@ -3574,7 +3775,8 @@ def main(argv=None) -> int:
             trainer_m, cfg_p, m_data, m_eval_data,
             expect(dcn_sel_fwd=1, dcn_sel_bwd=1, **{lanes_fwd: 2,
                                                     lanes_bwd: 2}),
-            expect(dcn_sel_fwd=1, **{lanes_fwd: 2}))
+            expect(dcn_sel_fwd=1, **{lanes_fwd: 2}),
+            dw_per_step=MNV2_DEPTHWISE if precision == "float32" else 0)
         if args.profile:
             report[f"{key}_profile"] = profile_train_steps(trainer_m, m_data)
         del trainer_m
@@ -3666,8 +3868,11 @@ def main(argv=None) -> int:
         [report["train"]["bn_launches"]]
         + [r[part]["bn_launches"] for r in report["compiled"].values()
            for part in ("eager", "graphed") if "bn_launches" in r[part]]))
+    kernels.append(depthwise_kernel_line(
+        f"{csrc}/depthwise_bwd.cu", report["depthwise"]["shapes"], "b3",
+        report["mnv2_train"]["dw_launches"]))
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
-    if missing or len(kernels) != len(dcn_cuda.SOURCES) + 1:
+    if missing or len(kernels) != len(dcn_cuda.SOURCES) + 2:
         raise AssertionError(f"kernels not launched on a main path: "
                              f"{missing}")
     report["kernels"] = kernels

@@ -2,28 +2,29 @@
 
 The kernels in ``centernet_uda_torch/csrc/`` run only on an H100, and the
 card-only tests (``tests/test_torch_gpu.py``) skip without one. This file
-compiles the same sources (the seven DCN ones and BatchNorm's
-``bn_train.cu``) with the host C++ compiler against
-``EMULATION_HEADER`` below (a CPU emulation of the CUDA subset they use: a
-block's threads as a pool of OS threads, ``__syncthreads`` as a barrier,
-the warp-wide ``mma.sync`` primitives lane by lane; the ``<<<...>>>``
-launches of the sources and of their headers rewritten as calls),
+compiles the same sources (the seven DCN ones, BatchNorm's
+``bn_train.cu`` and the depthwise conv's ``depthwise_bwd.cu``) with the
+host C++ compiler against ``EMULATION_HEADER`` below (a CPU emulation of
+the CUDA subset they use: a block's threads as a pool of OS threads,
+``__syncthreads`` as a barrier, the warp-wide ``mma.sync`` primitives lane
+by lane; the ``<<<...>>>`` launches of the sources and of their headers
+rewritten as calls),
 loads them in place of the ``nvcc`` builds, and runs them through the
 wrappers' launch helpers on CPU tensors at tiny shapes. That holds the
 kernels' indexing, tiling, masking and arithmetic against the twins on every
 CPU run; the card runs show that ``nvcc`` builds them and what they cost.
 The emulation runs a grid's blocks in the order ``DCN_EMU_BLOCK_ORDER``
 names (in order, reversed, or a seeded permutation), and the repeat tests
-run all seven DCN kernels and the BatchNorm backward in three orders: every
-output must have the same bits in each, as a kernel whose sums have one
-order gives them on the card.
+run all seven DCN kernels, the BatchNorm backward and the depthwise
+backward in three orders: every output must have the same bits in each, as
+a kernel whose sums have one order gives them on the card.
 
 Tolerance: that of the card tests, atol 5e-2 * max(1, max|twin|) and rtol
 5e-2, and max |dy| to 1e-5 relative; the operands are the card tests' own
 (the fused ones quantised so that the offset conv is exact in any summation
 order). BatchNorm's backward computes in float32 as its twin does, in
-another order: 1e-4 of the largest value, relative and absolute. It skips
-without a C++20 compiler.
+another order: 1e-4 of the largest value, relative and absolute; so does
+the depthwise backward. It skips without a C++20 compiler.
 """
 
 import re
@@ -33,7 +34,7 @@ import subprocess
 import pytest
 import torch
 
-from centernet_uda_torch.ops import batchnorm, dcn_cuda
+from centernet_uda_torch.ops import batchnorm, dcn_cuda, depthwise
 from centernet_uda_torch.ops.dcn import PALLAS_MAX_SHIFT
 from test_torch_gpu import make_fused_inputs, make_inputs
 
@@ -398,6 +399,7 @@ def emulated_libs(tmp_path_factory):
     sources = {name: dcn_cuda.CSRC / src
                for name, src in dcn_cuda.SOURCES.items()}
     sources[batchnorm.NAME] = batchnorm.SOURCE
+    sources[depthwise.NAME] = depthwise.SOURCE
     for name, src in sources.items():
         cpp = out / f"{name}.cpp"
         cpp.write_text(emulated(src))
@@ -867,3 +869,68 @@ def test_emulated_batchnorm_kernels_match_twin_in_every_order(
                                                 False, 0)
     assert dx is None and torch.equal(bits(dweight), bits(got[1]))
     assert batchnorm.LAUNCHES["bn_train_dx_kernel"] == len(ORDERS)
+
+
+# --- depthwise conv backward (csrc/depthwise_bwd.cu) --------------------------
+
+
+@pytest.fixture
+def emulated_dw(emulated_libs, monkeypatch):
+    """The depthwise library replaced by the CPU build, for one test; a
+    grid of a few blocks, so that tiny maps split into tiles of two cell
+    rows, the last one shorter where the rows do not divide."""
+    monkeypatch.setattr(depthwise, "_LIBS", {})
+    monkeypatch.setattr(depthwise, "_lib_path",
+                        lambda: emulated_libs[depthwise.NAME])
+    monkeypatch.setattr(depthwise, "_TARGET_BLOCKS", 6)
+    monkeypatch.setattr(depthwise, "_MIN_ROWS", 2)
+    depthwise.reset_launches()
+    yield
+    depthwise.reset_launches()
+
+
+def dw_inputs(seed, n, c, h, w, k, stride, padding):
+    """x (N, C, H, W), a (C, 1, k, k) weight and the output's gradient."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, c, h, w, generator=gen)
+    weight = torch.randn(c, 1, k, k, generator=gen)
+    ho = (h + 2 * padding[0] - k) // stride + 1
+    wo = (w + 2 * padding[1] - k) // stride + 1
+    return x, weight, torch.randn(n, c, ho, wo, generator=gen)
+
+
+# (N, C, H, W, k, stride, (ph, pw)), tpp: threads a plane. 8 threads a
+# plane and 32 planes a block, so one block holds both images' planes;
+# SAME's uneven pad as the conv sees it (padded map, padding 0), odd and
+# even; MobileNetV2's stride 2 with padding 1 on an odd map; 5x5 stride 1;
+# a plane of two and of eight warps (the warps' sums in order); uneven
+# padding with stride 2
+DW_SHAPES = [
+    pytest.param((2, 3, 9, 8, 3, 1, (1, 1)), 8,
+                 id="k3s1-planes-across-images"),
+    pytest.param((3, 5, 10, 11, 5, 2, (0, 0)), 8, id="k5s2-same-padded"),
+    pytest.param((2, 3, 9, 9, 3, 2, (0, 0)), 8, id="k3s2-same-padded-odd"),
+    pytest.param((1, 4, 7, 7, 3, 2, (1, 1)), 8, id="k3s2-pad1-odd"),
+    pytest.param((2, 2, 12, 12, 5, 1, (2, 2)), 16, id="k5s1-pad2"),
+    pytest.param((1, 2, 5, 40, 3, 1, (1, 1)), 64, id="k3s1-two-warps"),
+    pytest.param((1, 2, 3, 200, 5, 2, (2, 1)), 128, id="k5s2-four-warps"),
+    pytest.param((1, 2, 4, 300, 3, 1, (0, 1)), 256, id="k3s1-eight-warps"),
+]
+
+
+@pytest.mark.parametrize("shape,tpp", DW_SHAPES)
+def test_emulated_depthwise_kernels_match_twin_in_every_order(
+        emulated_dw, monkeypatch, shape, tpp):
+    """dx and d(weight) within 1e-4 of the twin, the same bits in three
+    launch orders; several row tiles; one launch of each kernel a call."""
+    n, c, h, w, k, stride, padding = shape
+    x, weight, g = dw_inputs(23, *shape)
+    tpp_log2, rows, tiles = depthwise.plan(n, c, h, w, k, stride, *padding)
+    assert 1 << tpp_log2 == tpp and (tiles > 1 or tpp == 128)
+    got = in_orders(monkeypatch, lambda: depthwise._backward_launch(
+        x, g, weight, stride, padding, 0))
+    want = depthwise.backward_plain(x, g, weight, stride, padding)
+    for name, a, b in zip(("dx", "dweight"), got, want):
+        assert_bn_close(a, b, name)
+    assert depthwise.LAUNCHES == dict.fromkeys(depthwise.LAUNCHES,
+                                               len(ORDERS))

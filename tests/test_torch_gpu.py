@@ -1,5 +1,5 @@
-"""Card-only tests: the Hopper DCN and BatchNorm kernels against their
-plain twins.
+"""Card-only tests: the Hopper DCN, BatchNorm and depthwise conv kernels
+against their plain twins.
 
 They need a CUDA card and skip without one. This file imports neither JAX
 nor the JAX package, so on a machine without JAX it runs with
@@ -12,7 +12,7 @@ flip a bf16 rounding of a sample or of g . W^T. Between two calls of a
 kernel on the same inputs there is no tolerance: every sum has a fixed
 order, so they give the same bits. BatchNorm's backward kernels compute
 in float32 as their twin does, in another order: 1e-4 of the largest
-value.
+value; so do the depthwise conv's, held against the float64 twin.
 """
 
 import numpy as np
@@ -1099,3 +1099,140 @@ def test_eager_dla34_step_launches_the_batchnorm_kernels(cuda):
     trainer.step(synthetic_batch(2, 128))
     torch.cuda.synchronize()
     assert batchnorm.LAUNCHES == dict.fromkeys(batchnorm.LAUNCHES, 53)
+
+
+# --- depthwise conv backward (ops/depthwise.py, csrc/depthwise_bwd.cu) -------
+
+
+def b3_depthwise_shapes(size=512):
+    """{(c, h, w, k, stride, (ph, pw)): layers} of EfficientNet-b3's 26
+    depthwise convs at ``size`` px as the kernels see them: the stride-2
+    ones on ``SameConv2d``'s padded map where its pad is uneven."""
+    from centernet_uda_torch.models.common import same_padding
+    from centernet_uda_torch.models.efficientnet import block_specs
+
+    shapes, h = {}, -(-size // 2)
+    for k, cin, _, expand, stride in block_specs("b3"):
+        c, key = cin * expand, None
+        if stride == 1:
+            key = (c, h, h, k, 1, ((k - 1) // 2,) * 2)
+        else:
+            top, bottom = same_padding(h, k, 2)
+            if top == bottom:
+                key = (c, h, h, k, 2, (top, top))
+            else:
+                key = (c, h + top + bottom, h + top + bottom, k, 2, (0, 0))
+            h = -(-h // 2)
+        shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def mnv2_depthwise_shapes(size=512):
+    """The same for MobileNetV2's 17 depthwise 3x3 convs (padding 1)."""
+    from centernet_uda_torch.models.mobilenetv2 import (
+        INVERTED_RESIDUAL_CFG,
+    )
+
+    shapes, h, cin = {}, size // 2, 32
+    for expand, cout, n, s in INVERTED_RESIDUAL_CFG:
+        for i in range(n):
+            stride = s if i == 0 else 1
+            key = (cin * expand, h, h, 3, stride, (1, 1))
+            shapes[key] = shapes.get(key, 0) + 1
+            h, cin = (h - 1) // stride + 1, cout
+    return shapes
+
+
+# b3 at batch 8, MobileNetV2 at batch 32 (their recipes' batches), 512 px
+DW_CARD_SHAPES = ([(8,) + key for key in b3_depthwise_shapes()]
+                  + [(32,) + key for key in mnv2_depthwise_shapes()])
+
+
+@pytest.mark.parametrize("shape", DW_CARD_SHAPES, ids=lambda s: "x".join(
+    map(str, s[:5])) + f"-s{s[5]}-p{s[6][0]}{s[6][1]}")
+def test_depthwise_kernels_match_twin_and_aten_and_repeat(cuda, shape):
+    """dx and d(weight) of the kernels within 1e-4 of the largest value of
+    the float64 twin, as ATen's float32 backward is (both sum in float32,
+    each in its own order, up to 524 k products a d(weight) value); 5
+    calls the same bits; one launch of each kernel a call."""
+    from centernet_uda_torch.ops import depthwise
+
+    n, c, h, w, k, stride, pad = shape
+    gen = torch.Generator().manual_seed(c + h)
+    x = torch.randn(n, c, h, w, generator=gen).to(cuda)
+    weight = (torch.randn(c, 1, k, k, generator=gen) / k).to(cuda)
+    y = torch.nn.functional.conv2d(x, weight, None, stride, pad, 1, c)
+    g = torch.randn(y.shape, generator=gen).to(cuda)
+    depthwise.reset_launches()
+    runs = [depthwise.depthwise_backward(x, g, weight, stride, pad)
+            for _ in range(REPEAT_CALLS)]
+    torch.cuda.synchronize()
+    assert depthwise.LAUNCHES == dict.fromkeys(depthwise.LAUNCHES,
+                                               REPEAT_CALLS)
+    exact = depthwise.backward_plain(x.double(), g.double(), weight.double(),
+                                     stride, pad)
+    aten = torch.ops.aten.convolution_backward(
+        g, x, weight, None, [stride] * 2, list(pad), [1, 1], False, [0, 0],
+        c, [True, True, False])[:2]
+    for i, name in enumerate(("dx", "dweight")):
+        for run in runs[1:]:
+            assert torch.equal(bits(runs[0][i]), bits(run[i])), name
+        scale = max(1.0, float(exact[i].abs().max()))
+        for who, got in (("kernel", runs[0][i]), ("aten", aten[i])):
+            err = float((got.double() - exact[i]).abs().max())
+            assert err <= 1e-4 * scale, f"{who} {name}: max|err| {err}"
+
+
+def test_depthwise_layer_captures_and_replays(cuda):
+    """A depthwise ``Conv2d`` (5x5) and a ``SameConv2d`` (3x3, stride 2)
+    forward and backward under ``StepGraphs``: eager, captured and
+    replayed, replayed, on new inputs each call; every call's output and
+    gradients the bits of an eager call, and the replays count the
+    kernels' launches."""
+    from centernet_uda_torch.models.common import Conv2d, SameConv2d
+    from centernet_uda_torch.ops import depthwise
+    from centernet_uda_torch.utils.graphs import StepGraphs
+
+    torch.manual_seed(13)
+    convs = [Conv2d(48, 48, 5, padding=2, groups=48, bias=False).to(cuda),
+             SameConv2d(48, 48, 3, 2, groups=48, bias=False).to(cuda)]
+
+    def step(inputs):
+        x = inputs["x"].detach().requires_grad_(True)
+        y = convs[1](convs[0](x))
+        grads = torch.autograd.grad(
+            y, (x, convs[0].weight, convs[1].weight), inputs["g"])
+        return (y.detach(),) + grads
+
+    graphs = StepGraphs(cuda)
+    gen = torch.Generator().manual_seed(17)
+    for call in range(3):
+        inputs = {"x": torch.randn(4, 48, 40, 40, generator=gen),
+                  "g": torch.randn(4, 48, 20, 20, generator=gen)}
+        depthwise.reset_launches()
+        got = graphs("dw", step, inputs)
+        torch.cuda.synchronize()
+        assert depthwise.LAUNCHES == dict.fromkeys(depthwise.LAUNCHES, 2)
+        want = step({k: v.to(cuda) for k, v in inputs.items()})
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert torch.equal(bits(a), bits(b)), (call, i)
+    assert graphs.calls == {"eager": 1, "captures": 1, "replays": 2}
+
+
+def test_b3_step_launches_the_depthwise_kernels(cuda):
+    """One eager EfficientNet-b3 forward and backward (skips, train mode,
+    float32, 128 px, batch 2) back-propagates its 26 depthwise convs
+    through the kernels: 26 launches of each; the stem and every other
+    conv keep ATen or cuDNN."""
+    from centernet_uda_torch.models import efficientnet
+    from centernet_uda_torch.ops import depthwise
+
+    net = efficientnet.CenterEfficientNet(
+        "b3", {"hm": 6, "wh": 3, "reg": 2, "kps": 10}, use_skip=True,
+        generator=torch.Generator().manual_seed(3)).to(cuda).train()
+    x = torch.randn(2, 3, 128, 128, device=cuda)
+    depthwise.reset_launches()
+    loss = sum(v.square().mean() for v in net(x).values())
+    loss.backward()
+    torch.cuda.synchronize()
+    assert depthwise.LAUNCHES == dict.fromkeys(depthwise.LAUNCHES, 26)
