@@ -21,16 +21,34 @@ A depthwise conv that ``ops.depthwise.takes_kernel`` accepts takes its
 gradients from the hand-written kernels of ``ops.depthwise`` (the forward
 stays ``F.conv2d``). Every other shape, and every dtype but float32, runs
 cuDNN as it is; so does any conv on the CPU, or with no gradient to take.
+
+``ROUTES`` counts the calls of ``conv2d`` on the card with a gradient to
+take by the route each took (``cudnn``, ``s1x4``, ``native_w``,
+``depthwise``), at eager calls and at a CUDA graph's capture (a replay
+adds nothing); ``reset_routes`` zeroes it. ``SameConv2d`` calls
+``F.conv2d`` itself and is not counted.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from centernet_uda_torch.ops import depthwise
+
+ROUTES: Dict[str, int] = {"cudnn": 0, "s1x4": 0, "native_w": 0,
+                          "depthwise": 0}
+
+
+def reset_routes() -> None:
+    for name in ROUTES:
+        ROUTES[name] = 0
+
+
+def _on_card(x) -> bool:
+    return x.is_cuda
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -118,12 +136,14 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, stride=1, padding=0,
     take goes through ``ops.depthwise`` (depthwise convs) or the routes of
     ``routes``."""
     if depthwise.takes_kernel(x, weight, stride, padding, dilation, groups):
+        ROUTES["depthwise"] += 1
         return depthwise.depthwise_conv2d(x, weight, stride, padding)
-    if (x.is_cuda and x.dtype == torch.float32 and torch.is_grad_enabled()
+    if (_on_card(x) and x.dtype == torch.float32 and torch.is_grad_enabled()
             and (x.requires_grad or weight.requires_grad)
             and not isinstance(padding, str)):
         s1x4, native_w = routes(x.shape, weight.shape, stride, padding,
                                 dilation, groups)
+        ROUTES["s1x4" if s1x4 else "native_w" if native_w else "cudnn"] += 1
         if s1x4 or native_w:
             return _Conv2dFn.apply(x, weight, stride, padding, dilation,
                                    groups, s1x4, native_w)

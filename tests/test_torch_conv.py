@@ -3,7 +3,12 @@ CPU, in float64: the stride-2 data gradient as four stride-1 convs and the
 weight gradient with cuDNN off against ATen's own, the routes each
 DLA-34 float32 shape takes, and the ``Conv2d`` module on them. On the CPU
 ``conv2d`` is plain ``F.conv2d``; the routes are driven here through their
-autograd function, and on the card by ``tests/test_torch_gpu.py``."""
+autograd function, and on the card by ``tests/test_torch_gpu.py``. Then
+``ROUTES``, counted with the card stood in for (``_on_card``), and the
+route of every conv of the benchmark's three train nets at their cells'
+sizes, walked on the ``meta`` device."""
+
+from pathlib import Path
 
 import pytest
 import torch
@@ -108,3 +113,80 @@ def test_conv2d_module_matches_nn_conv2d():
     ref.load_state_dict(mod.state_dict())
     x = torch.randn(2, 8, 17, 17)
     torch.testing.assert_close(mod(x), ref(x), rtol=1e-6, atol=1e-6)
+
+
+def test_routes_counts_each_card_call_by_its_route(monkeypatch):
+    """``ROUTES`` counts a call of ``conv2d`` on the card with a gradient to
+    take by the route it took, and ``reset_routes`` zeroes it; a call with
+    no gradient to take, or on the CPU, is not counted. The card is stood
+    in for by ``_on_card``; the routes then run on the CPU."""
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn(1, 8, 64, 64, generator=gen, requires_grad=True)
+    thin = torch.randn(8, 8, 3, 3, generator=gen, requires_grad=True)
+    point = torch.randn(16, 8, 1, 1, generator=gen, requires_grad=True)
+    conv.reset_routes()
+    conv.conv2d(x, thin, 2, 1)
+    assert conv.ROUTES == dict.fromkeys(conv.ROUTES, 0)
+    monkeypatch.setattr(conv, "_on_card", lambda t: True)
+    conv.conv2d(x, thin, 2, 1)  # s1x4: 3x3 stride 2 on 64 x 64
+    conv.conv2d(x, point, 1, 0)  # native_w: 1x1 on 64 x 64
+    conv.conv2d(x, point, 1, 0)
+    conv.conv2d(x, thin, 1, 2, 2)  # cuDNN: dilated
+    with torch.no_grad():
+        conv.conv2d(x, thin, 1, 1)
+    conv.conv2d(x.detach(), thin.detach(), 1, 1)
+    assert conv.ROUTES == {"cudnn": 1, "s1x4": 1, "native_w": 2,
+                           "depthwise": 0}
+    conv.reset_routes()
+    assert conv.ROUTES == dict.fromkeys(conv.ROUTES, 0)
+
+
+# each route's calls in one train-mode forward of the benchmark's train
+# cells' nets at 512 px and their batches (SameConv2d calls F.conv2d and is
+# not counted: ResNet's three stride-2 3x3 convs and b3's four stride-2
+# depthwise convs)
+NET_ROUTES = {
+    "rotated": (16, {"cudnn": 42, "s1x4": 0, "native_w": 65,
+                     "depthwise": 0}),
+    "baseline": (16, {"cudnn": 26, "s1x4": 4, "native_w": 15,
+                      "depthwise": 0}),
+    "coco_merged": (8, {"cudnn": 63, "s1x4": 0, "native_w": 50,
+                        "depthwise": 22}),
+}
+
+
+@pytest.mark.parametrize("experiment", sorted(NET_ROUTES))
+def test_route_of_every_conv_of_the_benchmarks_nets(experiment,
+                                                    monkeypatch):
+    """ResNet-101 (``rotated``), DLA-34 (``baseline``) and
+    EfficientNet-b3 (``coco_merged``) in float32, built on the ``meta``
+    device (shapes only) with the card stood in for, one train-mode forward
+    at 512 px: the count of each route. ResNet-101's weight gradients of
+    its stride-1 1x1 convs on maps of 32 x 32 or more leave cuDNN (46 in
+    stage 3's 23 blocks, 65 in all with the heads' 1x1 convs); no conv of
+    it takes ``s1x4``, since its stride-2 3x3 convs pad "SAME" in
+    ``SameConv2d``. DLA-34's and b3's counts pin their cells' routes."""
+    from centernet_uda_torch import models
+    from centernet_uda_torch.config import compose
+    from centernet_uda_torch.models.common import SameConv2d
+    from centernet_uda_torch.ops import depthwise
+
+    batch, want = NET_ROUTES[experiment]
+    root = Path(__file__).resolve().parents[1]
+    cfg = compose([f"experiment={experiment}", "precision=float32"],
+                  config_dir=str(root / "configs"))
+    params = {**cfg.model.backend.params.to_dict(), "device": "meta",
+              "dcn_impl": "xla"}
+    net = models.build(cfg.model.backend.name, **params).module.train()
+    monkeypatch.setattr(conv, "_on_card", lambda t: True)
+    monkeypatch.setattr(depthwise, "_on_card", lambda t: True)
+    conv.reset_routes()
+    net(torch.zeros(batch, 3, 512, 512, device="meta"))
+    got = dict(conv.ROUTES)
+    conv.reset_routes()
+    assert got == want
+    if experiment == "rotated":
+        same = [m for m in net.modules() if isinstance(m, SameConv2d)]
+        assert len(same) == 3
+        assert sum(isinstance(m, torch.nn.Conv2d) for m in net.modules()) \
+            == sum(want.values()) + len(same)

@@ -280,6 +280,8 @@ BENCHMARK_FLOPS = {
     ("dla34_entmin", 512): 65_578_729_472,
     ("b3_coco_merged", 64): 1_591_844_608,
     ("b3_coco_merged", 512): 101_643_739_264,
+    ("resnet101_rotated", 64): 1_735_098_368,
+    ("resnet101_rotated", 512): 111_046_295_552,
 }
 
 

@@ -1236,3 +1236,39 @@ def test_b3_step_launches_the_depthwise_kernels(cuda):
     loss.backward()
     torch.cuda.synchronize()
     assert depthwise.LAUNCHES == dict.fromkeys(depthwise.LAUNCHES, 26)
+
+
+def test_resnet101_captured_step_routes(cuda):
+    """One captured float32 train step of ResNet-101 with rotated boxes
+    (``experiment=rotated``, 512 px, batch 2): ``ops.conv.ROUTES`` counts
+    each conv of ``Conv2d`` by its route at the capture, none at a replay.
+    The weight gradients of the 65 stride-1 1x1 convs on maps of 32 x 32
+    or more leave cuDNN (``native_w``); the 42 other ``Conv2d`` calls keep
+    it; the three stride-2 3x3 ``SameConv2d`` convs are not counted."""
+    from pathlib import Path
+
+    from centernet_uda_torch.config import compose
+    from centernet_uda_torch.ops import conv
+    from centernet_uda_torch.train import build_trainer
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = compose(["experiment=rotated", "precision=float32", "batch_size=2"],
+                  config_dir=str(root / "configs"))
+    trainer = build_trainer(cfg, device="cuda")
+    trainer.init_done()
+    batch = synthetic_batch(2, 512)
+    angle = np.random.RandomState(1).uniform(-90, 90, batch["wh"].shape[:2])
+    batch["wh"] = np.concatenate(
+        [batch["wh"], angle[..., None].astype(np.float32)], -1)
+    trainer.step(batch)
+    conv.reset_routes()
+    trainer.step(batch)
+    captured = dict(conv.ROUTES)
+    trainer.step(batch)
+    torch.cuda.synchronize()
+    print(f"ResNet-101 captured train step: ops.conv.ROUTES {captured}")
+    assert trainer.step_graphs.calls == {"eager": 1, "captures": 1,
+                                         "replays": 2}
+    assert captured == {"cudnn": 42, "s1x4": 0, "native_w": 65,
+                        "depthwise": 0}
+    assert conv.ROUTES == captured
